@@ -27,6 +27,8 @@ def pytest_configure(config):
         "markers",
         "slow: long-running differential/fuzz cases; deselect with "
         "-m 'not slow' for the fast local loop (CI runs the full suite)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips elsewhere")
 
 
 def pytest_report_header(config):
