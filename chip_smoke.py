@@ -8,23 +8,35 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. Device: require CUDA; print the card's name and power limit; turn TF32
    and reduced-precision half reductions off (the ``full`` policy means
    real f32, and the reference accumulates half products in f32).
-2. Build: compile the hand-written spectral-contraction kernel for
-   ``sm_90a`` from the sources in this checkout; print ptxas's report.
-3. Kernel vs plain: the CUDA kernel against its plain PyTorch version on
-   the card, at the serving path's shape and a ragged one, in the path's
-   three modes, within ``4ε_out·M + 32·ε_f32·M + 1e-5`` elementwise.
-4. The slice: serve the full-width Darcy FNO (``FNO_DARCY``) through
+2. Build: compile the hand-written spectral-contraction kernels (the
+   forward source and the backward source, one ``nvcc`` each, started
+   together) for ``sm_90a`` from the sources in this checkout; print each
+   ptxas report.
+3. Kernels vs plain: the forward kernel and the two backward kernels
+   against their plain PyTorch versions on the card, at the path's shape
+   and a ragged one, in the path's three modes, within
+   ``4ε·M + 32·ε_f32·M + 1e-5`` elementwise (ε of the forward's output
+   format; ε_f32 for the gradients, which are f32 sums stored at f32).
+4. Serving: serve the full-width Darcy FNO (``FNO_DARCY``) through
    ``OperatorEngine(max_batch=8)`` under ``mixed_fno_bf16`` and ``full``:
    16 GRF fields at 128x128 and 8 at 421x421, two rounds (the first warms
    cuFFT plans and cuBLAS).  Outputs finite and shaped; 8 kernel launches
    per micro-batch; a re-served field through a fresh engine bit-identical
    to its batched answer; one 128x128 field against the same weights run
    on the CPU.
-5. Numbers: the kernel's time (CUDA graph of many launches, operands
+5. Training: 32 Darcy pairs at 128x128 from the ported CG solver on the
+   card; ``FNO_DARCY`` trained 12 steps in batches of 8 under the paper's
+   schedule (``paper_default("bf16")``: 3 mixed, 6 AMP, 3 full).  Losses
+   finite and falling, the schedule followed, no skipped step, 8 forward,
+   8 bwd_x and 8 bwd_w launches per step; a restore of the step-6
+   checkpoint reruns step 7 bit-identically; one step's gradients on the
+   card against the CPU; a 4-step fp16 run with its loss scale accounted.
+6. Numbers: each kernel's time (CUDA graph of many launches, operands
    cycled through more than L2 holds) beside its bound, its plain
    version's and ``torch.einsum``'s on complex64; engine fields/s and ms
-   per micro-batch per resolution; a profiler breakdown of one micro-batch
-   per resolution and policy; peak device memory.
+   per micro-batch per resolution; ms per training step, fields/s and peak
+   memory per policy; profiler breakdowns of serving micro-batches and of
+   a ``mixed_fno_bf16`` and a ``full`` training step; peak device memory.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -32,7 +44,9 @@ The line before the last is ``{"kernels": [...]}``; the last is
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -47,6 +61,11 @@ RESOLUTIONS = ((128, 16), (421, 8))      # (grid, fields)
 MAX_BATCH = 8
 PATH_SHAPE = (8, 64, 64, 1024)           # (B, I, O, M) of every launch on the path
 RAGGED_SHAPE = (3, 24, 40, 300)
+#: (cast_to, out_dtype) of the kernels' three modes on the paths
+MODES = ((None, torch.float32), (torch.bfloat16, torch.bfloat16),
+         (torch.float16, torch.float16))
+TRAIN_GRID, TRAIN_FIELDS, TRAIN_BATCH, TRAIN_STEPS = 128, 32, 8, 12
+CG_MAXITER = 1000
 #: H100 SXM data sheet: HBM rate and f32 (non-tensor-core) peak
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -90,9 +109,12 @@ def device_phase():
 # -- phase 2 ------------------------------------------------------------------
 def build_phase(sc):
     t0 = time.perf_counter()
-    lib, report = sc.build()
-    print(report.strip(), flush=True)
-    emit("build", library=str(lib.relative_to(ROOT)), seconds=time.perf_counter() - t0)
+    with ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(sc.build, (sc.SOURCE, sc.SOURCE_BWD)))
+    for lib, report in built:
+        print(report.strip(), flush=True)
+    emit("build", libraries=[str(lib.relative_to(ROOT)) for lib, _ in built],
+         seconds=time.perf_counter() - t0)
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -108,13 +130,11 @@ def kernel_phase(sc):
     from repro_torch.core.precision import FORMAT_EPS, dtype_name
     from repro_torch.core.theory import contract_budget
 
-    modes = [(None, torch.float32), (torch.bfloat16, torch.bfloat16),
-             (torch.float16, torch.float16)]
     worst = 0.0
     for k, shape in enumerate((PATH_SHAPE, RAGGED_SHAPE)):
         ops = operands(shape, SEED + k)
         mag = sc.contract_magnitude(*ops)
-        for cast_to, out_dtype in modes:
+        for cast_to, out_dtype in MODES:
             kr, ki = sc.spectral_contract_dense(*ops, cast_to=cast_to, out_dtype=out_dtype)
             torch.cuda.synchronize()
             pr, pi = sc.spectral_contract_plain(*ops, cast_to=cast_to, out_dtype=out_dtype)
@@ -130,6 +150,54 @@ def kernel_phase(sc):
                      f"{cast_to}->{out_dtype}: exceeds the budget by {excess:.3e}")
             if shape == PATH_SHAPE:
                 worst = max(worst, err)
+    return worst
+
+
+def cotangent(shape, dtype, seed):
+    B, _, O, M = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [(0.5 * torch.randn(B, O, M, generator=g, device="cuda")).to(dtype)
+            for _ in range(2)]
+
+
+def bwd_magnitudes(xr, xi, wr, wi, gr, gi):
+    """Σ_o |g||w| and Σ_b |x||g|: what each gradient's tolerance scales with."""
+    absg = torch.hypot(gr.float(), gi.float())
+    return (torch.einsum("bom,iom->bim", absg, torch.hypot(wr, wi)),
+            torch.einsum("bim,bom->iom", torch.hypot(xr, xi), absg))
+
+
+def backward_kernel_phase(sc):
+    """dense_bwd_x and dense_bwd_w against their plain versions; returns
+    each kernel's worst max-abs error at the path's shape."""
+    from repro_torch.core.precision import FORMAT_EPS
+    from repro_torch.core.theory import contract_budget
+
+    worst = {"bwd_x": 0.0, "bwd_w": 0.0}
+    for k, shape in enumerate((PATH_SHAPE, RAGGED_SHAPE)):
+        ops = operands(shape, SEED + 10 + k)
+        for cast_to, out_dtype in MODES:
+            g = cotangent(shape, out_dtype, SEED + 20 + k)
+            mags = bwd_magnitudes(*ops, *g)
+            kernel = {"bwd_x": sc._launch_bwd_x(*g, ops[2], ops[3], cast_to),
+                      "bwd_w": sc._launch_bwd_w(ops[0], ops[1], *g, cast_to)}
+            torch.cuda.synchronize()
+            plain = {"bwd_x": sc.spectral_contract_bwd_x_plain(*g, ops[2], ops[3], cast_to=cast_to),
+                     "bwd_w": sc.spectral_contract_bwd_w_plain(ops[0], ops[1], *g, cast_to=cast_to)}
+            torch.cuda.synchronize()
+            for (name, (kr, ki)), mag in zip(kernel.items(), mags):
+                pr, pi = plain[name]
+                diff = torch.hypot(kr - pr, ki - pi)
+                budget = contract_budget(FORMAT_EPS["float32"], mag)
+                err, excess = diff.max().item(), (diff - budget).max().item()
+                emit("kernel_vs_plain", kernel=name, shape=list(shape), cast_to=str(cast_to),
+                     g_dtype=str(out_dtype), max_abs_err=err,
+                     max_excess_over_budget=excess, ok=excess <= 0)
+                if excess > 0:
+                    fail(f"{name} disagrees with its plain version at {shape} "
+                         f"{cast_to}/{out_dtype}: exceeds the budget by {excess:.3e}")
+                if shape == PATH_SHAPE:
+                    worst[name] = max(worst[name], err)
     return worst
 
 
@@ -163,19 +231,16 @@ def check_outputs(reqs, cfg):
             fail(f"request {r.uid}: non-finite output")
 
 
-def profile_tick(engine, fields):
-    """One micro-batch under the profiler: wall ms, device-busy ms and the
+def profiled(fn):
+    """Run ``fn`` under the profiler: wall ms (host clock, ending in a
+    synchronise), device-busy ms, the spectral kernels' ms and the top
     kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve import FieldRequest
-
-    for i, x in enumerate(fields):
-        engine.submit(FieldRequest(uid=10_000 + i, x=x))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.tick()
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -187,15 +252,25 @@ def profile_tick(engine, fields):
             continue
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    spectral = sum(v for k, v in by_name.items() if "dense_fwd_kernel" in k)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    spectral = {k: sum(v for n, v in by_name.items() if k in n)
+                for k in ("dense_fwd_kernel", "dense_bwd_x_kernel", "dense_bwd_w_kernel")}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "spectral_kernel_ms": spectral,
             "top": [[name[:90], ms] for name, ms in top]}
 
 
-def slice_phase(sc):
+def profile_tick(engine, fields):
+    """One micro-batch under the profiler."""
+    from repro_torch.serve import FieldRequest
+
+    for i, x in enumerate(fields):
+        engine.submit(FieldRequest(uid=10_000 + i, x=x))
+    return profiled(engine.tick)
+
+
+def serve_phase(sc):
     from repro_torch.configs.fno_paper import FNO_DARCY
     from repro_torch.data import grf_2d
     from repro_torch.models import fno_infer, init_fno, param_count
@@ -214,7 +289,7 @@ def slice_phase(sc):
               for n, count in RESOLUTIONS}
     emit("setup", params=param_count(net), seconds=time.perf_counter() - t0)
 
-    sc.launches = 0          # the main path's run starts here
+    sc.launches = 0          # the serving path's run starts here
     ticks = 0
     served, stats, profiles = {}, {}, {}
     for pname in POLICIES:
@@ -251,7 +326,7 @@ def slice_phase(sc):
             ticks += len(times)
             if not np.array_equal(sr.y, served[pname][n][idx]):
                 fail(f"{pname} {n}x{n}: re-served field differs from its batched answer")
-    launches = sc.launches   # the main path's run ends here
+    launches = sc.launches   # the serving path's run ends here
     emit("launches", launches=launches, micro_batches=ticks,
          per_micro_batch=launches / ticks)
     if launches != per_batch * ticks:
@@ -279,6 +354,190 @@ def slice_phase(sc):
 
 
 # -- phase 5 ------------------------------------------------------------------
+def darcy_data():
+    """32 Darcy pairs at 128x128 from the ported CG solver on the card, as
+    host numpy arrays, and each field's final relative residual
+    ``‖1 − A u‖/‖1‖`` recomputed from the unwhitened solution."""
+    from repro_torch.data import darcy_matvec, sample_darcy_batch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a, u = sample_darcy_batch(torch.Generator().manual_seed(SEED), TRAIN_GRID,
+                              TRAIN_FIELDS, maxiter=CG_MAXITER)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    a_raw, u_raw = a[:, 0] * 4.5 + 7.5, u[:, 0] * 5e-3 + 5e-3
+    r = 1.0 - darcy_matvec(a_raw, u_raw)
+    resid = (torch.linalg.vector_norm(r, dim=(-2, -1)) / TRAIN_GRID).cpu().numpy()
+    if not (torch.isfinite(a).all() and torch.isfinite(u).all()):
+        fail("non-finite Darcy data")
+    emit("darcy_data", fields=TRAIN_FIELDS, grid=TRAIN_GRID, cg_maxiter=CG_MAXITER,
+         seconds=seconds, worst_rel_residual=float(resid.max()),
+         median_rel_residual=float(np.median(resid)))
+    return {"a": a.cpu().numpy(), "u": u.cpu().numpy()}
+
+
+def loss_fn(model, batch, policy):
+    from repro_torch.models import fno_apply
+    from repro_torch.train import relative_l2
+
+    return relative_l2(fno_apply(model, batch["a"], policy), batch["u"])
+
+
+def leaf_grads(model, batch, policy):
+    loss = loss_fn(model, batch, policy)
+    names = [k for k, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+    return {k: g.detach().cpu().numpy() for k, g in zip(names, grads)}
+
+
+def grad_parity(net_cpu, data):
+    """One step's gradients on the card against the CPU, same weights and
+    2 fields at 128x128.  Limits per leaf: 1e-4 relative L2 under full;
+    1/4 of the card's own mixed-vs-full gradient gap under
+    mixed_fno_bf16."""
+    import copy
+
+    from repro_torch.precision import get_policy
+
+    net_gpu = copy.deepcopy(net_cpu).cuda()
+    batch = {k: torch.from_numpy(v[:2]) for k, v in data.items()}
+    got, gap, limits = {}, {}, {}
+    g = {}
+    for pname in ("full", "mixed_fno_bf16"):
+        g[("cuda", pname)] = leaf_grads(net_gpu, {k: v.cuda() for k, v in batch.items()},
+                                        get_policy(pname))
+        g[("cpu", pname)] = leaf_grads(net_cpu, batch, get_policy(pname))
+    for pname in ("full", "mixed_fno_bf16"):
+        for leaf, want in g[("cpu", pname)].items():
+            err = rel_l2(g[("cuda", pname)][leaf], want)
+            if pname == "full":
+                limit = 1e-4
+            else:
+                gap[leaf] = rel_l2(g[("cuda", pname)][leaf], g[("cuda", "full")][leaf])
+                limit = 0.25 * gap[leaf]
+            got[f"{pname}/{leaf}"] = err
+            limits[f"{pname}/{leaf}"] = limit
+    emit("train_grad_card_vs_cpu", rel_l2=got, limits=limits, mixed_vs_full_gap=gap)
+    for key, err in got.items():
+        if not err <= limits[key]:
+            fail(f"{key}: card vs CPU gradient relative L2 {err:.3e} > {limits[key]:.3e}")
+
+
+def train_phase(sc):
+    """The training slice; returns the launches of each kernel in the
+    main run and the numbers to report."""
+    from repro_torch.configs.fno_paper import FNO_DARCY
+    from repro_torch.core.schedule import PrecisionSchedule
+    from repro_torch.data import CachedDataset
+    from repro_torch.models import init_fno
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = FNO_DARCY
+    per_step = cfg.n_layers * 2 ** (cfg.ndim - 1)
+    data = darcy_data()
+    loader = CachedDataset(data, TRAIN_BATCH, seed=SEED)
+    net_cpu = init_fno(torch.Generator().manual_seed(SEED + 1), cfg, device="cpu")
+    schedule = PrecisionSchedule.paper_default("bf16")
+    want = [schedule.policy_at(s, TRAIN_STEPS).name for s in range(TRAIN_STEPS)]
+    if want != ["mixed_fno_bf16"] * 3 + ["amp_bf16"] * 6 + ["full"] * 3:
+        fail(f"unexpected schedule {want}")
+    peaks = {}
+
+    def batch_fn(step):
+        # the previous step's peak, then a fresh window for this step
+        if step - 1 not in peaks and step > 0:
+            peaks[step - 1] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return loader.batch_at(step)
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        tcfg = TrainerConfig(total_steps=TRAIN_STEPS, schedule=schedule, ckpt_dir=ckpt,
+                             ckpt_every=6, keep_last_k=3)
+        trainer = Trainer(loss_fn, net_cpu, tcfg)
+        sc.launches = sc.launches_bwd_x = sc.launches_bwd_w = 0   # the main run starts
+        trainer.run(batch_fn, steps=7)
+        # on the host, so the snapshot does not count in later steps' peaks
+        after7 = {k: p.detach().cpu() for k, p in trainer.params.items()}
+        trainer.run(batch_fn)
+        torch.cuda.synchronize()
+        launches = {"fwd": sc.launches, "bwd_x": sc.launches_bwd_x,
+                    "bwd_w": sc.launches_bwd_w}                # the main run ends
+        peaks[TRAIN_STEPS - 1] = torch.cuda.max_memory_allocated()
+        hist = trainer.history
+        emit("train_launches", steps=len(hist), launches=launches,
+             per_step={k: v / len(hist) for k, v in launches.items()})
+        for name, n in launches.items():
+            if n != per_step * TRAIN_STEPS:
+                fail(f"{name}: {n} launches in {TRAIN_STEPS} steps, want {per_step} per step")
+        losses = [h["loss"] for h in hist]
+        if [h["policy"] for h in hist] != want:
+            fail(f"policies {[h['policy'] for h in hist]} do not follow the schedule {want}")
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            fail(f"losses not finite and falling: {losses}")
+        if trainer.stats["skipped_steps"]:
+            fail(f"{trainer.stats['skipped_steps']} skipped steps under bf16")
+
+        # the step-6 checkpoint, restored into a fresh trainer, reruns step 7
+        resumed = Trainer(loss_fn, net_cpu, tcfg)
+        if not resumed.restore(step=6) or resumed.step != 6:
+            fail("the step-6 checkpoint did not restore")
+        resumed.run(batch_fn, steps=7)
+        torch.cuda.synchronize()
+        differ = [k for k, p in after7.items()
+                  if not torch.equal(p, resumed.params[k].detach().cpu())]
+        emit("train_restore", restored_step=6, rerun_step=7, bit_identical=not differ,
+             differing_leaves=differ)
+        if differ:
+            fail(f"step 7 after restoring step 6 differs in {differ}")
+
+    steps = [{"step": h["step"], "policy": h["policy"], "loss": h["loss"],
+              "ms": h["dt"] * 1e3, "fields_per_s": TRAIN_BATCH / h["dt"],
+              "peak_mem_bytes": peaks.get(h["step"])} for h in hist]
+    for row in steps:
+        emit("train_step", **row)
+    by_policy = {}
+    for pname in ("mixed_fno_bf16", "amp_bf16", "full"):
+        rows = [r for r in steps if r["policy"] == pname and r["step"] > 0]
+        ms = float(np.median([r["ms"] for r in rows]))
+        by_policy[pname] = {"steps": len(rows), "median_ms_per_step": ms,
+                            "fields_per_s": TRAIN_BATCH / (ms / 1e3),
+                            "peak_mem_bytes": max(r["peak_mem_bytes"] for r in rows)}
+        emit("train_policy", policy=pname, **by_policy[pname])
+
+    grad_parity(net_cpu, data)
+
+    # a short fp16 run: the loss scale stays finite and every skipped step
+    # halved it once
+    fp16 = Trainer(loss_fn, net_cpu, TrainerConfig(
+        total_steps=4, schedule=PrecisionSchedule.paper_default("fp16")))
+    fp16.run(loader.batch_at)
+    scale = float(fp16.scale_state.scale)
+    skipped = sum(not h["finite"] for h in fp16.history)
+    emit("train_fp16", policies=[h["policy"] for h in fp16.history],
+         losses=[h["loss"] for h in fp16.history], loss_scale=scale,
+         skipped_steps=fp16.stats["skipped_steps"])
+    if not np.isfinite(scale) or fp16.stats["skipped_steps"] != skipped or \
+            scale != 2.0 ** 15 * 0.5 ** skipped:
+        fail(f"fp16 run: scale {scale}, skipped {fp16.stats['skipped_steps']} "
+             f"vs {skipped} non-finite steps")
+
+    # one profiled step per policy, after a warm step
+    profiles = {}
+    for pname in ("mixed_fno_bf16", "full"):
+        tt = Trainer(loss_fn, net_cpu, TrainerConfig(
+            total_steps=2, schedule=PrecisionSchedule.constant(pname)))
+        tt.run(loader.batch_at, steps=1)
+        prof = profiled(lambda: tt.run(loader.batch_at, steps=2))
+        prof["step_ms_unprofiled"] = by_policy[pname]["median_ms_per_step"]
+        prof["idle_share_unprofiled"] = max(
+            0.0, 1.0 - prof["device_busy_ms"] / prof["step_ms_unprofiled"])
+        profiles[pname] = prof
+        emit("train_profile", policy=pname, **prof)
+    return launches
+
+
+# -- phase 6 ------------------------------------------------------------------
 def graph_ms(fn, sets, iters=40):
     """Device ms per call of ``fn``: ``iters`` calls cycling through
     ``sets`` captured as one CUDA graph (no host overhead between
@@ -306,41 +565,80 @@ def graph_ms(fn, sets, iters=40):
     return start.elapsed_time(end) / (reps * iters)
 
 
+def _bound(nbytes, flops):
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "flops_ms": flops_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
 def timing_phase(sc, max_err, launches):
+    """Each kernel at the path's shape in its two modes on the path (bf16
+    cast and bf16 output/cotangent: mixed_fno_bf16; no cast and f32: amp
+    and full), beside its bound, its plain version and one torch.einsum
+    call on complex64.  Returns the kernels line's entries (bf16 mode)."""
     B, I, O, M = PATH_SHAPE
-    # 4 operand sets of 37.7 MB each: consecutive calls find their operands
-    # outside the 50 MB L2, as the serving path does
+    flops = 8 * B * I * O * M
+    # 4 operand sets of ~40 MB each: consecutive calls find their operands
+    # outside the 50 MB L2, as the paths do
     sets = [operands(PATH_SHAPE, 100 + k) for k in range(4)]
-    times = {}
-    for cast_to, out_dtype in ((torch.bfloat16, torch.bfloat16), (None, torch.float32)):
-        def kernel(xr, xi, wr, wi, c=cast_to, o=out_dtype):
-            return sc.spectral_contract_dense(xr, xi, wr, wi, cast_to=c, out_dtype=o)
-
-        def plain(xr, xi, wr, wi, c=cast_to, o=out_dtype):
-            return sc.spectral_contract_plain(xr, xi, wr, wi, cast_to=c, out_dtype=o)
-
-        out_bytes = torch.empty((), dtype=out_dtype).element_size()
-        nbytes = 4 * (2 * B * I * M + 2 * I * O * M) + out_bytes * 2 * B * O * M
-        flops = 8 * B * I * O * M
-        times[str(out_dtype)] = {
-            "ms": graph_ms(kernel, sets), "plain_ms": graph_ms(plain, sets),
-            "bytes": nbytes, "flops": flops,
-            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "flops_ms": flops / F32_FLOP_PER_S * 1e3}
     csets = [(torch.complex(xr, xi), torch.complex(wr, wi)) for xr, xi, wr, wi in sets]
-    library_ms = graph_ms(lambda x, w: torch.einsum("bim,iom->bom", x, w), csets)
-    for mode, t in times.items():
-        emit("kernel_time", shape=list(PATH_SHAPE), out_dtype=mode,
-             library_ms=library_ms, **t)
-    t = times[str(torch.bfloat16)]
-    bound_ms = max(t["bytes_ms"], t["flops_ms"])
-    return {"name": "spectral_contract_dense_fwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/spectral_contract.cu",
-            "replaces": "src/repro/kernels/spectral_contract.py:104",
-            "launches": launches, "max_abs_err": max_err,
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": "bytes" if t["bytes_ms"] >= t["flops_ms"] else "operations",
-            "library_ms": library_ms}
+    rows = {"fwd": {}, "bwd_x": {}, "bwd_w": {}}
+    for cast_to, dt in ((torch.bfloat16, torch.bfloat16), (None, torch.float32)):
+        gsets = [cotangent(PATH_SHAPE, dt, 200 + k) for k in range(4)]
+        full = [(*ops, *g) for ops, g in zip(sets, gsets)]
+        size = torch.empty((), dtype=dt).element_size()
+        x_b, w_b, g_b = 4 * 2 * B * I * M, 4 * 2 * I * O * M, size * 2 * B * O * M
+        runs = {
+            "fwd": (lambda xr, xi, wr, wi, gr, gi, c=cast_to, o=dt:
+                    sc.spectral_contract_dense(xr, xi, wr, wi, cast_to=c, out_dtype=o),
+                    lambda xr, xi, wr, wi, gr, gi, c=cast_to, o=dt:
+                    sc.spectral_contract_plain(xr, xi, wr, wi, cast_to=c, out_dtype=o),
+                    x_b + w_b + g_b),
+            "bwd_x": (lambda xr, xi, wr, wi, gr, gi, c=cast_to:
+                      sc._launch_bwd_x(gr, gi, wr, wi, c),
+                      lambda xr, xi, wr, wi, gr, gi, c=cast_to:
+                      sc.spectral_contract_bwd_x_plain(gr, gi, wr, wi, cast_to=c),
+                      g_b + w_b + x_b),
+            "bwd_w": (lambda xr, xi, wr, wi, gr, gi, c=cast_to:
+                      sc._launch_bwd_w(xr, xi, gr, gi, c),
+                      lambda xr, xi, wr, wi, gr, gi, c=cast_to:
+                      sc.spectral_contract_bwd_w_plain(xr, xi, gr, gi, cast_to=c),
+                      x_b + g_b + w_b),
+        }
+        for name, (kernel, plain, nbytes) in runs.items():
+            rows[name][str(dt)] = {"ms": graph_ms(kernel, full),
+                                   "plain_ms": graph_ms(plain, full), **_bound(nbytes, flops)}
+    gc = [torch.complex(*cotangent(PATH_SHAPE, torch.float32, 200 + k)) for k in range(4)]
+    library = {
+        "fwd": graph_ms(lambda x, w: torch.einsum("bim,iom->bom", x, w), csets),
+        "bwd_x": graph_ms(lambda g, w: torch.einsum("bom,iom->bim", g, w.conj()),
+                          [(g, w) for g, (_, w) in zip(gc, csets)]),
+        "bwd_w": graph_ms(lambda x, g: torch.einsum("bim,bom->iom", x.conj(), g),
+                          [(x, g) for g, (x, _) in zip(gc, csets)]),
+    }
+    meta = {
+        "fwd": ("spectral_contract_dense_fwd", "spectral_contract.cu",
+                "src/repro/kernels/spectral_contract.py:104"),
+        "bwd_x": ("spectral_contract_dense_bwd_x", "spectral_contract_bwd.cu",
+                  "src/repro/kernels/spectral_contract.py:136"),
+        "bwd_w": ("spectral_contract_dense_bwd_w", "spectral_contract_bwd.cu",
+                  "src/repro/kernels/spectral_contract.py:160"),
+    }
+    entries = []
+    for key, modes in rows.items():
+        for mode, t in modes.items():
+            emit("kernel_time", kernel=key, shape=list(PATH_SHAPE), mode=mode,
+                 library_ms=library[key], **t)
+        t = modes[str(torch.bfloat16)]
+        name, src, replaces = meta[key]
+        entries.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": launches[key], "max_abs_err": max_err[key],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": library[key],
+            "ms_f32_mode": modes[str(torch.float32)]["ms"]})
+    return entries
 
 
 def main():
@@ -349,13 +647,19 @@ def main():
     # the port comes from this checkout's src/; without it, fail before any output
     from repro_torch.kernels import spectral_contract as sc
 
+    t0 = time.perf_counter()
     card = device_phase()
     build_phase(sc)
-    max_err = kernel_phase(sc)
-    launches = slice_phase(sc)
-    entry = timing_phase(sc, max_err, launches)
+    max_err = {"fwd": kernel_phase(sc), **backward_kernel_phase(sc)}
+    served = serve_phase(sc)
+    trained = train_phase(sc)
+    launches = {"fwd": served + trained["fwd"], "bwd_x": trained["bwd_x"],
+                "bwd_w": trained["bwd_w"]}
+    emit("launches_by_path", serve={"fwd": served}, train=trained)
+    entries = timing_phase(sc, max_err, launches)
+    emit("done", seconds=time.perf_counter() - t0)
     print(card, flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

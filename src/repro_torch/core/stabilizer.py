@@ -11,9 +11,28 @@ from typing import Callable, Optional
 import torch
 
 
+class _Tanh(torch.autograd.Function):
+    """``tanh`` whose backward is JAX's, ``e + e·y`` with ``e = g·(1 − y)``,
+    op by op in the activation's dtype.  PyTorch's own ``tanh_backward`` rounds
+    ``g·(1 − y²)`` once, which differs from the reference in ~46 % of
+    bf16/fp16 elements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.tanh(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        e = g * (1.0 - y)
+        return e + e * y
+
+
 def tanh_stabilizer(x: torch.Tensor) -> torch.Tensor:
     """The paper's choice: |tanh(x)| <= 1 bounds the FFT input."""
-    return torch.tanh(x)
+    return _Tanh.apply(x)
 
 
 def hard_clip_stabilizer(x: torch.Tensor, limit: float = 3.0) -> torch.Tensor:

@@ -1,2 +1,4 @@
-"""Data generators of the port."""
+"""Data generators and loaders of the port."""
+from .darcy import darcy_matvec, sample_darcy_batch, solve_darcy  # noqa: F401
 from .grf import grf_2d  # noqa: F401
+from .loader import CachedDataset, StatelessLoader  # noqa: F401

@@ -2,9 +2,9 @@
 
 ``spectral_contract`` splits the complex spectrum into split-real f32
 operands, flattens the modes, picks the storage rounding from the
-contract site's rule and hands the operands to the kernel wrapper, which
-launches the CUDA kernel for CUDA tensors and runs the plain version for
-CPU tensors.
+contract site's rule and hands the operands to ``DenseContract``, the
+autograd Function that launches the CUDA kernels for CUDA tensors and
+runs the plain versions for CPU tensors, forward and backward.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.precision import FULL, PrecisionPolicy
 
-from .spectral_contract import spectral_contract_dense
+from .spectral_contract import DenseContract
 
 
 def _site_of(policy, site: str):
@@ -36,7 +36,9 @@ def spectral_contract(
     Under a half rule the operands stay f32 and the kernel rounds them
     onto the storage grid as it loads them (the reference's fused cast);
     the product is stored at the storage dtype.  Under full precision the
-    operands and the product are f32 with no rounding.  Returns complex64
+    operands and the product are f32 with no rounding.  Gradients reach
+    ``x``, ``w_re`` and ``w_im`` through the reference's custom VJP
+    (f32, never rounded to the half grid).  Returns complex64
     (B, O, *modes).
     """
     policy = _site_of(policy, site)
@@ -57,7 +59,7 @@ def spectral_contract(
     half = policy.spectral_dtype if policy.spectral_is_half else None
     xr = x.real.reshape(B, I, M).contiguous()
     xi = x.imag.reshape(B, I, M).contiguous()
-    out_re, out_im = spectral_contract_dense(
+    out_re, out_im = DenseContract.apply(
         xr, xi, w_re.reshape(I, O, M), w_im.reshape(I, O, M),
-        cast_to=half, out_dtype=half or torch.float32)
+        half, half or torch.float32)
     return torch.complex(out_re.float(), out_im.float()).reshape(B, O, *modes)

@@ -7,4 +7,5 @@ from .fno import (  # noqa: F401
     init_fno,
     param_count,
     params_from_jax,
+    params_from_jax_checkpoint,
 )

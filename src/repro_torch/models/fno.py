@@ -18,6 +18,7 @@ loop, so a ``precision_rules`` override of one layer reaches that layer.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Mapping, Optional, Sequence, Tuple
 
@@ -54,16 +55,45 @@ class FNOConfig:
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
+@functools.cache
+def _gelu_consts(dtype: torch.dtype):
+    """The constants rounded to the activation dtype first, as JAX's weak
+    types do; 0-d CPU tensors, which CUDA ops take as scalars (a CUDA
+    copy would be a host-device sync at every call)."""
+    return tuple(torch.tensor(v, dtype=torch.float32).to(dtype)
+                 for v in (_SQRT_2_OVER_PI, 0.044715))
+
+
+class _Gelu(torch.autograd.Function):
     """The tanh-approximate GELU as ``jax.nn.gelu`` (its default) writes it,
-    op by op in ``x``'s dtype.  ``F.gelu(approximate="tanh")`` is the same
-    function but rounds once: on bf16/fp16 activations it differs from the
-    reference in ~40 % of elements, as much as the AMP rounding itself."""
-    # the constants round to x's dtype first, as JAX's weak types do
-    c, k = (torch.tensor(v, dtype=torch.float32).to(x.dtype)
-            for v in (_SQRT_2_OVER_PI, 0.044715))
-    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
-    return x * cdf
+    op by op in ``x``'s dtype, forward and backward.
+    ``F.gelu(approximate="tanh")`` is the same function but rounds once:
+    on bf16/fp16 activations it differs from the reference in ~40 % of
+    elements, as much as the AMP rounding itself.  Autograd through the
+    op-by-op forward rounds the derivative's ops in another order than
+    JAX's VJP does (58 % of bf16 elements differ), so the backward writes
+    out the reference's VJP, op for op."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        c, k = _gelu_consts(x.dtype)
+        cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
+        return x * cdf
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        c, k = _gelu_consts(x.dtype)
+        e = 3.0 * (x * x)
+        t = torch.tanh(c * (x + k * (x * x * x)))
+        p = (0.5 * (x * g)) * (1.0 - t)
+        s = c * (p + p * t)
+        return (g * (0.5 * (1.0 + t)) + s) + (k * s) * e
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return _Gelu.apply(x)
 
 
 def _linear(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -182,6 +212,21 @@ def params_from_jax(tree: Mapping, cfg: FNOConfig, device: DeviceLike = None) ->
              for group, sub in tree.items() for name, v in sub.items()}
     model.load_state_dict(state, strict=True)
     return model.to(dev)
+
+
+def params_from_jax_checkpoint(ckpt_dir: str, cfg: FNOConfig, step: Optional[int] = None,
+                               device: DeviceLike = None) -> FNO:
+    """An FNO on ``device`` holding the ``params`` subtree of a checkpoint
+    written by the JAX reference's ``Trainer`` (or by this port's, which
+    keys its checkpoints the same way), at ``step`` (default: the latest).
+
+    The reference stores each leaf of its state in ``arrays.npz`` under
+    the ``str()`` of its JAX key path joined by ``|``, so the parameters
+    sit under ``['params']|['<group>']|['<name>']``."""
+    from repro_torch.train.checkpoint import read_subtree
+
+    tree, _ = read_subtree(ckpt_dir, "params", step)
+    return params_from_jax(tree, cfg, device=device)
 
 
 def fno_apply(model: FNO, x: torch.Tensor, policy: PrecisionPolicy = FULL) -> torch.Tensor:

@@ -23,7 +23,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from .rules import Entry, SiteRule, resolve_fields
+from .rules import Entry, SiteRule, normalize_entries, resolve_fields
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +96,11 @@ class PrecisionPolicy:
 
     def at(self, site: str) -> SitePrecision:
         return resolve_site(site, self.rules)
+
+    def with_rules(self, *entries, name: Optional[str] = None) -> "PrecisionPolicy":
+        """A new policy with ``entries`` layered on top (highest priority)."""
+        return PrecisionPolicy(
+            name=name or self.name, rules=normalize_entries(entries) + self.rules)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA spectral
-contraction against its plain PyTorch version on the card, the wrapper's
-checks, and the FNO serving path on CUDA against the CPU.
+contraction kernels (forward and both backward kernels) against their
+plain PyTorch versions on the card, the wrapper's checks, the autograd
+Function on CUDA against the CPU, and the FNO serving and training paths
+on CUDA against the CPU.
 
 Imports no JAX (the GPU machine has none).  Every test carries the
 ``cuda`` marker and skips, from inside a fixture, where no card is
@@ -75,8 +77,87 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         sc.spectral_contract_dense(xr.double(), xi, wr, wi)
     with pytest.raises(ValueError, match="operands on"):
         sc.spectral_contract_dense(xr.cpu(), xi, wr, wi)
-    with pytest.raises(NotImplementedError, match="backward"):
-        sc.spectral_contract_dense(xr, xi, wr.requires_grad_(), wi)
+    # a gradient is taken through the backward kernels
+    wr.requires_grad_()
+    before = (sc.launches_bwd_x, sc.launches_bwd_w)
+    out_re, out_im = sc.spectral_contract_dense(xr, xi, wr, wi)
+    (dwr,) = torch.autograd.grad(out_re.sum() + out_im.sum(), [wr])
+    torch.cuda.synchronize()
+    assert (sc.launches_bwd_x, sc.launches_bwd_w) == (before[0], before[1] + 1)
+    want, _ = sc.spectral_contract_bwd_w_plain(xr, xi, torch.ones_like(out_re),
+                                               torch.ones_like(out_im))
+    assert torch.allclose(dwr, want, rtol=1e-5, atol=1e-4)
+
+
+def _cotangent(B, O, M, dtype, device, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    return [(0.5 * torch.randn(B, O, M, generator=g)).to(dtype).to(device) for _ in range(2)]
+
+
+@pytest.mark.parametrize("shape", [(8, 64, 64, 1024), (3, 24, 40, 300),
+                                   (1, 1, 1, 1), (9, 17, 5, 33), (19, 6, 11, 70)])
+@pytest.mark.parametrize("cast_to,out_dtype", MODES)
+def test_backward_kernels_match_plain_within_budget(cuda, shape, cast_to, out_dtype):
+    """dense_bwd_x and dense_bwd_w against their plain versions, the
+    cotangent at the forward's out_dtype, within contract_budget at ε_f32
+    of each gradient's magnitude contraction (Σ_o |g||w|, Σ_b |x||g|);
+    B > 8 and ragged M included."""
+    B, I, O, M = shape
+    xr, xi, wr, wi = _operands(*shape, cuda)
+    gr, gi = _cotangent(B, O, M, out_dtype, cuda)
+    before = (sc.launches_bwd_x, sc.launches_bwd_w)
+    kx = sc._launch_bwd_x(gr, gi, wr, wi, cast_to)
+    kw = sc._launch_bwd_w(xr, xi, gr, gi, cast_to)
+    torch.cuda.synchronize()
+    assert (sc.launches_bwd_x, sc.launches_bwd_w) == (before[0] + 1, before[1] + 1)
+    px = sc.spectral_contract_bwd_x_plain(gr, gi, wr, wi, cast_to=cast_to)
+    pw = sc.spectral_contract_bwd_w_plain(xr, xi, gr, gi, cast_to=cast_to)
+    absg = torch.hypot(gr.float(), gi.float())
+    mags = (torch.einsum("bom,iom->bim", absg, torch.hypot(wr, wi)),
+            torch.einsum("bim,bom->iom", torch.hypot(xr, xi), absg))
+    for (kr, ki), (pr, pi), mag in zip((kx, kw), (px, pw), mags):
+        assert kr.dtype == torch.float32 and kr.shape == pr.shape
+        diff = torch.hypot(kr - pr, ki - pi)
+        budget = contract_budget(FORMAT_EPS["float32"], mag)
+        assert bool((diff <= budget).all()), float((diff - budget).max())
+
+
+@pytest.mark.parametrize("cast_to,out_dtype", MODES)
+def test_kernels_rerun_bit_identically(cuda, cast_to, out_dtype):
+    B, I, O, M = 8, 64, 64, 1024
+    xr, xi, wr, wi = _operands(B, I, O, M, cuda, seed=4)
+    gr, gi = _cotangent(B, O, M, out_dtype, cuda, seed=5)
+    runs = [(sc._launch_fwd(xr, xi, wr, wi, cast_to, out_dtype),
+             sc._launch_bwd_x(gr, gi, wr, wi, cast_to),
+             sc._launch_bwd_w(xr, xi, gr, gi, cast_to)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("cast_to,out_dtype", MODES)
+def test_dense_contract_cuda_matches_cpu(cuda, cast_to, out_dtype):
+    """The autograd Function on the card (the three kernels) against the
+    same Function on the CPU (the plain versions): outputs and all four
+    gradients."""
+    B, I, O, M = 5, 12, 9, 130
+    ops_cpu = _operands(B, I, O, M, "cpu", seed=6)
+    g_cpu = _cotangent(B, O, M, out_dtype, "cpu", seed=7)
+    results = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_() for t in ops_cpu]
+        out = sc.spectral_contract_dense(*leaves, cast_to=cast_to, out_dtype=out_dtype)
+        grads = torch.autograd.grad(out, leaves, [g.to(dev) for g in g_cpu])
+        results[str(dev)] = [t.detach().float().cpu() for t in (*out, *grads)]
+    eps_out = FORMAT_EPS[dtype_name(out_dtype)]
+    xr, xi, wr, wi = ops_cpu
+    absg = torch.hypot(g_cpu[0].float(), g_cpu[1].float())
+    mags = [sc.contract_magnitude(*ops_cpu)] * 2 + \
+        [torch.einsum("bom,iom->bim", absg, torch.hypot(wr, wi))] * 2 + \
+        [torch.einsum("bim,bom->iom", torch.hypot(xr, xi), absg)] * 2
+    epss = [eps_out] * 2 + [FORMAT_EPS["float32"]] * 4
+    for got, want, mag, eps in zip(results[str(cuda)], results["cpu"], mags, epss):
+        assert bool(((got - want).abs() <= contract_budget(eps, mag)).all())
 
 
 @pytest.mark.parametrize("policy_name", ["full", "mixed_fno_bf16", "sim_fp8_e4m3"])
@@ -176,3 +257,41 @@ def test_fno_infer_cuda_matches_cpu(cuda, policy_name):
     else:
         y_full = fno_infer(nets["cpu"], x, get_policy("full"), device="cpu").numpy()
         assert _rel_l2(y_gpu, y_cpu) <= 0.25 * _rel_l2(y_cpu, y_full)
+
+
+def test_trainer_two_steps_cuda_matches_cpu(cuda):
+    """Two steps of the port's Trainer on FNO_DARCY_SMOKE, from the same
+    weights and batches, on the card and on the CPU: losses within 1e-5
+    relative and parameters within 1e-4 relative L2 under ``full``, and
+    the forward, bwd_x and bwd_w kernels launched once per layer and
+    corner per step."""
+    from repro_torch.core.schedule import PrecisionSchedule
+    from repro_torch.models import fno_apply
+    from repro_torch.train import Trainer, TrainerConfig, relative_l2
+
+    cfg = FNO_DARCY_SMOKE
+    rng = np.random.RandomState(8)
+    batches = [{"a": rng.randn(4, 1, 16, 16).astype(np.float32),
+                "u": rng.randn(4, 1, 16, 16).astype(np.float32)} for _ in range(2)]
+
+    def loss_fn(model, batch, policy):
+        return relative_l2(fno_apply(model, batch["a"], policy), batch["u"])
+
+    net = init_fno(torch.Generator().manual_seed(2), cfg, device="cpu")
+    runs = {}
+    for dev in ("cpu", cuda):
+        tt = Trainer(loss_fn, net, TrainerConfig(
+            total_steps=2, schedule=PrecisionSchedule.constant("full")), device=dev)
+        counts = (sc.launches, sc.launches_bwd_x, sc.launches_bwd_w)
+        tt.run(lambda s: batches[s])
+        torch.cuda.synchronize()
+        runs[str(dev)] = (tt, tuple(c1 - c0 for c0, c1 in zip(
+            counts, (sc.launches, sc.launches_bwd_x, sc.launches_bwd_w))))
+    cpu, gpu = runs["cpu"][0], runs[str(cuda)][0]
+    per_step = cfg.n_layers * 2 ** (cfg.ndim - 1)
+    assert runs["cpu"][1] == (0, 0, 0)
+    assert runs[str(cuda)][1] == (2 * per_step,) * 3
+    for h_cpu, h_gpu in zip(cpu.history, gpu.history, strict=True):
+        assert abs(h_gpu["loss"] - h_cpu["loss"]) <= 1e-5 * abs(h_cpu["loss"])
+    for k, p in cpu.params.items():
+        assert _rel_l2(gpu.params[k].detach().cpu().numpy(), p.detach().numpy()) <= 1e-4, k

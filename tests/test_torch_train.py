@@ -1,0 +1,616 @@
+"""The PyTorch port's training path against the JAX reference on the CPU.
+
+The same numpy inputs, and weights bridged with ``params_from_jax``, go
+through both packages:
+
+* ``DenseContract``'s gradients against ``jax.vjp`` of the Pallas kernel
+  (interpret mode, so the reference runs its custom VJP and its two
+  backward kernels), within ``assert_within_budget`` at ε_f32, and an f64
+  ``gradcheck`` of the Function;
+* whole-FNO gradients per policy (see ``test_fno_gradients_match_reference``
+  for the limits and why);
+* AdamW, loss scaling, the precision schedule and ``relative_l2``;
+* the trainer's loss history against the reference ``Trainer``, the fp16
+  skip-step, checkpoints and preemption, and the reference checkpoint
+  bridge;
+* the entry points and the example's ``main`` at a tiny size.
+"""
+import dataclasses
+import os
+import signal
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.models.fno as jfno
+from repro.configs.fno_paper import FNO_DARCY_SMOKE as J_SMOKE
+from repro.core import PrecisionSchedule as JSchedule
+from repro.core import get_policy as jget_policy
+from repro.kernels.spectral_contract import spectral_contract_pallas
+from repro.optim import AdamW as JAdamW
+from repro.optim import init_loss_scale as jinit_loss_scale
+from repro.optim import update_loss_scale as jupdate_loss_scale
+from repro.train import Trainer as JTrainer
+from repro.train import TrainerConfig as JTrainerConfig
+from repro.train import relative_l2 as jrelative_l2
+from repro_torch.configs.fno_paper import FNO_DARCY_SMOKE
+from repro_torch.core.schedule import PrecisionSchedule
+from repro_torch.kernels import spectral_contract as sc
+from repro_torch.models import fno_apply, init_fno, params_from_jax, params_from_jax_checkpoint
+from repro_torch.optim import (
+    AdamW,
+    all_finite,
+    global_norm,
+    init_loss_scale,
+    loss_scaling_required,
+    update_loss_scale,
+)
+from repro_torch.precision import SiteRule, get_policy
+from repro_torch.train import Trainer, TrainerConfig, checkpoint, relative_l2
+
+from helpers import POLICY_NAMES, assert_within_budget, rel_err
+
+jax.config.update("jax_platform_name", "cpu")
+
+F32_EPS = 2.0 ** -23
+
+#: (cast_to, out_dtype) of the kernels' three modes on the training path
+MODES = [(None, "float32"), ("bfloat16", "bfloat16"), ("float16", "float16")]
+
+#: the reference through its custom VJP: Pallas kernels (interpret mode on
+#: the CPU), staged path.  Its CPU default, the einsum path, rounds the
+#: contraction's gradient onto the half grid.
+J_CFG = dataclasses.replace(J_SMOKE, use_pallas=True, fuse_spectral=False)
+
+
+def _tdtype(name):
+    return None if name is None else getattr(torch, name)
+
+
+def _jdtype(name):
+    return None if name is None else getattr(jnp, name)
+
+
+# -- the dense contraction's backward ------------------------------------------
+def _contract_operands(seed, B=3, I=5, O=4, M=37):
+    rng = np.random.RandomState(seed)
+    xr, xi = (0.5 * rng.randn(B, I, M)).astype(np.float32), (0.5 * rng.randn(B, I, M)).astype(np.float32)
+    wr, wi = (0.5 * rng.randn(I, O, M)).astype(np.float32), (0.5 * rng.randn(I, O, M)).astype(np.float32)
+    gr, gi = (0.5 * rng.randn(B, O, M)).astype(np.float32), (0.5 * rng.randn(B, O, M)).astype(np.float32)
+    return (xr, xi, wr, wi), (gr, gi)
+
+
+@pytest.mark.parametrize("cast_to,out_dtype", MODES)
+def test_dense_contract_grads_match_pallas_vjp(cast_to, out_dtype):
+    """The reference's custom VJP (``_dense_bwd_x_kernel``,
+    ``_dense_bwd_w_kernel``, interpret mode) and ``DenseContract`` on CPU
+    tensors, at a ragged M = 37 (block_m = 8), within
+    ``assert_within_budget`` at ε_f32.  Autograd through the plain forward
+    (the port before this Function) also rounds the gradient onto the half
+    grid and missed this by ~1.7e-3 relative L2 under bf16."""
+    ops, cts = _contract_operands(0)
+    jout = _jdtype(out_dtype)
+    # the cotangent arrives at the forward's out_dtype in both packages
+    cts = [c.astype(jout).astype(np.float32) for c in cts]
+    _, vjp = jax.vjp(
+        lambda *a: spectral_contract_pallas(*a, block_m=8, interpret=True,
+                                            cast_to=_jdtype(cast_to), out_dtype=jout),
+        *map(jnp.asarray, ops))
+    want = vjp(tuple(jnp.asarray(c, jout) for c in cts))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in ops]
+    out = sc.spectral_contract_dense(*leaves, cast_to=_tdtype(cast_to),
+                                     out_dtype=_tdtype(out_dtype))
+    got = torch.autograd.grad(out, leaves, [torch.from_numpy(c).to(_tdtype(out_dtype))
+                                            for c in cts])
+    for g in got:
+        assert g.dtype == torch.float32
+    xr, xi, wr, wi = ops
+    gr, gi = cts
+    absx, absw, absg = np.hypot(xr, xi), np.hypot(wr, wi), np.hypot(gr, gi)
+    mag_x = np.einsum("bom,iom->bim", absg, absw)
+    mag_w = np.einsum("bim,bom->iom", absx, absg)
+    for k, (name, mag) in enumerate((("dx", mag_x), ("dw", mag_w))):
+        pair_want = np.asarray(want[2 * k]) + 1j * np.asarray(want[2 * k + 1])
+        pair_got = got[2 * k].numpy() + 1j * got[2 * k + 1].numpy()
+        assert_within_budget(pair_got, pair_want, F32_EPS, mag, stages=1,
+                             label=f"{name} {cast_to}->{out_dtype}")
+
+
+@pytest.mark.parametrize("cast_to", [None, "bfloat16"])
+def test_backward_plain_versions_are_the_formulas(cast_to):
+    """The two plain backward versions against complex numpy on the same
+    rounded operands: ``dx = Σ_o g·conj(w)``, ``dw = Σ_b conj(x)·g``."""
+    (xr, xi, wr, wi), (gr, gi) = _contract_operands(1)
+    t = [torch.from_numpy(a) for a in (xr, xi, wr, wi, gr, gi)]
+    ct = _tdtype(cast_to)
+    r = [a.to(ct).double().numpy() if ct else a.double().numpy() for a in t]
+    x, w, g = r[0] + 1j * r[1], r[2] + 1j * r[3], r[4] + 1j * r[5]
+    dxr, dxi = sc.spectral_contract_bwd_x_plain(t[4], t[5], t[2], t[3], cast_to=ct)
+    dwr, dwi = sc.spectral_contract_bwd_w_plain(t[0], t[1], t[4], t[5], cast_to=ct)
+    np.testing.assert_allclose(dxr.numpy() + 1j * dxi.numpy(),
+                               np.einsum("bom,iom->bim", g, np.conj(w)), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dwr.numpy() + 1j * dwi.numpy(),
+                               np.einsum("bim,bom->iom", np.conj(x), g), rtol=1e-5, atol=1e-5)
+
+
+def test_dense_contract_gradcheck_f64():
+    (xr, xi, wr, wi), _ = _contract_operands(2, B=2, I=3, O=2, M=5)
+    leaves = [torch.from_numpy(a).double().requires_grad_() for a in (xr, xi, wr, wi)]
+    assert torch.autograd.gradcheck(
+        lambda *a: sc.DenseContract.apply(*a, None, torch.float64), leaves)
+
+
+def test_dense_contract_needs_only_the_asked_gradient(monkeypatch):
+    (xr, xi, wr, wi), _ = _contract_operands(3)
+    x = [torch.from_numpy(a).requires_grad_() for a in (xr, xi)]
+    w = [torch.from_numpy(a) for a in (wr, wi)]
+    before = (sc.launches, sc.launches_bwd_x, sc.launches_bwd_w)
+
+    def unwanted(*a, **k):
+        raise AssertionError("dw computed though no weight needs a gradient")
+
+    monkeypatch.setattr(sc, "spectral_contract_bwd_w_plain", unwanted)
+    out_re, _ = sc.spectral_contract_dense(*x, *w)   # the imaginary output unused
+    dx = torch.autograd.grad(out_re.sum(), x)
+    want = sc.spectral_contract_bwd_x_plain(torch.ones_like(out_re), torch.zeros_like(out_re),
+                                            *w)
+    assert torch.equal(dx[0], want[0]) and torch.equal(dx[1], want[1])
+    assert (sc.launches, sc.launches_bwd_x, sc.launches_bwd_w) == before  # CPU: plain only
+
+
+# -- whole-FNO gradients ---------------------------------------------------------
+@pytest.fixture(scope="module")
+def bridged():
+    jparams = jfno.init_fno(jax.random.PRNGKey(3), J_CFG)
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 1, 24, 24).astype(np.float32)
+    y = rng.randn(2, 1, 24, 24).astype(np.float32)
+    return jparams, tree, x, y
+
+
+def _jgrads(jparams, x, y, policy_name, unrolled=False):
+    f = lambda p: jrelative_l2(jfno.fno_apply(p, jnp.asarray(x), J_CFG,  # noqa: E731
+                                              jget_policy(policy_name)), jnp.asarray(y))
+    uniform = jfno.layers_uniform
+    if unrolled:   # the reference's own block loop, unrolled instead of scanned
+        jfno.layers_uniform = lambda *a: False
+    try:
+        g = jax.grad(f)(jparams)
+    finally:
+        jfno.layers_uniform = uniform
+    return {f"{k}.{n}": np.asarray(v) for k, sub in g.items() for n, v in sub.items()}
+
+
+def _seq_sum(g: torch.Tensor) -> torch.Tensor:
+    """Sum (N, C) over N one row after another in g's dtype, as the
+    reference's CPU backend reduces a broadcast bias's cotangent."""
+    acc = torch.zeros(g.shape[1:], dtype=g.dtype)
+    for row in g:
+        acc = acc + row
+    return acc
+
+
+def _tgrads(tree, x, y, policy_name, monkeypatch):
+    """The port's gradients; each bias's cotangent (the gradient at its
+    broadcast add, one row per position); and those cotangents summed the
+    reference's way (see the test)."""
+    import repro_torch.models.fno as tfno
+
+    pre_bias = []   # in call order: lift1, lift2, skip of each layer, proj1, proj2
+
+    def recording(w, b, h, dtype):
+        y_ = h.to(dtype) @ w.to(dtype)
+        pre_bias.append(y_)
+        return y_ + b.to(dtype)
+
+    monkeypatch.setattr(tfno, "_linear", recording)
+    net = params_from_jax(tree, FNO_DARCY_SMOKE, device="cpu")
+    loss = relative_l2(fno_apply(net, torch.from_numpy(x), get_policy(policy_name)),
+                       torch.from_numpy(y))
+    names = [k for k, _ in net.named_parameters()]
+    params = dict(net.named_parameters())
+    out = torch.autograd.grad(loss, [params[n] for n in names] + pre_bias)
+    grads = {n: g.numpy() for n, g in zip(names, out)}
+    cots = [c.reshape(-1, c.shape[-1]) for c in out[len(names):]]
+    order = ["lift1.b", "lift2.b"] + ["skips.b"] * (len(cots) - 4) + ["proj1.b", "proj2.b"]
+    by_bias = {}
+    for name, c in zip(order, cots):
+        by_bias.setdefault(name, []).append(c)
+    return grads, {k: torch.stack(v) if k == "skips.b" else v[0] for k, v in by_bias.items()}
+
+
+@jax.custom_vjp
+def _tanh_one_cotangent(x):
+    """``jnp.tanh`` whose VJP, ``e + e·y`` with ``e = g·(1 − y)``, hands its
+    input one summed cotangent, as the port's ``_Tanh`` does.  JAX's own
+    tanh JVP, transposed, hands back ``e`` and ``e·y`` as two cotangents,
+    and the backward pass adds them one at a time to the skip path's
+    cotangent of the same activation: ``(skip + e) + e·y`` in the half
+    dtype, where the port adds ``skip + (e + e·y)``."""
+    return jnp.tanh(x)
+
+
+def _tanh_fwd(x):
+    y = jnp.tanh(x)
+    return y, y
+
+
+def _tanh_bwd(y, g):
+    e = g * (1 - y)
+    return (e + e * y,)
+
+
+_tanh_one_cotangent.defvjp(_tanh_fwd, _tanh_bwd)
+
+
+def test_spectral_layer_vjp_matches_reference():
+    """One tanh-stabilised spectral layer under ``mixed_fno_bf16``, alone:
+    the VJP for its input and both weights against the reference's on the
+    same bf16 input and cotangent, within a tenth of bf16's ε relative L2
+    (what is left: the FFT libraries' last bits flip a few bf16
+    roundings).  Alone, the tanh VJP's two terms meet no other cotangent,
+    so the order of their sums cannot differ; in the whole FNO it does
+    (see ``test_fno_gradients_match_reference``)."""
+    import repro.core.spectral as jspectral
+    from repro_torch.core.spectral import spectral_conv_apply
+
+    rng = np.random.RandomState(5)
+    C, modes, site = 16, (8, 8), "fno/layer0/spectral"
+    x = rng.randn(2, C, 24, 24).astype(np.float32)
+    w = [(rng.randn(2, C, C, *modes) / C ** 2).astype(np.float32) for _ in range(2)]
+    g = rng.randn(2, C, 24, 24).astype(np.float32)
+
+    out, vjp = jax.vjp(
+        lambda h, wr, wi: jspectral.spectral_conv_apply(
+            {"w_re": wr, "w_im": wi}, h, modes, jget_policy("mixed_fno_bf16"), use_pallas=True,
+            site=site, fuse_spectral=False),
+        jnp.asarray(x, jnp.bfloat16), *map(jnp.asarray, w))
+    want = [np.asarray(v, np.float32) for v in vjp(jnp.asarray(g, out.dtype))]
+    leaves = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_()]
+    leaves += [torch.from_numpy(a).requires_grad_() for a in w]
+    out = spectral_conv_apply({"w_re": leaves[1], "w_im": leaves[2]}, leaves[0], modes,
+                              get_policy("mixed_fno_bf16"), site=site)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(g).to(out.dtype))
+    limit = 0.1 * 2.0 ** -8
+    for name, t, j in zip(("dx", "dw_re", "dw_im"), got, want, strict=True):
+        err = rel_err(t.float().numpy(), j)
+        print(f"spectral layer {name}: port vs reference {err:.3e} (limit {limit:.3e})")
+        assert err <= limit, (name, err, limit)
+
+
+@pytest.fixture(scope="module")
+def full_grads(bridged):
+    jparams, _, x, y = bridged
+    return _jgrads(jparams, x, y, "full", unrolled=True)
+
+
+@pytest.mark.parametrize("policy_name", POLICY_NAMES)
+def test_fno_gradients_match_reference(bridged, full_grads, policy_name, monkeypatch):
+    """Per parameter leaf, relative L2 against ``jax.grad`` of the
+    reference (``use_pallas=True, fuse_spectral=False``, so its custom VJP
+    runs) with its block loop unrolled, the reference's own op-by-op path
+    and the port's order: its scanned loop compiles the block, and XLA
+    then skips some half roundings (its own scanned gradients differ from
+    its unrolled ones by up to 1.5x the policy's gap on some leaves).
+
+    Limits: 1e-5 under ``full``; under the other policies 1/4 of the
+    policy's own gradient gap to ``full`` in the reference, on every leaf.
+    The reference held to 1/4 runs its tanh stabiliser with the port's
+    order of the VJP's sums (``_tanh_one_cotangent``), the only change.
+    Against the unchanged reference the port is held below 0.95x the gap:
+    under ``mixed_fno_bf16`` the other order flips the bf16 rounding of
+    many of the first layer's input-cotangent elements, which moves the
+    lifting leaves by up to 0.93x the gap.
+
+    Bias leaves: the reference's CPU backend sums a broadcast bias's half
+    cotangent one row at a time in the half dtype; the port sums in f32
+    and rounds once, as the GPU and the TPU do.  The bias limits apply to
+    the port's cotangents summed the reference's way, which the test
+    recomputes; the port's own bias gradients are those cotangents summed
+    in f32 and rounded once (checked to the cotangent dtype's ε)."""
+    import repro.core.stabilizer as jstabilizer
+    from repro_torch.core.precision import FORMAT_EPS, dtype_name
+
+    jparams, tree, x, y = bridged
+    ref = _jgrads(jparams, x, y, policy_name, unrolled=True)
+    got, cots = _tgrads(tree, x, y, policy_name, monkeypatch)
+    monkeypatch.setitem(jstabilizer.STABILIZERS, "tanh", _tanh_one_cotangent)
+    want = _jgrads(jparams, x, y, policy_name, unrolled=True)
+    emulated = {}
+    for name, c in cots.items():
+        f32 = c.float().sum(dim=-2).numpy()
+        assert rel_err(got[name], f32) <= FORMAT_EPS[dtype_name(c.dtype)], name
+        seq = [_seq_sum(part) for part in (c if c.ndim == 3 else [c])]
+        emulated[name] = torch.stack(seq).float().numpy().reshape(got[name].shape)
+    worst = 0.0
+    for name, w in want.items():
+        port = emulated.get(name, got[name])
+        err, err_ref = rel_err(port, w), rel_err(port, ref[name])
+        if policy_name == "full":
+            limit = limit_ref = 1e-5
+        else:
+            gap = rel_err(ref[name], full_grads[name])
+            limit, limit_ref = 0.25 * gap, 0.95 * gap
+        worst = max(worst, err / limit)
+        print(f"{policy_name} {name}: port vs reference {err:.3e} (limit {limit:.3e}); "
+              f"vs unchanged reference {err_ref:.3e} (limit {limit_ref:.3e})")
+        assert err <= limit, (name, err, limit)
+        assert err_ref <= limit_ref, (name, err_ref, limit_ref)
+    print(f"{policy_name}: worst error/limit {worst:.3f}")
+
+
+# -- optimizer, loss scale, schedule, loss ---------------------------------------
+def _tree(seed, scale=1.0):
+    rng = np.random.RandomState(seed)
+    return {"a": (scale * rng.randn(3, 4)).astype(np.float32),
+            "b": (scale * rng.randn(5)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("grad_scale", [1e-3, 10.0])   # clipping inactive / active
+def test_adamw_matches_reference(grad_scale):
+    jopt, topt = JAdamW(lr=1e-2, weight_decay=1e-3), AdamW(lr=1e-2, weight_decay=1e-3)
+    params = _tree(0)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    js, ts = jopt.init(jp), topt.init(tp)
+    for step in range(5):
+        grads = _tree(10 + step, grad_scale)
+        norm = float(global_norm({k: torch.from_numpy(v) for k, v in grads.items()}))
+        assert (norm > 1.0) == (grad_scale > 1)
+        jp, js = jopt.update({k: jnp.asarray(v) for k, v in grads.items()}, js, jp)
+        tp, ts = topt.update({k: torch.from_numpy(v) for k, v in grads.items()}, ts, tp)
+    assert int(ts.count) == int(js.count) == 5
+    for k in params:
+        for want, got in ((jp[k], tp[k]), (js.mu[k], ts.mu[k]), (js.nu[k], ts.nu[k])):
+            assert rel_err(got.numpy(), want) <= 1e-6, k
+
+
+def test_all_finite_and_half_grads():
+    assert bool(all_finite({"a": torch.ones(3), "b": torch.zeros(2)}))
+    assert not bool(all_finite({"a": torch.ones(3), "b": torch.tensor([0.0, float("inf")])}))
+    new, _ = AdamW(lr=0.1).update({"w": torch.ones(2, dtype=torch.bfloat16)},
+                                  AdamW().init({"w": torch.ones(2)}), {"w": torch.ones(2)})
+    assert new["w"].dtype == torch.float32
+
+
+def test_loss_scale_sequence_matches_reference():
+    """Finite and non-finite flags across a growth interval, into both
+    bounds: the scale and the good-step count agree exactly."""
+    flags = ([True] * 5 + [False] + [True] * 3 + [False] * 3 + [True] * 7)
+    for initial in (8.0, 2.0 ** 23, 2.0):
+        js, ts = jinit_loss_scale(initial), init_loss_scale(initial)
+        for f in flags:
+            js = jupdate_loss_scale(js, jnp.asarray(f), growth_interval=4)
+            ts = update_loss_scale(ts, torch.tensor(f), growth_interval=4)
+            assert float(ts.scale) == float(js.scale)
+            assert int(ts.good_steps) == int(js.good_steps)
+    assert float(init_loss_scale().scale) == 2.0 ** 15
+    assert loss_scaling_required(get_policy("amp_fp16"))
+    assert not loss_scaling_required(get_policy("mixed_fno_bf16"))
+
+
+@pytest.mark.parametrize("total", [8, 10])
+def test_schedule_matches_reference(total):
+    for half in ("bf16", "fp16"):
+        j, t = JSchedule.paper_default(half), PrecisionSchedule.paper_default(half)
+        assert [t.policy_at(s, total).name for s in range(total)] == \
+            [j.policy_at(s, total).name for s in range(total)]
+        assert [(s, e, p.name) for s, e, p in t.phase_boundaries(total)] == \
+            [(s, e, p.name) for s, e, p in j.phase_boundaries(total)]
+    overlay = ("*/spectral/contract", SiteRule(compute=torch.bfloat16, quantize="half"))
+    sched = PrecisionSchedule(phases=((0.5, "amp_bf16"), (1.0, (overlay,))))
+    pol = sched.policy_at(9, 10)
+    assert pol.name == "full+overlay1"
+    assert pol.at("fno/layer0/spectral/contract").spectral_dtype == torch.bfloat16
+    assert pol.at("fno/layer0/spectral/fft_in").spectral_dtype is None
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PrecisionSchedule.auto()
+    with pytest.raises(ValueError):
+        PrecisionSchedule(phases=((0.5, "full"),))
+
+
+def test_relative_l2_matches_reference():
+    rng = np.random.RandomState(4)
+    p, t = rng.randn(3, 1, 9, 9).astype(np.float32), rng.randn(3, 1, 9, 9).astype(np.float32)
+    want = float(jrelative_l2(jnp.asarray(p), jnp.asarray(t)))
+    assert abs(float(relative_l2(torch.from_numpy(p), torch.from_numpy(t))) - want) <= 1e-6 * want
+
+
+# -- the trainer against the reference trainer -------------------------------------
+STEPS_BATCH = 4
+
+
+def _batches(n_steps):
+    """Inputs and a learnable target at a tenth of the prediction's scale,
+    so the loss is O(1) and moves with the precision policy (with random
+    unit-scale targets the relative L2 sits at ~1 and the policies' gaps
+    fall to a few f32 ulps of it)."""
+    rng = np.random.RandomState(7)
+    out = []
+    for _ in range(n_steps):
+        a = rng.randn(STEPS_BATCH, 1, 16, 16).astype(np.float32)
+        u = 0.05 * (np.roll(a, 1, axis=-1) + 0.5 * a ** 2)
+        out.append({"a": a, "u": u.astype(np.float32)})
+    return out
+
+
+def _jloss(p, batch, policy):
+    return jrelative_l2(jfno.fno_apply(p, batch["a"], J_CFG, policy), batch["u"])
+
+
+def _tloss(model, batch, policy):
+    return relative_l2(fno_apply(model, batch["a"], policy), batch["u"])
+
+
+def _run_both(tree, jparams, schedule_name, half, steps, microbatches=1):
+    batches = _batches(steps)
+    jsched = (JSchedule.constant("full") if schedule_name == "full"
+              else JSchedule.paper_default(half))
+    tsched = (PrecisionSchedule.constant("full") if schedule_name == "full"
+              else PrecisionSchedule.paper_default(half))
+    jt = JTrainer(_jloss, jparams, JTrainerConfig(total_steps=steps, schedule=jsched,
+                                                  microbatches=microbatches))
+    jhist = jt.run(lambda s: {k: jnp.asarray(v) for k, v in batches[s].items()})
+    net = params_from_jax(tree, FNO_DARCY_SMOKE, device="cpu")
+    tt = Trainer(_tloss, net, TrainerConfig(total_steps=steps, schedule=tsched,
+                                            microbatches=microbatches), device="cpu")
+    thist = tt.run(lambda s: batches[s])
+    return jhist, thist, jt, tt
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_trainer_full_matches_reference(bridged, microbatches):
+    jparams, tree, _, _ = bridged
+    jhist, thist, jt, tt = _run_both(tree, jparams, "full", None, 6, microbatches)
+    for j, t in zip(jhist, thist, strict=True):
+        assert t["policy"] == j["policy"] == "full"
+        err = abs(t["loss"] - j["loss"]) / abs(j["loss"])
+        print(f"full step {t['step']}: loss {t['loss']:.7f} vs {j['loss']:.7f} ({err:.2e})")
+        assert err <= 1e-5
+    for k, v in jax.tree_util.tree_map(np.asarray, jt.params).items():
+        for n, w in v.items():
+            assert rel_err(tt.params[f"{k}.{n}"].detach().numpy(), w) <= 1e-4
+
+
+@pytest.mark.parametrize("half", ["bf16", "fp16"])
+def test_trainer_paper_schedule_matches_reference(bridged, half):
+    """Policy names step for step; each step's loss within 1/2 of the
+    reference's own gap between this run and its full-precision run.
+    1/2 rather than 1/4: the reference's jitted step moves its own loss by
+    ~0.2x the AMP error (XLA fuses half elementwise chains), which the
+    port's eager op order does not follow."""
+    jparams, tree, _, _ = bridged
+    steps = 8
+    jhist, thist, _, tt = _run_both(tree, jparams, "paper", half, steps)
+    jfull, _, _, _ = _run_both(tree, jparams, "full", None, steps)
+    assert tt.stats["skipped_steps"] == 0
+    for j, t, f in zip(jhist, thist, jfull, strict=True):
+        assert t["policy"] == j["policy"]
+        err, gap = abs(t["loss"] - j["loss"]), abs(j["loss"] - f["loss"])
+        print(f"{half} step {t['step']} {t['policy']}: |port - ref| {err:.3e}, "
+              f"ref gap to full {gap:.3e}")
+        assert err <= 0.5 * gap
+
+
+def test_fp16_skip_step_keeps_state_and_halves_scale():
+    net = init_fno(torch.Generator().manual_seed(0), FNO_DARCY_SMOKE, device="cpu")
+    batch = _batches(1)[0]
+
+    def loss_fn(model, b, policy):
+        loss = _tloss(model, b, policy)
+        return loss * float("inf") if b["poison"] else loss
+
+    tt = Trainer(loss_fn, net, TrainerConfig(total_steps=3, schedule=PrecisionSchedule.constant(
+        "mixed_fno_fp16")), device="cpu")
+    tt.run(lambda s: {**batch, "poison": np.asarray(False)}, steps=2)
+    assert int(tt.scale_state.good_steps) == 2
+    before = {k: p.detach().clone() for k, p in tt.params.items()}
+    mu = {k: v.clone() for k, v in tt.opt_state.mu.items()}
+    count, scale = int(tt.opt_state.count), float(tt.scale_state.scale)
+    tt.run(lambda s: {**batch, "poison": np.asarray(True)}, steps=3)
+    assert tt.stats["skipped_steps"] == 1
+    assert all(torch.equal(before[k], p) for k, p in tt.params.items())
+    assert all(torch.equal(mu[k], v) for k, v in tt.opt_state.mu.items())
+    assert int(tt.opt_state.count) == count
+    assert float(tt.scale_state.scale) == scale / 2
+    assert int(tt.scale_state.good_steps) == 0
+
+
+# -- checkpoints ---------------------------------------------------------------------
+def _trainer(tmp_path, total, **kw):
+    net = init_fno(torch.Generator().manual_seed(0), FNO_DARCY_SMOKE, device="cpu")
+    cfg = TrainerConfig(total_steps=total, schedule=PrecisionSchedule.paper_default("fp16"),
+                        ckpt_dir=str(tmp_path), **kw)
+    return Trainer(_tloss, net, cfg, device="cpu")
+
+
+def test_checkpoint_restore_continues_bit_identically(tmp_path):
+    batches = _batches(6)
+    straight = _trainer(tmp_path / "a", 6, ckpt_every=100)
+    straight.run(lambda s: batches[s])
+    first = _trainer(tmp_path / "b", 6, ckpt_every=3)
+    first.run(lambda s: batches[s], steps=3)
+    resumed = _trainer(tmp_path / "b", 6, ckpt_every=3)
+    assert resumed.restore() and resumed.step == 3
+    assert float(resumed.scale_state.scale) == float(first.scale_state.scale)
+    resumed.run(lambda s: batches[s])
+    for k, p in straight.params.items():
+        assert torch.equal(p, resumed.params[k]), k
+    assert [h["loss"] for h in straight.history[3:]] == [h["loss"] for h in resumed.history]
+
+
+def test_keep_last_k_and_preemption(tmp_path):
+    batches = _batches(7)
+    tt = _trainer(tmp_path, 7, ckpt_every=1, keep_last_k=2)
+    tt.run(lambda s: batches[s])
+    assert sorted(os.listdir(tmp_path)) == ["step_0000000006", "step_0000000007"]
+    assert checkpoint.latest_step(str(tmp_path)) == 7
+
+    pre = _trainer(tmp_path / "p", 7, ckpt_every=100)
+    pre.install_preemption_handler(signal.SIGUSR1)
+
+    def batch_fn(s):
+        if s == 2:
+            os.kill(os.getpid(), signal.SIGUSR1)
+        return batches[s]
+
+    try:
+        pre.run(batch_fn)
+    finally:
+        signal.signal(signal.SIGUSR1, signal.SIG_DFL)
+    assert pre.step == 3 and checkpoint.latest_step(str(tmp_path / "p")) == 3
+
+
+def test_params_from_jax_checkpoint_reads_reference_trainer(bridged, tmp_path):
+    jparams, _, _, _ = bridged
+    batches = _batches(2)
+    jt = JTrainer(_jloss, jparams, JTrainerConfig(total_steps=2, ckpt_dir=str(tmp_path),
+                                                  ckpt_every=2, use_pallas=False))
+    jt.run(lambda s: {k: jnp.asarray(v) for k, v in batches[s].items()})
+    net = params_from_jax_checkpoint(str(tmp_path), FNO_DARCY_SMOKE, device="cpu")
+    for k, v in jax.tree_util.tree_map(np.asarray, jt.params).items():
+        for n, w in v.items():
+            np.testing.assert_array_equal(net.state_dict()[f"{k}.{n}"].numpy(), w)
+    # the port's own checkpoints use the same keys
+    tt = _trainer(tmp_path / "port", 1, ckpt_every=1)
+    tt.run(lambda s: batches[s])
+    back = params_from_jax_checkpoint(str(tmp_path / "port"), FNO_DARCY_SMOKE, device="cpu")
+    for k, p in tt.params.items():
+        assert torch.equal(back.state_dict()[k], p.detach())
+
+
+# -- entry points ---------------------------------------------------------------------
+def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+    from repro_torch.data import sample_darcy_batch
+
+    net = init_fno(torch.Generator().manual_seed(0), FNO_DARCY_SMOKE, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(_tloss, net, TrainerConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sample_darcy_batch(torch.Generator().manual_seed(0), 8, 1)
+    tt = Trainer(_tloss, net, TrainerConfig(), device="cpu")
+    assert tt.model is not net and all(p.device.type == "cpu" for p in tt.params.values())
+
+
+@pytest.mark.parametrize("option", [{"autoprec": object()}, {"telemetry": True},
+                                    {"calibration_state": "x.json"}, {"obs": True}])
+def test_unported_trainer_options_raise(option):
+    net = init_fno(torch.Generator().manual_seed(0), FNO_DARCY_SMOKE, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(_tloss, net, TrainerConfig(**option), device="cpu")
+
+
+def test_train_darcy_example_runs_on_cpu(capsys):
+    from repro_torch.examples import train_darcy
+
+    out = train_darcy.main(["--steps", "4", "--n", "16", "--device", "cpu"])
+    assert [h["policy"] for h in out["history"]] == [
+        "mixed_fno_bf16", "amp_bf16", "amp_bf16", "full"]
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
+    assert all(np.isfinite(out[k]) for k in ("test", "super", "mixed", "mixed_last_full"))
+    assert "restart OK from step 4" in capsys.readouterr().out
