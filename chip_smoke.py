@@ -8,35 +8,53 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. Device: require CUDA; print the card's name and power limit; turn TF32
    and reduced-precision half reductions off (the ``full`` policy means
    real f32, and the reference accumulates half products in f32).
-2. Build: compile the hand-written spectral-contraction kernels (the
-   forward source and the backward source, one ``nvcc`` each, started
+2. Build: compile the hand-written kernels (the dense forward source, the
+   dense backward source and the CP source, one ``nvcc`` each, started
    together) for ``sm_90a`` from the sources in this checkout; print each
    ptxas report.
-3. Kernels vs plain: the forward kernel and the two backward kernels
-   against their plain PyTorch versions on the card, at the path's shape
-   and a ragged one, in the path's three modes, within
-   ``4ε·M + 32·ε_f32·M + 1e-5`` elementwise (ε of the forward's output
-   format; ε_f32 for the gradients, which are f32 sums stored at f32).
-4. Serving: serve the full-width Darcy FNO (``FNO_DARCY``) through
+3. Kernels vs plain: the dense forward kernel and its two backward
+   kernels, and the CP kernels ``cp_fwd`` and ``cp_bwd``, against their
+   plain PyTorch versions on the card, at their path's shape and a ragged
+   one, in the paths' three modes.  Dense: within ``4ε·M + 32·ε_f32·M +
+   1e-5`` elementwise (ε of the format each output is stored at, M the
+   contraction of |operands| it sums).  CP (kernel and plain both sum in
+   f32 from the same operands): within one rounding of the stored result,
+   ``2ε/(1-ε)·|plain| + (1+ε)(32·ε_f32·M + 1e-5)``, a budget that every
+   zeroed output is checked to exceed.
+4. Darcy serving: the full-width Darcy FNO (``FNO_DARCY``) through
    ``OperatorEngine(max_batch=8)`` under ``mixed_fno_bf16`` and ``full``:
    16 GRF fields at 128x128 and 8 at 421x421, two rounds (the first warms
    cuFFT plans and cuBLAS).  Outputs finite and shaped; 8 kernel launches
    per micro-batch; a re-served field through a fresh engine bit-identical
    to its batched answer; one 128x128 field against the same weights run
    on the CPU.
-5. Training: 32 Darcy pairs at 128x128 from the ported CG solver on the
-   card; ``FNO_DARCY`` trained 12 steps in batches of 8 under the paper's
-   schedule (``paper_default("bf16")``: 3 mixed, 6 AMP, 3 full).  Losses
-   finite and falling, the schedule followed, no skipped step, 8 forward,
-   8 bwd_x and 8 bwd_w launches per step; a restore of the step-6
+5. Darcy training: 32 Darcy pairs at 128x128 from the ported CG solver on
+   the card; ``FNO_DARCY`` trained 12 steps in batches of 8 under the
+   paper's schedule (``paper_default("bf16")``: 3 mixed, 6 AMP, 3 full).
+   Losses finite and falling, the schedule followed, no skipped step, 8
+   forward, 8 bwd_x and 8 bwd_w launches per step; a restore of the step-6
    checkpoint reruns step 7 bit-identically; one step's gradients on the
    card against the CPU; a 4-step fp16 run with its loss scale accounted.
-6. Numbers: each kernel's time (CUDA graph of many launches, operands
-   cycled through more than L2 holds) beside its bound, its plain
-   version's and ``torch.einsum``'s on complex64; engine fields/s and ms
-   per micro-batch per resolution; ms per training step, fields/s and peak
-   memory per policy; profiler breakdowns of serving micro-batches and of
-   a ``mixed_fno_bf16`` and a ``full`` training step; peak device memory.
+6. TFNO serving: the paper's CP-factorised TFNO (``TFNO_NS``) served as in
+   phase 4, NS forcings at 128x128 (16) and 256x256 (8): 8 ``cp_fwd``
+   launches per micro-batch and no dense launch, batched == solo, card vs
+   CPU on one 128x128 field; a Tucker-factorised TFNO_NS (the einsum path)
+   answers one micro-batch, card vs CPU.
+7. TFNO training: 32 Navier-Stokes pairs at 128x128 (T = 5, 512 steps)
+   from the ported solver on the card; ``TFNO_NS`` trained 12 steps with
+   the relative H¹ loss under ``paper_default("bf16")``, batch 8: 8
+   ``cp_fwd`` and 8 ``cp_bwd`` launches per step, the schedule, a finite
+   and falling loss, the step-6 restore rerun, one step's gradients card
+   vs CPU; and the NS solver on 2 fields card vs CPU at three horizons.
+8. Numbers: each kernel's time (CUDA graph of many launches, operands
+   cycled through more than L2 holds) beside its bound (bytes at the HBM
+   rate; half x half products at the bf16/fp16 tensor-core rate, the rest
+   at the f32 CUDA-core rate), its plain
+   version's and one PyTorch call's on complex64 where one computes the
+   same function; engine fields/s and ms per micro-batch per resolution;
+   ms per training step, fields/s and peak memory per policy; profiler
+   breakdowns of serving micro-batches and of a ``mixed_fno_bf16`` and a
+   ``full`` training step of each model.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -66,9 +84,23 @@ MODES = ((None, torch.float32), (torch.bfloat16, torch.bfloat16),
          (torch.float16, torch.float16))
 TRAIN_GRID, TRAIN_FIELDS, TRAIN_BATCH, TRAIN_STEPS = 128, 32, 8, 12
 CG_MAXITER = 1000
-#: H100 SXM data sheet: HBM rate and f32 (non-tensor-core) peak
+#: (B, I, O, R, M) of every CP launch on the TFNO paths: TFNO_NS's 4 layers
+#: x 2 corners of 42x42 modes, rank 64
+CP_PATH_SHAPE = (8, 64, 64, 64, 42 * 42)
+CP_RAGGED_SHAPE = (3, 24, 40, 17, 300)
+#: operand dtypes of the CP kernels on the paths: full/amp, mixed_fno_bf16,
+#: the fp16 family
+CP_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+TFNO_RESOLUTIONS = ((128, 16), (256, 8))  # (grid, fields)
+NS_T, NS_STEPS = 5.0, 512
+#: every kernel's launch count on ``repro_torch.kernels.spectral_contract``
+LAUNCH_COUNTERS = ("launches", "launches_bwd_x", "launches_bwd_w",
+                   "launches_cp_fwd", "launches_cp_bwd")
+#: H100 SXM data sheet: HBM rate, f32 (non-tensor-core) peak, and the dense
+#: bf16/fp16 tensor-core peak (half x half products summed in f32)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+HALF_FLOP_PER_S = 989e12
 
 
 def emit(tag, **fields):
@@ -109,8 +141,8 @@ def device_phase():
 # -- phase 2 ------------------------------------------------------------------
 def build_phase(sc):
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        built = list(pool.map(sc.build, (sc.SOURCE, sc.SOURCE_BWD)))
+    with ThreadPoolExecutor(len(sc.SOURCES)) as pool:
+        built = list(pool.map(sc.build, sc.SOURCES))
     for lib, report in built:
         print(report.strip(), flush=True)
     emit("build", libraries=[str(lib.relative_to(ROOT)) for lib, _ in built],
@@ -201,7 +233,65 @@ def backward_kernel_phase(sc):
     return worst
 
 
-# -- phase 4 ------------------------------------------------------------------
+def cp_operands(shape, dtype, seed):
+    """x, U_i, U_o, W and a cotangent g of the CP contraction as re/im
+    pairs at ``dtype`` on the card, scaled so the outputs are O(1)."""
+    B, I, O, R, M = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = ((B, I, M), (I, R), (O, R), (R, M), (B, O, M))
+    scales = (1.0, I ** -0.5, R ** -0.5, 1.0, 1.0)
+    return [(s * torch.randn(*sh, generator=g, device="cuda")).to(dtype)
+            for sh, s in zip(shapes, scales, strict=True) for _ in range(2)]
+
+
+def cp_kernel_phase(sc):
+    """cp_fwd and cp_bwd against their plain versions; returns each
+    kernel's worst max-abs error at the path's shape.  Both sum in f32 from
+    the same operands, so each output is held to one rounding at its dtype
+    plus the f32 summation order (``store_budget``); a zeroed output must
+    fall outside that budget, or the comparison could not see a wrong one."""
+    from repro_torch.core.precision import FORMAT_EPS, dtype_name
+    from repro_torch.core.theory import store_budget
+
+    names = ("out", "out", "dx", "dx", "dU_i", "dU_i", "dU_o", "dU_o", "dW", "dW")
+    worst = {"cp_fwd": 0.0, "cp_bwd": 0.0}
+    for k, shape in enumerate((CP_PATH_SHAPE, CP_RAGGED_SHAPE)):
+        for dtype in CP_DTYPES:
+            ops = cp_operands(shape, dtype, SEED + 30 + k)
+            got = (*sc._launch_cp_fwd(*ops[:8]), *sc._launch_cp_bwd(*ops))
+            torch.cuda.synchronize()
+            want = (*sc.spectral_contract_cp_plain(*ops[:8]),
+                    *sc.spectral_contract_cp_bwd_plain(*ops))
+            torch.cuda.synchronize()
+            mags = sc.cp_magnitudes(*ops)
+            eps = FORMAT_EPS[dtype_name(dtype)]
+            errs, excess, zero_excess = {}, {}, {}
+            for name, a, b in zip(names, got, want, strict=True):
+                budget = store_budget(eps, b.float(), mags[name])
+                diff = (a.float() - b.float()).abs()
+                excess[name] = max(excess.get(name, -1e30), (diff - budget).max().item())
+                zero_excess[name] = max(zero_excess.get(name, -1e30),
+                                        (b.float().abs() - budget).max().item())
+                errs[name] = max(errs.get(name, 0.0), diff.max().item())
+            for kernel, keys in (("cp_fwd", ("out",)), ("cp_bwd", ("dx", "dU_i", "dU_o", "dW"))):
+                ok = all(excess[n] <= 0 for n in keys)
+                blind = [n for n in keys if zero_excess[n] <= 0]
+                emit("kernel_vs_plain", kernel=kernel, shape=list(shape), dtype=str(dtype),
+                     max_abs_err={n: errs[n] for n in keys},
+                     max_excess_over_budget={n: excess[n] for n in keys},
+                     zeroed_output_excess={n: zero_excess[n] for n in keys},
+                     ok=ok and not blind)
+                if not ok:
+                    fail(f"{kernel} disagrees with its plain version at {shape} {dtype}: "
+                         f"excess over budget {excess}")
+                if blind:
+                    fail(f"{kernel} at {shape} {dtype}: the budget would accept a zeroed {blind}")
+                if shape == CP_PATH_SHAPE:
+                    worst[kernel] = max(worst[kernel], *(errs[n] for n in keys))
+    return worst
+
+
+# -- phases 4 and 6: serving ---------------------------------------------------
 def serve(engine, fields, uid0, times):
     """Submit ``fields`` and tick the engine dry, recording per tick the
     resolution, wall ms and peak device memory into ``times``."""
@@ -231,6 +321,11 @@ def check_outputs(reqs, cfg):
             fail(f"request {r.uid}: non-finite output")
 
 
+#: the kernels' names, as the profiler reports them
+KERNEL_NAMES = ("dense_fwd_kernel", "dense_bwd_x_kernel", "dense_bwd_w_kernel",
+                "cp_fwd_kernel", "cp_bwd_kernel")
+
+
 def profiled(fn):
     """Run ``fn`` under the profiler: wall ms (host clock, ending in a
     synchronise), device-busy ms, the spectral kernels' ms and the top
@@ -252,12 +347,11 @@ def profiled(fn):
             continue
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    spectral = {k: sum(v for n, v in by_name.items() if k in n)
-                for k in ("dense_fwd_kernel", "dense_bwd_x_kernel", "dense_bwd_w_kernel")}
+    spectral = {k: sum(v for n, v in by_name.items() if k in n) for k in KERNEL_NAMES}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
-            "spectral_kernel_ms": spectral,
+            "spectral_kernel_ms": {k: v for k, v in spectral.items() if v},
             "top": [[name[:90], ms] for name, ms in top]}
 
 
@@ -270,26 +364,30 @@ def profile_tick(engine, fields):
     return profiled(engine.tick)
 
 
-def serve_phase(sc):
-    from repro_torch.configs.fno_paper import FNO_DARCY
-    from repro_torch.data import grf_2d
-    from repro_torch.models import fno_infer, init_fno, param_count
+def counts(sc):
+    return {name: getattr(sc, name) for name in LAUNCH_COUNTERS}
+
+
+def zero_counts(sc):
+    for name in LAUNCH_COUNTERS:
+        setattr(sc, name, 0)
+
+
+def serve_model(sc, tag, cfg, net, net_cpu, fields, solo_picks, counter):
+    """Serve ``fields`` ({grid: [field]}) through ``OperatorEngine`` under
+    each policy, two rounds, then check launches, batched == solo and card
+    vs CPU; ``counter`` names the one launch count the path must move (8
+    per micro-batch), every other count must stay at 0.  Phases are
+    emitted under ``tag`` + their name.  Returns the path's launches."""
+    from repro_torch.models import fno_infer
     from repro_torch.precision import get_policy
     from repro_torch.serve import OperatorEngine
 
-    cfg = FNO_DARCY
     per_batch = cfg.n_layers * 2 ** (cfg.ndim - 1)
     if per_batch != 8:
-        fail(f"FNO_DARCY should launch 8 kernels per micro-batch, config gives {per_batch}")
-    t0 = time.perf_counter()
-    net = init_fno(torch.Generator().manual_seed(SEED), cfg)
-    net_cpu = init_fno(torch.Generator().manual_seed(SEED), cfg, device="cpu")
-    fields = {n: list(grf_2d(torch.Generator().manual_seed(n), n, batch=count)
-                      .numpy()[:, None])
-              for n, count in RESOLUTIONS}
-    emit("setup", params=param_count(net), seconds=time.perf_counter() - t0)
-
-    sc.launches = 0          # the serving path's run starts here
+        fail(f"{tag}model should launch 8 kernels per micro-batch, config gives {per_batch}")
+    grids = list(fields)
+    zero_counts(sc)          # the serving path's run starts here
     ticks = 0
     served, stats, profiles = {}, {}, {}
     for pname in POLICIES:
@@ -298,13 +396,12 @@ def serve_phase(sc):
         for rnd in range(2):
             times = []
             reqs = []
-            for n, _ in RESOLUTIONS:
+            for n in grids:
                 reqs += serve(engine, fields[n], 1000 * rnd + n, times)
             ticks += len(times)
             check_outputs(reqs, cfg)
-        served[pname] = {n: [r.y for r in reqs if r.resolution[0] == n]
-                         for n, _ in RESOLUTIONS}
-        for n, _ in RESOLUTIONS:
+        served[pname] = {n: [r.y for r in reqs if r.resolution[0] == n] for n in grids}
+        for n in grids:
             rows = [t for t in times if t[0] == n]
             ms = [t[2] for t in rows]
             stats[(pname, n)] = {
@@ -319,41 +416,114 @@ def serve_phase(sc):
             profiles[(pname, n)] = prof
             ticks += 1
         # a re-served field through a fresh engine gives its batched answer
-        for n, idx in ((128, 5), (421, 3)):
+        for n, idx in solo_picks:
             solo = OperatorEngine(net, policy=policy, max_batch=MAX_BATCH)
             times = []
             (sr,) = serve(solo, [fields[n][idx]], 0, times)
             ticks += len(times)
             if not np.array_equal(sr.y, served[pname][n][idx]):
-                fail(f"{pname} {n}x{n}: re-served field differs from its batched answer")
-    launches = sc.launches   # the serving path's run ends here
-    emit("launches", launches=launches, micro_batches=ticks,
-         per_micro_batch=launches / ticks)
+                fail(f"{tag}{pname} {n}x{n}: re-served field differs from its batched answer")
+    launched = counts(sc)   # the serving path's run ends here
+    launches = launched[counter]
+    emit(f"{tag}launches", launches=launches, micro_batches=ticks,
+         per_micro_batch=launches / ticks, counts=launched)
     if launches != per_batch * ticks:
-        fail(f"{launches} kernel launches for {ticks} micro-batches, want {per_batch} each")
+        fail(f"{tag}{launches} kernel launches for {ticks} micro-batches, want {per_batch} each")
+    if any(v for k, v in launched.items() if k != counter):
+        fail(f"{tag}serving launched other kernels than {counter}: {launched}")
 
     # the card against the CPU plain path, same weights, one 128x128 field
-    x = fields[128][5][None]
+    n, idx = solo_picks[0]
+    x = fields[n][idx][None]
     parity = {}
     for pname in POLICIES:
         y_cpu = fno_infer(net_cpu, x, get_policy(pname), device="cpu").numpy()[0]
-        parity[pname] = rel_l2(served[pname][128][5], y_cpu)
-    precision_err = rel_l2(served["mixed_fno_bf16"][128][5], served["full"][128][5])
+        parity[pname] = rel_l2(served[pname][n][idx], y_cpu)
+    precision_err = rel_l2(served["mixed_fno_bf16"][n][idx], served["full"][n][idx])
     limits = {"full": 1e-5, "mixed_fno_bf16": 0.25 * precision_err}
-    emit("card_vs_cpu", rel_l2=parity, limits=limits,
+    emit(f"{tag}card_vs_cpu", rel_l2=parity, limits=limits,
          mixed_vs_full_rel_l2=precision_err)
     for pname in POLICIES:
         if not parity[pname] <= limits[pname]:
-            fail(f"{pname}: card vs CPU relative L2 {parity[pname]:.3e} "
+            fail(f"{tag}{pname}: card vs CPU relative L2 {parity[pname]:.3e} "
                  f"> {limits[pname]:.3e}")
     for key in stats:
-        emit("engine", **stats[key])
+        emit(f"{tag}engine", **stats[key])
     for (pname, n), prof in profiles.items():
-        emit("profile", policy=pname, grid=n, **prof)
+        emit(f"{tag}profile", policy=pname, grid=n, **prof)
     return launches
 
 
-# -- phase 5 ------------------------------------------------------------------
+def serve_phase(sc):
+    from repro_torch.configs.fno_paper import FNO_DARCY
+    from repro_torch.data import grf_2d
+    from repro_torch.models import init_fno, param_count
+
+    t0 = time.perf_counter()
+    net = init_fno(torch.Generator().manual_seed(SEED), FNO_DARCY)
+    net_cpu = init_fno(torch.Generator().manual_seed(SEED), FNO_DARCY, device="cpu")
+    fields = {n: list(grf_2d(torch.Generator().manual_seed(n), n, batch=count)
+                      .numpy()[:, None])
+              for n, count in RESOLUTIONS}
+    emit("setup", params=param_count(net), seconds=time.perf_counter() - t0)
+    return serve_model(sc, "", FNO_DARCY, net, net_cpu, fields, ((128, 5), (421, 3)),
+                       "launches")
+
+
+def ns_forcing(n, count):
+    """NS forcings f ~ N(0, 27(-Δ+9I)^{-4}) (the TFNO's inputs), (count,
+    1, n, n) host arrays from a CPU generator."""
+    from repro_torch.data import grf_2d
+
+    f = grf_2d(torch.Generator().manual_seed(n), n, alpha=4.0, tau=3.0,
+               sigma=27.0 ** 0.5, batch=count)
+    return list(f.numpy()[:, None])
+
+
+def tfno_serve_phase(sc):
+    from repro_torch.configs.fno_paper import TFNO_NS
+    from repro_torch.models import init_fno, param_count
+
+    t0 = time.perf_counter()
+    net = init_fno(torch.Generator().manual_seed(SEED + 2), TFNO_NS)
+    net_cpu = init_fno(torch.Generator().manual_seed(SEED + 2), TFNO_NS, device="cpu")
+    fields = {n: ns_forcing(n, count) for n, count in TFNO_RESOLUTIONS}
+    emit("tfno_setup", params=param_count(net), seconds=time.perf_counter() - t0)
+    launches = serve_model(sc, "tfno_", TFNO_NS, net, net_cpu, fields, ((128, 5), (256, 3)),
+                           "launches_cp_fwd")
+    tucker_parity(fields[128][:MAX_BATCH])
+    return launches
+
+
+def tucker_parity(fields):
+    """A Tucker-factorised TFNO_NS (the memory-greedy einsum path, no
+    kernel) answers one micro-batch on the card and on the CPU: relative
+    L2 within 1e-5 under full and 1/4 of the card's own mixed-vs-full
+    error under mixed_fno_bf16."""
+    import dataclasses
+
+    from repro_torch.configs.fno_paper import TFNO_NS
+    from repro_torch.models import fno_infer, init_fno
+    from repro_torch.precision import get_policy
+
+    cfg = dataclasses.replace(TFNO_NS, factorization="tucker")
+    x = np.stack(fields)
+    y = {}
+    for dev in ("cuda", "cpu"):
+        net = init_fno(torch.Generator().manual_seed(SEED + 5), cfg, device=dev)
+        for pname in POLICIES:
+            y[(dev, pname)] = fno_infer(net, x, get_policy(pname), device=dev).cpu().numpy()
+    err = {p: rel_l2(y[("cuda", p)], y[("cpu", p)]) for p in POLICIES}
+    gap = rel_l2(y[("cuda", "mixed_fno_bf16")], y[("cuda", "full")])
+    limits = {"full": 1e-5, "mixed_fno_bf16": 0.25 * gap}
+    emit("tucker_card_vs_cpu", fields=len(fields), grid=x.shape[-1], rel_l2=err,
+         limits=limits, mixed_vs_full_rel_l2=gap)
+    for p in POLICIES:
+        if not (np.isfinite(y[("cuda", p)]).all() and err[p] <= limits[p]):
+            fail(f"Tucker TFNO {p}: card vs CPU relative L2 {err[p]:.3e} > {limits[p]:.3e}")
+
+
+# -- phases 5 and 7: training --------------------------------------------------
 def darcy_data():
     """32 Darcy pairs at 128x128 from the ported CG solver on the card, as
     host numpy arrays, and each field's final relative residual
@@ -377,21 +547,73 @@ def darcy_data():
     return {"a": a.cpu().numpy(), "u": u.cpu().numpy()}
 
 
-def loss_fn(model, batch, policy):
+def ns_data():
+    """32 Navier-Stokes pairs (forcing, ω(T)) at 128x128 from the ported
+    solver on the card, T = 5 in 512 steps, as host numpy arrays."""
+    from repro_torch.data import sample_ns_batch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f, w = sample_ns_batch(torch.Generator().manual_seed(SEED + 3), TRAIN_GRID, TRAIN_FIELDS,
+                           T=NS_T, steps=NS_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not (torch.isfinite(f).all() and torch.isfinite(w).all()):
+        fail("non-finite Navier-Stokes data")
+    f_std, w_std = float(f.std()), float(w.std())
+    emit("ns_data", fields=TRAIN_FIELDS, grid=TRAIN_GRID, T=NS_T, steps=NS_STEPS,
+         seconds=seconds, forcing_std=f_std, vorticity_std=w_std,
+         vorticity_max_abs=float(w.abs().max()))
+    # both channels whitened to O(1), the standard neuraloperator
+    # preprocessing (the raw fields are ~1e-4)
+    return {"a": (f / f_std).cpu().numpy(), "u": (w / w_std).cpu().numpy()}
+
+
+def ns_solver_parity():
+    """The NS solver on 2 forcings, card vs CPU, at three horizons of the
+    same time step (T = 1.25, 2.5, 5 in 128, 256, 512 steps).  The flow is
+    nonlinear, so cuFFT's and pocketfft's last bits grow with the horizon:
+    the growth is recorded, and the full horizon is held to 1e-3 relative
+    L2 (the solver at 128 steps reads ~1e-6 in the CPU tests; 1e-3 leaves
+    a thousandfold growth and is still 1000x below the O(1) relative
+    change a wrong solver makes)."""
+    from repro_torch.data import solve_ns_vorticity
+
+    f = torch.stack([torch.from_numpy(a[0]) for a in ns_forcing(TRAIN_GRID, 2)])
+    growth = {}
+    for steps in (NS_STEPS // 4, NS_STEPS // 2, NS_STEPS):
+        T = NS_T * steps / NS_STEPS
+        got = solve_ns_vorticity(f.cuda(), TRAIN_GRID, T=T, steps=steps).cpu().numpy()
+        want = solve_ns_vorticity(f, TRAIN_GRID, T=T, steps=steps).numpy()
+        growth[steps] = rel_l2(got, want)
+    emit("ns_solver_card_vs_cpu", fields=2, grid=TRAIN_GRID, rel_l2_by_steps=growth,
+         limit=1e-3)
+    if not growth[NS_STEPS] <= 1e-3:
+        fail(f"NS solver card vs CPU relative L2 {growth[NS_STEPS]:.3e} > 1e-3")
+
+
+def loss_l2(model, batch, policy):
     from repro_torch.models import fno_apply
     from repro_torch.train import relative_l2
 
     return relative_l2(fno_apply(model, batch["a"], policy), batch["u"])
 
 
-def leaf_grads(model, batch, policy):
+def loss_h1(model, batch, policy):
+    from repro_torch.models import fno_apply
+    from repro_torch.train import relative_h1
+
+    return relative_h1(fno_apply(model, batch["a"], policy), batch["u"])
+
+
+def leaf_grads(loss_fn, model, batch, policy):
     loss = loss_fn(model, batch, policy)
     names = [k for k, _ in model.named_parameters()]
     grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
     return {k: g.detach().cpu().numpy() for k, g in zip(names, grads)}
 
 
-def grad_parity(net_cpu, data):
+def grad_parity(tag, loss_fn, net_cpu, data):
     """One step's gradients on the card against the CPU, same weights and
     2 fields at 128x128.  Limits per leaf: 1e-4 relative L2 under full;
     1/4 of the card's own mixed-vs-full gradient gap under
@@ -405,9 +627,10 @@ def grad_parity(net_cpu, data):
     got, gap, limits = {}, {}, {}
     g = {}
     for pname in ("full", "mixed_fno_bf16"):
-        g[("cuda", pname)] = leaf_grads(net_gpu, {k: v.cuda() for k, v in batch.items()},
+        g[("cuda", pname)] = leaf_grads(loss_fn, net_gpu,
+                                        {k: v.cuda() for k, v in batch.items()},
                                         get_policy(pname))
-        g[("cpu", pname)] = leaf_grads(net_cpu, batch, get_policy(pname))
+        g[("cpu", pname)] = leaf_grads(loss_fn, net_cpu, batch, get_policy(pname))
     for pname in ("full", "mixed_fno_bf16"):
         for leaf, want in g[("cpu", pname)].items():
             err = rel_l2(g[("cuda", pname)][leaf], want)
@@ -418,26 +641,26 @@ def grad_parity(net_cpu, data):
                 limit = 0.25 * gap[leaf]
             got[f"{pname}/{leaf}"] = err
             limits[f"{pname}/{leaf}"] = limit
-    emit("train_grad_card_vs_cpu", rel_l2=got, limits=limits, mixed_vs_full_gap=gap)
+    emit(f"{tag}train_grad_card_vs_cpu", rel_l2=got, limits=limits, mixed_vs_full_gap=gap)
     for key, err in got.items():
         if not err <= limits[key]:
-            fail(f"{key}: card vs CPU gradient relative L2 {err:.3e} > {limits[key]:.3e}")
+            fail(f"{tag}{key}: card vs CPU gradient relative L2 {err:.3e} > {limits[key]:.3e}")
 
 
-def train_phase(sc):
-    """The training slice; returns the launches of each kernel in the
-    main run and the numbers to report."""
-    from repro_torch.configs.fno_paper import FNO_DARCY
+def train_model(sc, tag, cfg, data, loss_fn, seed, path_counters):
+    """Train ``cfg`` 12 steps on ``data`` under ``paper_default("bf16")``
+    and check it (launches of ``path_counters``, 8 each per step, and no
+    other; schedule; falling loss; the step-6 restore rerun; gradients
+    card vs CPU); profile one step per policy.  Returns the path's
+    launches, the CPU model, the loader and the per-policy numbers."""
     from repro_torch.core.schedule import PrecisionSchedule
     from repro_torch.data import CachedDataset
     from repro_torch.models import init_fno
     from repro_torch.train import Trainer, TrainerConfig
 
-    cfg = FNO_DARCY
     per_step = cfg.n_layers * 2 ** (cfg.ndim - 1)
-    data = darcy_data()
     loader = CachedDataset(data, TRAIN_BATCH, seed=SEED)
-    net_cpu = init_fno(torch.Generator().manual_seed(SEED + 1), cfg, device="cpu")
+    net_cpu = init_fno(torch.Generator().manual_seed(seed), cfg, device="cpu")
     schedule = PrecisionSchedule.paper_default("bf16")
     want = [schedule.policy_at(s, TRAIN_STEPS).name for s in range(TRAIN_STEPS)]
     if want != ["mixed_fno_bf16"] * 3 + ["amp_bf16"] * 6 + ["full"] * 3:
@@ -455,47 +678,47 @@ def train_phase(sc):
         tcfg = TrainerConfig(total_steps=TRAIN_STEPS, schedule=schedule, ckpt_dir=ckpt,
                              ckpt_every=6, keep_last_k=3)
         trainer = Trainer(loss_fn, net_cpu, tcfg)
-        sc.launches = sc.launches_bwd_x = sc.launches_bwd_w = 0   # the main run starts
+        zero_counts(sc)                                    # the main run starts
         trainer.run(batch_fn, steps=7)
         # on the host, so the snapshot does not count in later steps' peaks
         after7 = {k: p.detach().cpu() for k, p in trainer.params.items()}
         trainer.run(batch_fn)
         torch.cuda.synchronize()
-        launches = {"fwd": sc.launches, "bwd_x": sc.launches_bwd_x,
-                    "bwd_w": sc.launches_bwd_w}                # the main run ends
+        launched = counts(sc)                              # the main run ends
         peaks[TRAIN_STEPS - 1] = torch.cuda.max_memory_allocated()
         hist = trainer.history
-        emit("train_launches", steps=len(hist), launches=launches,
-             per_step={k: v / len(hist) for k, v in launches.items()})
-        for name, n in launches.items():
-            if n != per_step * TRAIN_STEPS:
-                fail(f"{name}: {n} launches in {TRAIN_STEPS} steps, want {per_step} per step")
+        emit(f"{tag}train_launches", steps=len(hist), launches=launched,
+             per_step={k: v / len(hist) for k, v in launched.items()})
+        for name, n in launched.items():
+            expect = per_step * TRAIN_STEPS if name in path_counters else 0
+            if n != expect:
+                fail(f"{tag}{name}: {n} launches in {TRAIN_STEPS} steps, want {expect}")
         losses = [h["loss"] for h in hist]
         if [h["policy"] for h in hist] != want:
-            fail(f"policies {[h['policy'] for h in hist]} do not follow the schedule {want}")
+            fail(f"{tag}policies {[h['policy'] for h in hist]} do not follow {want}")
         if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
-            fail(f"losses not finite and falling: {losses}")
+            fail(f"{tag}losses not finite and falling: {losses}")
         if trainer.stats["skipped_steps"]:
-            fail(f"{trainer.stats['skipped_steps']} skipped steps under bf16")
+            fail(f"{tag}{trainer.stats['skipped_steps']} skipped steps under bf16")
 
         # the step-6 checkpoint, restored into a fresh trainer, reruns step 7
         resumed = Trainer(loss_fn, net_cpu, tcfg)
         if not resumed.restore(step=6) or resumed.step != 6:
-            fail("the step-6 checkpoint did not restore")
+            fail(f"{tag}the step-6 checkpoint did not restore")
         resumed.run(batch_fn, steps=7)
         torch.cuda.synchronize()
         differ = [k for k, p in after7.items()
                   if not torch.equal(p, resumed.params[k].detach().cpu())]
-        emit("train_restore", restored_step=6, rerun_step=7, bit_identical=not differ,
+        emit(f"{tag}train_restore", restored_step=6, rerun_step=7, bit_identical=not differ,
              differing_leaves=differ)
         if differ:
-            fail(f"step 7 after restoring step 6 differs in {differ}")
+            fail(f"{tag}step 7 after restoring step 6 differs in {differ}")
 
     steps = [{"step": h["step"], "policy": h["policy"], "loss": h["loss"],
               "ms": h["dt"] * 1e3, "fields_per_s": TRAIN_BATCH / h["dt"],
               "peak_mem_bytes": peaks.get(h["step"])} for h in hist]
     for row in steps:
-        emit("train_step", **row)
+        emit(f"{tag}train_step", **row)
     by_policy = {}
     for pname in ("mixed_fno_bf16", "amp_bf16", "full"):
         rows = [r for r in steps if r["policy"] == pname and r["step"] > 0]
@@ -503,13 +726,38 @@ def train_phase(sc):
         by_policy[pname] = {"steps": len(rows), "median_ms_per_step": ms,
                             "fields_per_s": TRAIN_BATCH / (ms / 1e3),
                             "peak_mem_bytes": max(r["peak_mem_bytes"] for r in rows)}
-        emit("train_policy", policy=pname, **by_policy[pname])
+        emit(f"{tag}train_policy", policy=pname, **by_policy[pname])
 
-    grad_parity(net_cpu, data)
+    grad_parity(tag, loss_fn, net_cpu, data)
+
+    # one profiled step per policy, after a warm step
+    for pname in ("mixed_fno_bf16", "full"):
+        tt = Trainer(loss_fn, net_cpu, TrainerConfig(
+            total_steps=2, schedule=PrecisionSchedule.constant(pname)))
+        tt.run(loader.batch_at, steps=1)
+        prof = profiled(lambda: tt.run(loader.batch_at, steps=2))
+        prof["step_ms_unprofiled"] = by_policy[pname]["median_ms_per_step"]
+        prof["idle_share_unprofiled"] = max(
+            0.0, 1.0 - prof["device_busy_ms"] / prof["step_ms_unprofiled"])
+        emit(f"{tag}train_profile", policy=pname, **prof)
+    return {k: launched[k] for k in path_counters}, net_cpu, loader
+
+
+def train_phase(sc):
+    """The Darcy training slice; returns the launches of each kernel in
+    the main run."""
+    from repro_torch.configs.fno_paper import FNO_DARCY
+    from repro_torch.core.schedule import PrecisionSchedule
+    from repro_torch.train import Trainer, TrainerConfig
+
+    data = darcy_data()
+    launched, net_cpu, loader = train_model(
+        sc, "", FNO_DARCY, data, loss_l2, SEED + 1,
+        ("launches", "launches_bwd_x", "launches_bwd_w"))
 
     # a short fp16 run: the loss scale stays finite and every skipped step
     # halved it once
-    fp16 = Trainer(loss_fn, net_cpu, TrainerConfig(
+    fp16 = Trainer(loss_l2, net_cpu, TrainerConfig(
         total_steps=4, schedule=PrecisionSchedule.paper_default("fp16")))
     fp16.run(loader.batch_at)
     scale = float(fp16.scale_state.scale)
@@ -521,20 +769,20 @@ def train_phase(sc):
             scale != 2.0 ** 15 * 0.5 ** skipped:
         fail(f"fp16 run: scale {scale}, skipped {fp16.stats['skipped_steps']} "
              f"vs {skipped} non-finite steps")
+    return {"fwd": launched["launches"], "bwd_x": launched["launches_bwd_x"],
+            "bwd_w": launched["launches_bwd_w"]}
 
-    # one profiled step per policy, after a warm step
-    profiles = {}
-    for pname in ("mixed_fno_bf16", "full"):
-        tt = Trainer(loss_fn, net_cpu, TrainerConfig(
-            total_steps=2, schedule=PrecisionSchedule.constant(pname)))
-        tt.run(loader.batch_at, steps=1)
-        prof = profiled(lambda: tt.run(loader.batch_at, steps=2))
-        prof["step_ms_unprofiled"] = by_policy[pname]["median_ms_per_step"]
-        prof["idle_share_unprofiled"] = max(
-            0.0, 1.0 - prof["device_busy_ms"] / prof["step_ms_unprofiled"])
-        profiles[pname] = prof
-        emit("train_profile", policy=pname, **prof)
-    return launches
+
+def tfno_train_phase(sc):
+    """The TFNO training slice on ported Navier-Stokes data; returns the
+    launches of each CP kernel in the main run."""
+    from repro_torch.configs.fno_paper import TFNO_NS
+
+    data = ns_data()
+    launched, _, _ = train_model(sc, "tfno_", TFNO_NS, data, loss_h1, SEED + 4,
+                                 ("launches_cp_fwd", "launches_cp_bwd"))
+    ns_solver_parity()
+    return {"cp_fwd": launched["launches_cp_fwd"], "cp_bwd": launched["launches_cp_bwd"]}
 
 
 # -- phase 6 ------------------------------------------------------------------
@@ -565,9 +813,15 @@ def graph_ms(fn, sets, iters=40):
     return start.elapsed_time(end) / (reps * iters)
 
 
-def _bound(nbytes, flops):
-    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
-    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "flops_ms": flops_ms,
+def _bound(nbytes, flops, half_flops=0):
+    """The least time for ``nbytes`` of memory traffic and ``flops``
+    operations, of which ``half_flops`` multiply two bf16 or two fp16
+    operands into f32 sums (the tensor cores' work) and the rest take f32
+    operands (the CUDA cores' work)."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = ((flops - half_flops) / F32_FLOP_PER_S + half_flops / HALF_FLOP_PER_S) * 1e3
+    return {"bytes": nbytes, "flops": flops, "half_flops": half_flops,
+            "bytes_ms": bytes_ms, "flops_ms": flops_ms,
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
 
@@ -607,8 +861,10 @@ def timing_phase(sc, max_err, launches):
                       x_b + g_b + w_b),
         }
         for name, (kernel, plain, nbytes) in runs.items():
+            # under a bf16 cast every product is bf16 x bf16 with f32 sums
             rows[name][str(dt)] = {"ms": graph_ms(kernel, full),
-                                   "plain_ms": graph_ms(plain, full), **_bound(nbytes, flops)}
+                                   "plain_ms": graph_ms(plain, full),
+                                   **_bound(nbytes, flops, flops if cast_to else 0)}
     gc = [torch.complex(*cotangent(PATH_SHAPE, torch.float32, 200 + k)) for k in range(4)]
     library = {
         "fwd": graph_ms(lambda x, w: torch.einsum("bim,iom->bom", x, w), csets),
@@ -641,6 +897,65 @@ def timing_phase(sc, max_err, launches):
     return entries
 
 
+def cp_timing_phase(sc, max_err, launches):
+    """cp_fwd and cp_bwd at the TFNO path's shape in bf16 mode
+    (mixed_fno_bf16) and f32 mode (amp, full), beside their bounds, their
+    plain versions and, for the forward, one ``torch.einsum`` call on
+    complex64 (no single PyTorch call computes the backward).  Returns the
+    kernels line's entries (bf16 mode)."""
+    B, I, O, R, M = CP_PATH_SHAPE
+    # two complex contractions of 4 real FMAs per term over I and R, and the
+    # mode scale (one complex product); the backward's five contractions
+    # (t, du, dx, dU_i, dU_o) and its three complex products (u, dt, dW).
+    # Of these, t = x·U_i (both) and du = g·U_o (cp_bwd) multiply two
+    # operands at the operand dtype: half x half in a half mode
+    flops = {"cp_fwd": 8 * B * M * (I * R + R * O) + 6 * B * M * R,
+             "cp_bwd": 8 * B * M * (3 * I * R + 2 * O * R) + 20 * B * M * R}
+    operand_flops = {"cp_fwd": 8 * B * M * I * R, "cp_bwd": 8 * B * M * (I * R + O * R)}
+    rows = {"cp_fwd": {}, "cp_bwd": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        # 8 operand sets (62 MB in bf16): consecutive calls find their
+        # operands outside the 50 MB L2
+        sets = [cp_operands(CP_PATH_SHAPE, dtype, 300 + k) for k in range(8)]
+        size = torch.empty((), dtype=dtype).element_size()
+        x_b, g_b = 2 * size * B * I * M, 2 * size * B * O * M
+        f_b = 2 * size * (I * R + O * R + R * M)
+        nbytes = {"cp_fwd": x_b + f_b + g_b, "cp_bwd": x_b + f_b + g_b + x_b + f_b}
+        runs = {"cp_fwd": (lambda *o: sc._launch_cp_fwd(*o[:8]),
+                           lambda *o: sc.spectral_contract_cp_plain(*o[:8])),
+                "cp_bwd": (lambda *o: sc._launch_cp_bwd(*o),
+                           lambda *o: sc.spectral_contract_cp_bwd_plain(*o))}
+        for name, (kernel, plain) in runs.items():
+            rows[name][str(dtype)] = {"ms": graph_ms(kernel, sets),
+                                      "plain_ms": graph_ms(plain, sets),
+                                      **_bound(nbytes[name], flops[name],
+                                               operand_flops[name] if size == 2 else 0)}
+    csets = [[torch.complex(o[2 * k], o[2 * k + 1]) for k in range(4)]
+             for o in (cp_operands(CP_PATH_SHAPE, torch.float32, 300 + k) for k in range(8))]
+    library = {
+        "cp_fwd": graph_ms(lambda x, ui, uo, w: torch.einsum("bim,ir,rm,or->bom", x, ui, w, uo),
+                           csets),
+        "cp_bwd": None,
+    }
+    meta = {"cp_fwd": ("spectral_contract_cp_fwd", "src/repro/kernels/spectral_contract.py:337"),
+            "cp_bwd": ("spectral_contract_cp_bwd", "src/repro/kernels/spectral_contract.py:349")}
+    entries = []
+    for key, modes in rows.items():
+        for mode, t in modes.items():
+            emit("kernel_time", kernel=key, shape=list(CP_PATH_SHAPE), mode=mode,
+                 library_ms=library[key], **t)
+        t = modes[str(torch.bfloat16)]
+        name, replaces = meta[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/spectral_contract_cp.cu",
+            "replaces": replaces, "launches": launches[key], "max_abs_err": max_err[key],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": library[key],
+            "ms_f32_mode": modes[str(torch.float32)]["ms"]})
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -650,13 +965,17 @@ def main():
     t0 = time.perf_counter()
     card = device_phase()
     build_phase(sc)
-    max_err = {"fwd": kernel_phase(sc), **backward_kernel_phase(sc)}
+    max_err = {"fwd": kernel_phase(sc), **backward_kernel_phase(sc), **cp_kernel_phase(sc)}
     served = serve_phase(sc)
     trained = train_phase(sc)
+    tfno_served = tfno_serve_phase(sc)
+    tfno_trained = tfno_train_phase(sc)
     launches = {"fwd": served + trained["fwd"], "bwd_x": trained["bwd_x"],
-                "bwd_w": trained["bwd_w"]}
-    emit("launches_by_path", serve={"fwd": served}, train=trained)
-    entries = timing_phase(sc, max_err, launches)
+                "bwd_w": trained["bwd_w"], "cp_fwd": tfno_served + tfno_trained["cp_fwd"],
+                "cp_bwd": tfno_trained["cp_bwd"]}
+    emit("launches_by_path", serve={"fwd": served}, train=trained,
+         tfno_serve={"cp_fwd": tfno_served}, tfno_train=tfno_trained)
+    entries = timing_phase(sc, max_err, launches) + cp_timing_phase(sc, max_err, launches)
     emit("done", seconds=time.perf_counter() - t0)
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -6,8 +6,13 @@
   mantissa (Appendix B.11).
 * ``quantize_complex``: round-trip complex64 through split-real half
   storage, the representation error Theorem 3.2 bounds.
+* ``PrecisionSystem`` / ``precision_system_for``: the paper's (a0, ε, T)
+  system (Definition 3.1) and the one that approximates a named format.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 
@@ -71,3 +76,38 @@ def quantize_complex(c: torch.Tensor, dtype) -> torch.Tensor:
     if dtype in (torch.float32, None):
         return c
     return torch.complex(c.real.to(dtype).float(), c.imag.to(dtype).float())
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionSystem:
+    """The paper's ``(a0, eps, T)``-precision system.
+
+    ``S = {0} ∪ {±a0 (1+eps)^i : 0 <= i <= T}`` with ``q(x) = argmin_{y∈S}|x-y|``.
+    """
+
+    a0: float
+    eps: float
+    T: int
+
+    def quantize(self, x: torch.Tensor) -> torch.Tensor:
+        """Round ``x`` to the nearest representable value, in ``x``'s dtype."""
+        sign = torch.sign(x)
+        mag = torch.abs(x)
+        # index of the geometric grid point: i = round(log(mag/a0) / log(1+eps))
+        # the constants at x's dtype, as JAX's weak types round them
+        eps = torch.tensor(self.eps, dtype=x.dtype)
+        log_ratio = torch.log(torch.clamp(mag, min=1e-300) / self.a0)
+        i = torch.clamp(torch.round(log_ratio / torch.log1p(eps)), 0, self.T)
+        q = self.a0 * torch.pow(1.0 + eps, i)
+        # values below a0/2 snap to 0 (underflow)
+        q = torch.where(mag < self.a0 / 2, torch.zeros_like(q), q)
+        return sign * q
+
+
+def precision_system_for(fmt: str) -> PrecisionSystem:
+    """Build an (a0, eps, T)-system approximating a named float format."""
+    eps = FORMAT_EPS[fmt]
+    vmax = FORMAT_MAX.get(fmt, 3.4e38)
+    a0 = FORMAT_TINY.get(fmt, 1e-30)  # smallest normal
+    T = int(math.log(vmax / a0) / math.log1p(eps))
+    return PrecisionSystem(a0=a0, eps=eps, T=T)

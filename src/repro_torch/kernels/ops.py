@@ -5,14 +5,20 @@ operands, flattens the modes, picks the storage rounding from the
 contract site's rule and hands the operands to ``DenseContract``, the
 autograd Function that launches the CUDA kernels for CUDA tensors and
 runs the plain versions for CPU tensors, forward and backward.
+``spectral_contract_cp`` folds the CP mode factor, rounds every operand
+to the site's storage dtype outside the kernels (differentiably, so the
+gradients come back to f32 through the casts) and hands them to
+``CPContract``.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
 from repro_torch.precision import FULL, PrecisionPolicy
 
-from .spectral_contract import DenseContract
+from .spectral_contract import CPContract, DenseContract
 
 
 def _site_of(policy, site: str):
@@ -62,4 +68,54 @@ def spectral_contract(
     out_re, out_im = DenseContract.apply(
         xr, xi, w_re.reshape(I, O, M), w_im.reshape(I, O, M),
         half, half or torch.float32)
+    return torch.complex(out_re.float(), out_im.float()).reshape(B, O, *modes)
+
+
+def cp_mode_factor(lam: torch.Tensor, mode_factors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Fold λ (R,) and the per-axis CP factors (m_k, R) into the combined
+    mode factor ``W[r, m] = λ_r Π_k U_mk[m_k, r]`` over the row-major
+    flattened mode index (tiny, differentiable; the kernels never
+    materialise the dense (I, O, M) weight this factor replaces)."""
+    w = lam[:, None]
+    for f in mode_factors:
+        w = (w[:, :, None] * f.T[:, None, :]).reshape(w.shape[0], -1)
+    return w
+
+
+def spectral_contract_cp(
+    x: torch.Tensor, lam: torch.Tensor, ui: torch.Tensor, uo: torch.Tensor,
+    mode_factors: Sequence[torch.Tensor], *, policy=FULL,
+    site: str = "model/spectral/contract",
+) -> torch.Tensor:
+    """CP-factorised spectral contraction (TFNO, paper §4.6).
+
+    ``x``: complex64 (B, I, *modes); ``lam``: (R,) complex CP weights;
+    ``ui``/``uo``: (I, R)/(O, R) complex channel factors;
+    ``mode_factors``: one (m_k, R) complex factor per mode axis.
+    ``policy``: the resolved contract site, or a PrecisionPolicy resolved
+    here at ``site``.
+
+    x, U_i, U_o and the folded W are rounded to the site's storage dtype
+    (f32 when it does not quantise) before the kernels, which take no
+    cast; t and u stay f32 inside them and the product is stored at the
+    storage dtype.  Returns complex64 (B, O, *modes).
+    """
+    policy = _site_of(policy, site)
+    half = policy.spectral_dtype if policy.spectral_is_half else torch.float32
+    B, I, *modes = x.shape
+    if len(mode_factors) != len(modes):
+        raise ValueError(
+            f"spectral_contract_cp: {len(mode_factors)} mode factors for "
+            f"{len(modes)}-d modes {tuple(modes)}")
+    M = 1
+    for m in modes:
+        M *= m
+    w = cp_mode_factor(lam, mode_factors)  # (R, M) complex
+
+    def pair(z):
+        return z.real.to(half).contiguous(), z.imag.to(half).contiguous()
+
+    out_re, out_im = CPContract.apply(*pair(x.reshape(B, I, M)), *pair(ui), *pair(uo),
+                                      *pair(w))
+    O = uo.shape[0]
     return torch.complex(out_re.float(), out_im.float()).reshape(B, O, *modes)

@@ -1,5 +1,7 @@
-"""Dense spectral contraction: the CUDA kernels, their plain PyTorch
-versions, and the autograd Function that checks and launches them.
+"""Spectral contractions: the CUDA kernels, their plain PyTorch versions,
+and the autograd Functions that check and launch them.
+
+Dense (FNO):
 
     out[b,o,m] = Σ_i x[b,i,m] · w[i,o,m]          (complex, per mode m)
     dx[b,i,m]  = Σ_o g[b,o,m] · conj(w[i,o,m])    (backward, dense_bwd_x)
@@ -10,19 +12,32 @@ with an optional rounding of every operand onto the bf16/fp16 grid
 (``cast_to``, the reference's fused storage cast), f32 sums, and the
 forward's result stored at ``out_dtype``.  The gradients are f32 sums of
 the rounded operands stored at f32, as the reference's custom VJP
-(``_dense_op_bwd``) computes them: never rounded to the half grid.  The
-kernels replace the TPU kernels ``_dense_fwd_kernel``,
-``_dense_bwd_x_kernel`` and ``_dense_bwd_w_kernel`` of
-``repro.kernels.spectral_contract``; their sources
-(``csrc/spectral_contract.cu``, ``csrc/spectral_contract_bwd.cu``) state
-their bounds and designs.
+(``_dense_op_bwd``) computes them: never rounded to the half grid.
+
+CP-factorised (TFNO, paper §4.6), with the mode factor
+``W[r,m] = λ_r Π_k U_mk[m_k,r]`` folded outside the kernels:
+
+    t[b,m,r]   = Σ_i x[b,i,m] · U_i[i,r]          (rank-project)
+    u[b,m,r]   = t[b,m,r] · W[r,m]                (mode-scale)
+    out[b,o,m] = Σ_r u[b,m,r] · U_o[o,r]          (rank-expand, cp_fwd)
+
+and ``cp_bwd``, which recomputes t and u and returns dx, dU_i, dU_o and
+dW.  The operands arrive already rounded to one dtype (f32, bf16 or
+fp16); t, u and every sum are f32; the output and all four gradients are
+stored at the operands' dtype, as ``_cp_op_bwd`` stores them.
+
+The kernels replace the TPU kernels ``_dense_fwd_kernel``,
+``_dense_bwd_x_kernel``, ``_dense_bwd_w_kernel``, ``_cp_fwd_kernel`` and
+``_cp_bwd_kernel`` of ``repro.kernels.spectral_contract``; their sources
+(``csrc/spectral_contract.cu``, ``csrc/spectral_contract_bwd.cu``,
+``csrc/spectral_contract_cp.cu``) state their bounds and designs.
 
 Dispatch follows the tensors' device: CPU tensors take the plain
 versions, CUDA tensors launch the kernels or raise.  Each source is
 compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/repro_torch_kernels/`` at the repository root, and loaded with
-``ctypes``.  ``launches``, ``launches_bwd_x`` and ``launches_bwd_w``
-count the kernels' launches.
+``ctypes``.  ``launches``, ``launches_bwd_x``, ``launches_bwd_w``,
+``launches_cp_fwd`` and ``launches_cp_bwd`` count the kernels' launches.
 """
 from __future__ import annotations
 
@@ -41,10 +56,14 @@ from torch.autograd.function import once_differentiable
 launches = 0
 launches_bwd_x = 0
 launches_bwd_w = 0
+launches_cp_fwd = 0
+launches_cp_bwd = 0
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "spectral_contract.cu"
 SOURCE_BWD = CSRC / "spectral_contract_bwd.cu"
+SOURCE_CP = CSRC / "spectral_contract_cp.cu"
+SOURCES = (SOURCE, SOURCE_BWD, SOURCE_CP)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -269,6 +288,220 @@ def _launch_bwd_w(xr, xi, gr, gi, cast_to):
     return dwr, dwi
 
 
+# -- CP-factorised contraction (TFNO) --------------------------------------------
+
+#: operand dtypes of the CP kernels (one dtype for every operand)
+_CP_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+#: shared memory a block of the CP kernels may use (Hopper: 227 KB)
+SMEM_LIMIT = 232448
+
+
+def _cp_stages(xr, xi, uir, uii, uor, uoi, wr, wi):
+    """The rank-project and mode-scale stages at the accumulator dtype
+    (f32; f64 in a gradcheck): ``(tr, ti, ur, ui)`` of shape (B, M, R),
+    and the factors at that dtype."""
+    acc = torch.float64 if xr.dtype == torch.float64 else torch.float32
+    xr, xi, uir, uii, uor, uoi, wr, wi = (
+        t.to(acc) for t in (xr, xi, uir, uii, uor, uoi, wr, wi))
+
+    def project(a, b):
+        return torch.einsum("bim,ir->bmr", a, b)
+
+    tr = project(xr, uir) - project(xi, uii)
+    ti = project(xr, uii) + project(xi, uir)
+    wrT, wiT = wr.T[None], wi.T[None]
+    ur = tr * wrT - ti * wiT
+    ui = tr * wiT + ti * wrT
+    return (tr, ti, ur, ui), (xr, xi, uir, uii, uor, uoi, wrT, wiT)
+
+
+def spectral_contract_cp_plain(xr, xi, uir, uii, uor, uoi, wr, wi):
+    """``cp_fwd``'s function in plain PyTorch: the three stages with f32
+    sums of the operands as given (f64 in a gradcheck), the result stored
+    at the operands' dtype.  Returns ``(out_re, out_im)`` (B, O, M)."""
+    (_, _, ur, ui), (_, _, _, _, uor_, uoi_, _, _) = _cp_stages(
+        xr, xi, uir, uii, uor, uoi, wr, wi)
+
+    def expand(a, b):
+        return torch.einsum("bmr,or->bom", a, b)
+
+    our = expand(ur, uor_) - expand(ui, uoi_)
+    oui = expand(ur, uoi_) + expand(ui, uor_)
+    return our.to(xr.dtype), oui.to(xr.dtype)
+
+
+def spectral_contract_cp_bwd_plain(xr, xi, uir, uii, uor, uoi, wr, wi, gr, gi):
+    """``cp_bwd``'s function in plain PyTorch, the reference's
+    ``_cp_bwd_kernel``: recompute t and u, then
+
+        du = g·conj(U_o)    dU_o = Σ_{b,m} g·conj(u)    dt = du·conj(W)
+        dW = Σ_b du·conj(t)    dx = dt·conj(U_i)    dU_i = Σ_{b,m} conj(x)·dt
+
+    with f32 sums, every gradient stored at the operands' dtype.  Returns
+    ``(dxr, dxi, duir, duii, duor, duoi, dwr, dwi)``."""
+    dtype = xr.dtype
+    (tr, ti, ur, ui), (xr, xi, uir, uii, uor, uoi, wrT, wiT) = _cp_stages(
+        xr, xi, uir, uii, uor, uoi, wr, wi)
+    gr, gi = gr.to(tr.dtype), gi.to(tr.dtype)
+
+    def e(spec, a, b):
+        return torch.einsum(spec, a, b)
+
+    dur = e("bom,or->bmr", gr, uor) + e("bom,or->bmr", gi, uoi)
+    dui = e("bom,or->bmr", gi, uor) - e("bom,or->bmr", gr, uoi)
+    duor = e("bom,bmr->or", gr, ur) + e("bom,bmr->or", gi, ui)
+    duoi = e("bom,bmr->or", gi, ur) - e("bom,bmr->or", gr, ui)
+    dtr = dur * wrT + dui * wiT
+    dti = dui * wrT - dur * wiT
+    dwr = (dur * tr + dui * ti).sum(0).T
+    dwi = (dui * tr - dur * ti).sum(0).T
+    dxr = e("bmr,ir->bim", dtr, uir) + e("bmr,ir->bim", dti, uii)
+    dxi = e("bmr,ir->bim", dti, uir) - e("bmr,ir->bim", dtr, uii)
+    duir = e("bim,bmr->ir", xr, dtr) + e("bim,bmr->ir", xi, dti)
+    duii = e("bim,bmr->ir", xr, dti) - e("bim,bmr->ir", xi, dtr)
+    return tuple(t.to(dtype) for t in (dxr, dxi, duir, duii, duor, duoi, dwr, dwi))
+
+
+def cp_magnitudes(xr, xi, uir, uii, uor, uoi, wr, wi, gr=None, gi=None):
+    """The contraction of |operands| each output of the CP contraction
+    sums, per element, in f32 (f64 for f64 operands): what the tolerance
+    of a comparison between two evaluations scales with
+    (``core.theory.contract_budget``).  ``"out"``: Σ_{i,r} |x||U_i||W||U_o|;
+    given the cotangent g, also the gradients' ``"dx"``, ``"dU_i"``,
+    ``"dU_o"`` and ``"dW"``."""
+    acc = torch.float64 if xr.dtype == torch.float64 else torch.float32
+
+    def mag(re, im):
+        return torch.hypot(re.to(acc), im.to(acc))
+
+    ax, aui, auo, aw = mag(xr, xi), mag(uir, uii), mag(uor, uoi), mag(wr, wi).T[None]
+    at = torch.einsum("bim,ir->bmr", ax, aui)
+    au = at * aw
+    out = {"out": torch.einsum("bmr,or->bom", au, auo)}
+    if gr is not None:
+        ag = mag(gr, gi)
+        adu = torch.einsum("bom,or->bmr", ag, auo)
+        adt = adu * aw
+        out.update(dx=torch.einsum("bmr,ir->bim", adt, aui),
+                   dU_i=torch.einsum("bim,bmr->ir", ax, adt),
+                   dU_o=torch.einsum("bom,bmr->or", ag, au),
+                   dW=torch.einsum("bmr,bmr->rm", adu, at))
+    return out
+
+
+def _check_cp(xr, xi, uir, uii, uor, uoi, wr, wi) -> torch.device:
+    """The checks every CP entry makes; returns the operands' device."""
+    ops = (xr, xi, uir, uii, uor, uoi, wr, wi)
+    devices = {t.device for t in ops}
+    dtypes = {t.dtype for t in ops}
+    on_cpu = devices == {torch.device("cpu")}
+    allowed = _CP_DTYPES + ((torch.float64,) if on_cpu else ())
+    if len(dtypes) != 1 or xr.dtype not in allowed:
+        raise TypeError(
+            f"spectral_contract_cp takes operands of one dtype of {list(allowed)}, "
+            f"got {[t.dtype for t in ops]}")
+    shapes = [tuple(t.shape) for t in ops]
+    if xr.ndim != 3 or uir.ndim != 2 or uor.ndim != 2 or wr.ndim != 2 or \
+            shapes[0::2] != shapes[1::2]:
+        raise ValueError(
+            f"spectral_contract_cp: expected x (B, I, M), U_i (I, R), U_o (O, R) "
+            f"and W (R, M) as re/im pairs, got {shapes}")
+    (_, I, M), (R,) = xr.shape, uir.shape[1:]
+    if uir.shape[0] != I or uor.shape[1] != R or tuple(wr.shape) != (R, M):
+        raise ValueError(
+            f"spectral_contract_cp: x {tuple(xr.shape)}, U_i {tuple(uir.shape)}, "
+            f"U_o {tuple(uor.shape)} and W {tuple(wr.shape)} disagree on I, R or M")
+    if len(devices) != 1:
+        raise ValueError(f"spectral_contract_cp: operands on {devices}")
+    device = xr.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"spectral_contract_cp: no kernel for {device}")
+    if device.type == "cuda" and not all(t.is_contiguous() for t in ops):
+        raise ValueError("spectral_contract_cp: operands must be contiguous")
+    return device
+
+
+class CPContract(torch.autograd.Function):
+    """The CP-factorised contraction with the reference's custom VJP.
+
+    Inputs: ``xr, xi`` (B, I, M), ``uir, uii`` (I, R), ``uor, uoi``
+    (O, R), ``wr, wi`` (R, M), all of one dtype (the site's storage dtype,
+    rounded by the caller).  Forward: the plain version on the CPU,
+    ``cp_fwd`` on CUDA.  Backward: all eight gradients at the operands'
+    dtype, the plain version on the CPU, ``cp_bwd`` on CUDA."""
+
+    @staticmethod
+    def forward(ctx, xr, xi, uir, uii, uor, uoi, wr, wi):
+        ops = (xr, xi, uir, uii, uor, uoi, wr, wi)
+        device = _check_cp(*ops)
+        ctx.save_for_backward(*ops)
+        if device.type == "cpu":
+            return spectral_contract_cp_plain(*ops)
+        return _launch_cp_fwd(*ops)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gr, gi):
+        ops = ctx.saved_tensors
+        like = gr if gr is not None else gi
+        gr = torch.zeros_like(like) if gr is None else gr
+        gi = torch.zeros_like(like) if gi is None else gi
+        if ops[0].device.type == "cpu":
+            return spectral_contract_cp_bwd_plain(*ops, gr, gi)
+        dtype = ops[0].dtype
+        if gr.dtype != dtype or gi.dtype != dtype:
+            raise TypeError(f"spectral_contract_cp backward: cotangents of "
+                            f"{gr.dtype}/{gi.dtype}, operands of {dtype}")
+        return _launch_cp_bwd(*ops, gr.contiguous(), gi.contiguous())
+
+
+def _cp_smem(name: str, I: int, O: int, R: int) -> int:
+    """Shared memory a block of ``cp_fwd``/``cp_bwd`` needs at these
+    widths; raises where it exceeds what a block may have."""
+    need = int(getattr(_library_cp(), f"spectral_contract_cp_{name}_smem")(I, O, R, 0))
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"spectral_contract_cp: cp_{name} holds its working set in shared "
+            f"memory, and I={I}, O={O}, R={R} need {need} bytes, more than a "
+            f"block's {SMEM_LIMIT}")
+    return need
+
+
+def _launch_cp_fwd(xr, xi, uir, uii, uor, uoi, wr, wi):
+    global launches_cp_fwd
+    B, I, M = xr.shape
+    O, R = uor.shape
+    outr = torch.empty((B, O, M), dtype=xr.dtype, device=xr.device)
+    outi = torch.empty_like(outr)
+    if outr.numel() == 0:
+        return outr, outi
+    _cp_smem("fwd", I, O, R)
+    ptrs = [t.data_ptr() for t in (xr, xi, uir, uii, uor, uoi, wr, wi, outr, outi)]
+    _call(_library_cp().spectral_contract_cp_fwd, "spectral_contract_cp_fwd",
+          xr.device, *ptrs, B, I, O, R, M, _FMT[xr.dtype])
+    launches_cp_fwd += 1
+    return outr, outi
+
+
+def _launch_cp_bwd(xr, xi, uir, uii, uor, uoi, wr, wi, gr, gi):
+    """``cp_bwd`` and its reduction of the per-tile factor gradients."""
+    global launches_cp_bwd
+    B, I, M = xr.shape
+    O, R = uor.shape
+    grads = [torch.empty_like(t) for t in (xr, xi, uir, uii, uor, uoi, wr, wi)]
+    if xr.numel() == 0 or gr.numel() == 0:
+        return tuple(g.zero_() for g in grads)
+    _cp_smem("bwd", I, O, R)
+    lib = _library_cp()
+    work = torch.empty(int(lib.spectral_contract_cp_bwd_workspace(I, O, R, M)),
+                       dtype=torch.float32, device=xr.device)
+    ptrs = [t.data_ptr() for t in (xr, xi, uir, uii, uor, uoi, wr, wi, gr, gi, *grads, work)]
+    _call(lib.spectral_contract_cp_bwd, "spectral_contract_cp_bwd", xr.device,
+          *ptrs, B, I, O, R, M, _FMT[xr.dtype])
+    launches_cp_bwd += 1
+    return tuple(grads)
+
+
 def build(source: Path = SOURCE) -> Tuple[Path, str]:
     """Compile ``source`` unless its library is already built.  Returns
     the library's path and the compiler's report (``-Xptxas -v``:
@@ -297,22 +530,36 @@ def build(source: Path = SOURCE) -> Tuple[Path, str]:
     return lib, report
 
 
-def _bind(source: Path, *names: str) -> ctypes.CDLL:
+def _bind(source: Path, **signatures: Tuple[int, int]) -> ctypes.CDLL:
+    """Load ``source``'s library; each launcher ``name=(pointers, ints)``
+    takes that many pointers, then ints, then the stream."""
     path, _ = build(source)
     lib = ctypes.CDLL(str(path))
-    for name in names:
+    for name, (n_ptr, n_int) in signatures.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    return _bind(SOURCE, "spectral_contract_dense_fwd")
+    return _bind(SOURCE, spectral_contract_dense_fwd=(6, 6))
 
 
 @functools.cache
 def _library_bwd() -> ctypes.CDLL:
-    return _bind(SOURCE_BWD, "spectral_contract_dense_bwd_x",
-                 "spectral_contract_dense_bwd_w")
+    return _bind(SOURCE_BWD, spectral_contract_dense_bwd_x=(6, 6),
+                 spectral_contract_dense_bwd_w=(6, 6))
+
+
+@functools.cache
+def _library_cp() -> ctypes.CDLL:
+    lib = _bind(SOURCE_CP, spectral_contract_cp_fwd=(10, 6),
+                spectral_contract_cp_bwd=(19, 6))
+    for name in ("spectral_contract_cp_fwd_smem", "spectral_contract_cp_bwd_smem",
+                 "spectral_contract_cp_bwd_workspace"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_longlong
+    return lib

@@ -26,7 +26,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.core.spectral import init_spectral_weights, spectral_conv_apply
+from repro_torch.core.spectral import (
+    init_spectral_weights,
+    spectral_conv_apply,
+    spectral_weight_shapes,
+)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.precision import FULL, PrecisionPolicy
 
@@ -40,8 +44,9 @@ class FNOConfig:
     projection_channels: int = 256
     n_layers: int = 4
     modes: Tuple[int, ...] = (16, 16)
-    #: only "dense" is ported; "cp" / "tucker" raise
+    #: "dense" | "cp" | "tucker" (TFNO = cp/tucker)
     factorization: str = "dense"
+    rank: float = 0.5
     #: None/False take the staged spectral path; True raises until the
     #: fused rFFT-contract-irFFT kernel is ported
     fuse_spectral: Optional[bool] = None
@@ -120,10 +125,6 @@ class FNO(nn.Module):
 
     def __init__(self, cfg: FNOConfig):
         super().__init__()
-        if cfg.factorization != "dense":
-            raise NotImplementedError(
-                f"{cfg.factorization!r} spectral weights are not ported yet "
-                f"(ROADMAP: TFNO/CP kernels)")
         self.cfg = cfg
         in_ch = cfg.in_channels + (cfg.ndim if cfg.positional_embedding else 0)
         H, L = cfg.hidden_channels, cfg.n_layers
@@ -131,11 +132,9 @@ class FNO(nn.Module):
         self.lift2 = _affine(cfg.lifting_channels, H)
         self.proj1 = _affine(H, cfg.projection_channels)
         self.proj2 = _affine(cfg.projection_channels, cfg.out_channels)
-        shape = (L, 2 ** (cfg.ndim - 1), H, H, *cfg.modes)
+        shapes = spectral_weight_shapes(H, H, cfg.modes, cfg.factorization, cfg.rank)
         self.spectral = nn.ParameterDict({
-            "w_re": nn.Parameter(torch.empty(shape)),
-            "w_im": nn.Parameter(torch.empty(shape)),
-        })
+            name: nn.Parameter(torch.empty(L, *shape)) for name, shape in shapes.items()})
         self.skips = nn.ParameterDict({
             "w": nn.Parameter(torch.empty(L, H, H)),
             "b": nn.Parameter(torch.zeros(L, H)),
@@ -159,8 +158,7 @@ class FNO(nn.Module):
 
         for layer in range(cfg.n_layers):
             ldt = policy.at(f"fno/layer{layer}/dense").compute_dtype
-            spect = {"w_re": self.spectral["w_re"][layer],
-                     "w_im": self.spectral["w_im"][layer]}
+            spect = {name: p[layer] for name, p in self.spectral.items()}
             y = spectral_conv_apply(
                 spect, h, cfg.modes, policy, site=f"fno/layer{layer}/spectral",
                 fuse_spectral=cfg.fuse_spectral,
@@ -189,11 +187,11 @@ def init_fno(generator: torch.Generator, cfg: FNOConfig,
     for name in ("lift1", "lift2", "proj1", "proj2"):
         w = getattr(model, name)["w"]
         w.copy_(w.shape[0] ** -0.5 * torch.randn(w.shape, generator=generator))
-    layers = [init_spectral_weights(cfg.hidden_channels, cfg.hidden_channels,
-                                    cfg.modes, cfg.factorization, generator=generator)
+    layers = [init_spectral_weights(cfg.hidden_channels, cfg.hidden_channels, cfg.modes,
+                                    cfg.factorization, cfg.rank, generator=generator)
               for _ in range(cfg.n_layers)]
-    for name in ("w_re", "w_im"):
-        model.spectral[name].copy_(torch.stack([p[name] for p in layers]))
+    for name, p in model.spectral.items():
+        p.copy_(torch.stack([layer[name] for layer in layers]))
     w = model.skips["w"]
     w.copy_(w.shape[1] ** -0.5 * torch.randn(w.shape, generator=generator))
     return model.to(dev)
@@ -203,8 +201,11 @@ def params_from_jax(tree: Mapping, cfg: FNOConfig, device: DeviceLike = None) ->
     """An FNO on ``device`` holding the JAX reference's parameters.
 
     ``tree``: the reference's parameter pytree as nested dicts of arrays:
-    ``lift1/lift2/proj1/proj2: {w (in, out), b}``, ``spectral: {w_re, w_im}``
-    of shape (L, corners, I, O, *modes), ``skips: {w (L, H, H), b (L, H)}``.
+    ``lift1/lift2/proj1/proj2: {w (in, out), b}``, ``spectral``: dense
+    ``{w_re, w_im}`` of shape (L, corners, I, O, *modes) or the CP factors
+    ``{lam_*, U_i_*, U_o_*, U_m<k>_*}`` or the Tucker factors
+    ``{core_*, U_*}``, stacked (L, corners, ...),
+    ``skips: {w (L, H, H), b (L, H)}``.
     Every entry must be present with the shape ``cfg`` gives it."""
     dev = resolve_device(device)
     model = FNO(cfg)

@@ -75,6 +75,14 @@ class SitePrecision:
         return torch.complex(re, im)
 
 
+    def contract(self, expr: str, *operands, objective: str = "memory", cache=None):
+        """Memory-greedy contraction at this site's storage and
+        accumulation dtypes (:func:`repro_torch.core.contraction.contract`)."""
+        from repro_torch.core.contraction import contract
+
+        return contract(expr, *operands, policy=self, objective=objective, cache=cache)
+
+
 def resolve_site(site: str, rules: Tuple[Entry, ...]) -> SitePrecision:
     f = resolve_fields(site, rules)
     return SitePrecision(

@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.spectral import check_grid
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.fno import FNO, fno_infer
 from repro_torch.precision import FULL, PrecisionPolicy
@@ -146,6 +147,10 @@ class OperatorEngine(EngineBase):
             )
         if len(shape) - 1 != self.cfg.ndim:
             return False, f"{self.cfg.ndim}-d FNO got a {len(shape) - 1}-d field"
+        try:
+            check_grid(shape[1:], self.cfg.modes)
+        except ValueError as e:
+            return False, str(e)
         return True, ""
 
     # -- one engine tick -------------------------------------------------------

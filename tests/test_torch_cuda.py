@@ -1,8 +1,9 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA spectral
-contraction kernels (forward and both backward kernels) against their
-plain PyTorch versions on the card, the wrapper's checks, the autograd
-Function on CUDA against the CPU, and the FNO serving and training paths
-on CUDA against the CPU.
+contraction kernels (the dense forward and its two backward kernels, the
+CP kernels ``cp_fwd`` and ``cp_bwd``) against their plain PyTorch versions
+on the card, the wrappers' checks, the autograd Functions on CUDA against
+the CPU, the FNO and TFNO serving and training paths on CUDA against the
+CPU, and the Navier-Stokes solver on CUDA against the CPU.
 
 Imports no JAX (the GPU machine has none).  Every test carries the
 ``cuda`` marker and skips, from inside a fixture, where no card is
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.configs.fno_paper import FNO_DARCY_SMOKE
 from repro_torch.core.precision import FORMAT_EPS, dtype_name
-from repro_torch.core.theory import contract_budget
+from repro_torch.core.theory import contract_budget, store_budget
 from repro_torch.kernels import ops
 from repro_torch.kernels import spectral_contract as sc
 from repro_torch.models import fno_infer, init_fno
@@ -295,3 +296,191 @@ def test_trainer_two_steps_cuda_matches_cpu(cuda):
         assert abs(h_gpu["loss"] - h_cpu["loss"]) <= 1e-5 * abs(h_cpu["loss"])
     for k, p in cpu.params.items():
         assert _rel_l2(gpu.params[k].detach().cpu().numpy(), p.detach().numpy()) <= 1e-4, k
+
+
+# -- the CP-factorised contraction (TFNO) --------------------------------------------
+#: operand dtypes of the CP kernels on the path
+CP_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _cp_operands(B, I, O, R, M, dtype, device, seed=0):
+    """x (B, I, M), U_i (I, R), U_o (O, R), W (R, M) and a cotangent
+    (B, O, M) as re/im pairs at ``dtype``, scaled so the outputs are O(1)."""
+    g = torch.Generator().manual_seed(seed)
+    shapes = [(B, I, M), (I, R), (O, R), (R, M), (B, O, M)]
+    scale = [1.0, I ** -0.5, R ** -0.5, 1.0, 1.0]
+    out = [s * torch.randn(*shape, generator=g) for shape, s in zip(shapes, scale, strict=True)
+           for _ in range(2)]
+    return [t.to(dtype).to(device) for t in out]
+
+
+def _cp_budget_ok(got, want, mag, eps):
+    budget = store_budget(eps, want.float(), mag.float())
+    return bool(((got.float() - want.float()).abs() <= budget).all())
+
+
+@pytest.mark.parametrize("shape", [(8, 64, 64, 64, 1764), (3, 24, 40, 17, 300),
+                                   (11, 16, 16, 16, 64), (1, 1, 1, 1, 1), (9, 5, 7, 3, 33)])
+@pytest.mark.parametrize("dtype", CP_DTYPES)
+def test_cp_kernels_match_plain_within_budget(cuda, shape, dtype):
+    """cp_fwd and cp_bwd against their plain versions, every operand at
+    ``dtype``: both sum in f32 from the same operands, so each output and
+    gradient is within one rounding at ``dtype`` plus the f32 order of its
+    magnitude contraction M (``store_budget``); B > 8 and ragged M
+    included."""
+    B, I, O, R, M = shape
+    ops_ = _cp_operands(*shape, dtype, cuda)
+    before = (sc.launches_cp_fwd, sc.launches_cp_bwd)
+    out = sc._launch_cp_fwd(*ops_[:8])
+    grads = sc._launch_cp_bwd(*ops_)
+    torch.cuda.synchronize()
+    assert (sc.launches_cp_fwd, sc.launches_cp_bwd) == (before[0] + 1, before[1] + 1)
+    want_out = sc.spectral_contract_cp_plain(*ops_[:8])
+    want_grads = sc.spectral_contract_cp_bwd_plain(*ops_)
+    mags = sc.cp_magnitudes(*ops_)
+    eps = FORMAT_EPS[dtype_name(dtype)]
+    for got, want, name in zip((*out, *grads), (*want_out, *want_grads),
+                               ("out", "out", "dx", "dx", "dU_i", "dU_i", "dU_o", "dU_o",
+                                "dW", "dW"), strict=True):
+        assert got.dtype == dtype and got.shape == want.shape, name
+        assert _cp_budget_ok(got, want, mags[name], eps), name
+
+
+@pytest.mark.parametrize("dtype", CP_DTYPES)
+def test_cp_kernels_rerun_bit_identically(cuda, dtype):
+    ops_ = _cp_operands(8, 64, 64, 64, 1764, dtype, cuda, seed=3)
+    runs = [(sc._launch_cp_fwd(*ops_[:8]), sc._launch_cp_bwd(*ops_)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs, strict=True):
+        assert all(torch.equal(a, b) for a, b in zip(first, second, strict=True))
+
+
+@pytest.mark.parametrize("dtype", CP_DTYPES)
+def test_cp_contract_cuda_matches_cpu(cuda, dtype):
+    """``CPContract`` on the card (cp_fwd, cp_bwd) against the same
+    Function on the CPU (the plain versions): the outputs and all eight
+    gradients, at ``dtype``."""
+    shape = (5, 12, 9, 7, 130)
+    ops_cpu = _cp_operands(*shape, dtype, "cpu", seed=6)
+    results = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_() for t in ops_cpu[:8]]
+        out = sc.CPContract.apply(*leaves)
+        grads = torch.autograd.grad(out, leaves, [g.to(dev) for g in ops_cpu[8:]])
+        results[str(dev)] = [t.detach().cpu() for t in (*out, *grads)]
+    mags = sc.cp_magnitudes(*ops_cpu)
+    eps = FORMAT_EPS[dtype_name(dtype)]
+    names = ("out", "out", "dx", "dx", "dU_i", "dU_i", "dU_o", "dU_o", "dW", "dW")
+    for got, want, name in zip(results[str(cuda)], results["cpu"], names, strict=True):
+        assert got.dtype == dtype and _cp_budget_ok(got, want, mags[name], eps), name
+
+
+def test_cp_wrapper_rejects_what_the_kernels_do_not_take(cuda):
+    ops_ = _cp_operands(2, 4, 3, 2, 16, torch.float32, cuda)[:8]
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.CPContract.apply(ops_[0].transpose(0, 1).contiguous().transpose(0, 1),
+                                *ops_[1:])
+    with pytest.raises(ValueError, match="operands on"):
+        sc.CPContract.apply(ops_[0].cpu(), *ops_[1:])
+    with pytest.raises(TypeError):
+        sc.CPContract.apply(*(t.double() for t in ops_))
+    # cp_bwd holds dU_i and dU_o of its tile in shared memory: a working
+    # set beyond a block's is refused before launch
+    big = _cp_operands(1, 160, 160, 160, 4, torch.float32, cuda)
+    before = sc.launches_cp_bwd
+    with pytest.raises(ValueError, match="shared"):
+        sc._launch_cp_bwd(*big)
+    assert sc.launches_cp_bwd == before
+
+
+@pytest.mark.parametrize("policy_name", ["full", "mixed_fno_bf16"])
+def test_tfno_engine_launches_kernel_per_corner_and_layer(cuda, policy_name):
+    """The full-width TFNO served at its smallest grid (84²): 8 cp_fwd
+    launches per micro-batch (4 layers x 2 corners) and no dense launch;
+    batched == solo bit for bit."""
+    from repro_torch.configs.fno_paper import TFNO_NS
+
+    policy = get_policy(policy_name)
+    net = init_fno(torch.Generator().manual_seed(1), TFNO_NS, device=cuda)
+    xs = _fields(84, 5, 9)
+    engine = OperatorEngine(net, policy=policy, max_batch=4, device=cuda)
+    reqs = [FieldRequest(uid=i, x=x) for i, x in enumerate(xs)]
+    for r in reqs:
+        engine.submit(r)
+    dense, cp = sc.launches, sc.launches_cp_fwd
+    engine.drain()
+    torch.cuda.synchronize()
+    assert engine.stats()["batches"] == 2
+    assert (sc.launches - dense, sc.launches_cp_fwd - cp) == (0, 2 * 8)
+    assert all(r.status == "done" and np.isfinite(r.y).all() for r in reqs)
+    solo = OperatorEngine(net, policy=policy, max_batch=4, device=cuda)
+    alone = FieldRequest(uid=0, x=xs[4])
+    solo.submit(alone)
+    solo.drain()
+    assert np.array_equal(alone.y, reqs[4].y)
+
+
+@pytest.mark.parametrize("policy_name", ["full", "mixed_fno_bf16", "mixed_fno_fp16"])
+def test_tfno_infer_cuda_matches_cpu(cuda, policy_name):
+    from repro_torch.configs.fno_paper import TFNO_NS_SMOKE
+
+    policy = get_policy(policy_name)
+    x = np.stack(_fields(32, 3, 4))
+    nets = {d: init_fno(torch.Generator().manual_seed(5), TFNO_NS_SMOKE, device=d)
+            for d in ("cpu", cuda)}
+    y_cpu = fno_infer(nets["cpu"], x, policy, device="cpu").numpy()
+    y_gpu = fno_infer(nets[cuda], x, policy, device=cuda).cpu().numpy()
+    if policy_name == "full":
+        assert _rel_l2(y_gpu, y_cpu) <= 1e-5
+    else:
+        y_full = fno_infer(nets["cpu"], x, get_policy("full"), device="cpu").numpy()
+        assert _rel_l2(y_gpu, y_cpu) <= 0.25 * _rel_l2(y_cpu, y_full)
+
+
+def test_tfno_trainer_two_steps_cuda_matches_cpu(cuda):
+    """Two steps of the port's Trainer on TFNO_NS_SMOKE with the H¹ loss,
+    on the card and on the CPU, under ``full``: losses within 1e-5
+    relative, parameters within 1e-4 relative L2, and cp_fwd and cp_bwd
+    launched once per layer and corner per step."""
+    from repro_torch.configs.fno_paper import TFNO_NS_SMOKE
+    from repro_torch.core.schedule import PrecisionSchedule
+    from repro_torch.models import fno_apply
+    from repro_torch.train import Trainer, TrainerConfig, relative_h1
+
+    cfg = TFNO_NS_SMOKE
+    rng = np.random.RandomState(8)
+    batches = [{"a": rng.randn(4, 1, 16, 16).astype(np.float32),
+                "u": rng.randn(4, 1, 16, 16).astype(np.float32)} for _ in range(2)]
+
+    def loss_fn(model, batch, policy):
+        return relative_h1(fno_apply(model, batch["a"], policy), batch["u"])
+
+    net = init_fno(torch.Generator().manual_seed(2), cfg, device="cpu")
+    runs = {}
+    for dev in ("cpu", cuda):
+        tt = Trainer(loss_fn, net, TrainerConfig(
+            total_steps=2, schedule=PrecisionSchedule.constant("full")), device=dev)
+        counts = (sc.launches_cp_fwd, sc.launches_cp_bwd)
+        tt.run(lambda s: batches[s])
+        torch.cuda.synchronize()
+        runs[str(dev)] = (tt, (sc.launches_cp_fwd - counts[0], sc.launches_cp_bwd - counts[1]))
+    cpu, gpu = runs["cpu"][0], runs[str(cuda)][0]
+    per_step = cfg.n_layers * 2 ** (cfg.ndim - 1)
+    assert runs["cpu"][1] == (0, 0)
+    assert runs[str(cuda)][1] == (2 * per_step,) * 2
+    for h_cpu, h_gpu in zip(cpu.history, gpu.history, strict=True):
+        assert abs(h_gpu["loss"] - h_cpu["loss"]) <= 1e-5 * abs(h_cpu["loss"])
+    for k, p in cpu.params.items():
+        assert _rel_l2(gpu.params[k].detach().cpu().numpy(), p.detach().numpy()) <= 1e-4, k
+
+
+def test_ns_solver_cuda_matches_cpu(cuda):
+    """The NS solver on the card against the CPU at the reference test's
+    sizes (n = 32, T = 1, 128 steps), cuFFT against pocketfft: within
+    1e-5 relative L2."""
+    from repro_torch.data import solve_ns_vorticity
+
+    f = torch.from_numpy(np.random.RandomState(0).randn(2, 32, 32).astype(np.float32))
+    want = solve_ns_vorticity(f, 32, T=1.0, steps=128)
+    got = solve_ns_vorticity(f.to(cuda), 32, T=1.0, steps=128).cpu()
+    assert _rel_l2(got.numpy(), want.numpy()) <= 1e-5

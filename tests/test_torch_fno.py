@@ -134,8 +134,9 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FNO(dataclasses.replace(FNO_DARCY_SMOKE, factorization="cp"))
+    # an unknown factorisation is refused, as the reference refuses it
+    with pytest.raises(ValueError, match="unknown factorization"):
+        FNO(dataclasses.replace(FNO_DARCY_SMOKE, factorization="bogus"))
     net = init_fno(torch.Generator().manual_seed(0),
                    dataclasses.replace(FNO_DARCY_SMOKE, fuse_spectral=True), device="cpu")
     with pytest.raises(NotImplementedError, match="fused"):

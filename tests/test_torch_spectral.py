@@ -143,10 +143,12 @@ def test_spectral_conv_refuses_what_is_not_ported():
     x = torch.zeros(1, 2, 8, 8)
     with pytest.raises(NotImplementedError, match="fused"):
         spectral_conv_apply(params, x, (3, 3), fuse_spectral=True)
-    with pytest.raises(NotImplementedError, match="dense"):
-        spectral_conv_apply({"lam_re": params["w_re"]}, x, (3, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_spectral_weights(2, 2, (3, 3), "cp")
+    # spectral params of no known kind, and an unknown factorisation, are
+    # refused as the reference refuses them
+    with pytest.raises(ValueError, match="unrecognised spectral params"):
+        spectral_conv_apply({"v_re": params["w_re"]}, x, (3, 3))
+    with pytest.raises(ValueError, match="unknown factorization"):
+        init_spectral_weights(2, 2, (3, 3), "bogus")
 
 
 def test_init_spectral_weights_scale():

@@ -172,9 +172,9 @@ def bridged():
     return jparams, tree, x, y
 
 
-def _jgrads(jparams, x, y, policy_name, unrolled=False):
-    f = lambda p: jrelative_l2(jfno.fno_apply(p, jnp.asarray(x), J_CFG,  # noqa: E731
-                                              jget_policy(policy_name)), jnp.asarray(y))
+def _jgrads(jparams, x, y, policy_name, unrolled=False, cfg=J_CFG, loss=jrelative_l2):
+    f = lambda p: loss(jfno.fno_apply(p, jnp.asarray(x), cfg,  # noqa: E731
+                                      jget_policy(policy_name)), jnp.asarray(y))
     uniform = jfno.layers_uniform
     if unrolled:   # the reference's own block loop, unrolled instead of scanned
         jfno.layers_uniform = lambda *a: False
@@ -194,7 +194,7 @@ def _seq_sum(g: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _tgrads(tree, x, y, policy_name, monkeypatch):
+def _tgrads(tree, x, y, policy_name, monkeypatch, cfg=FNO_DARCY_SMOKE, loss=relative_l2):
     """The port's gradients; each bias's cotangent (the gradient at its
     broadcast add, one row per position); and those cotangents summed the
     reference's way (see the test)."""
@@ -208,12 +208,12 @@ def _tgrads(tree, x, y, policy_name, monkeypatch):
         return y_ + b.to(dtype)
 
     monkeypatch.setattr(tfno, "_linear", recording)
-    net = params_from_jax(tree, FNO_DARCY_SMOKE, device="cpu")
-    loss = relative_l2(fno_apply(net, torch.from_numpy(x), get_policy(policy_name)),
-                       torch.from_numpy(y))
+    net = params_from_jax(tree, cfg, device="cpu")
+    value = loss(fno_apply(net, torch.from_numpy(x), get_policy(policy_name)),
+                 torch.from_numpy(y))
     names = [k for k, _ in net.named_parameters()]
     params = dict(net.named_parameters())
-    out = torch.autograd.grad(loss, [params[n] for n in names] + pre_bias)
+    out = torch.autograd.grad(value, [params[n] for n in names] + pre_bias)
     grads = {n: g.numpy() for n, g in zip(names, out)}
     cots = [c.reshape(-1, c.shape[-1]) for c in out[len(names):]]
     order = ["lift1.b", "lift2.b"] + ["skips.b"] * (len(cots) - 4) + ["proj1.b", "proj2.b"]
@@ -282,6 +282,43 @@ def test_spectral_layer_vjp_matches_reference():
         assert err <= limit, (name, err, limit)
 
 
+def check_fno_gradients(jparams, tree, x, y, full_grads, policy_name, monkeypatch,
+                        jcfg=J_CFG, tcfg=FNO_DARCY_SMOKE, jloss=jrelative_l2,
+                        tloss=relative_l2):
+    """The per-leaf comparison of ``test_fno_gradients_match_reference``
+    (its docstring states the limits), for any FNO configuration and loss:
+    ``jcfg``/``jloss`` on the reference's side, ``tcfg``/``tloss`` on the
+    port's; ``full_grads`` are the reference's gradients under ``full``."""
+    import repro.core.stabilizer as jstabilizer
+    from repro_torch.core.precision import FORMAT_EPS, dtype_name
+
+    ref = _jgrads(jparams, x, y, policy_name, unrolled=True, cfg=jcfg, loss=jloss)
+    got, cots = _tgrads(tree, x, y, policy_name, monkeypatch, cfg=tcfg, loss=tloss)
+    monkeypatch.setitem(jstabilizer.STABILIZERS, "tanh", _tanh_one_cotangent)
+    want = _jgrads(jparams, x, y, policy_name, unrolled=True, cfg=jcfg, loss=jloss)
+    emulated = {}
+    for name, c in cots.items():
+        f32 = c.float().sum(dim=-2).numpy()
+        assert rel_err(got[name], f32) <= FORMAT_EPS[dtype_name(c.dtype)], name
+        seq = [_seq_sum(part) for part in (c if c.ndim == 3 else [c])]
+        emulated[name] = torch.stack(seq).float().numpy().reshape(got[name].shape)
+    worst = 0.0
+    for name, w in want.items():
+        port = emulated.get(name, got[name])
+        err, err_ref = rel_err(port, w), rel_err(port, ref[name])
+        if policy_name == "full":
+            limit = limit_ref = 1e-5
+        else:
+            gap = rel_err(ref[name], full_grads[name])
+            limit, limit_ref = 0.25 * gap, 0.95 * gap
+        worst = max(worst, err / limit)
+        print(f"{policy_name} {name}: port vs reference {err:.3e} (limit {limit:.3e}); "
+              f"vs unchanged reference {err_ref:.3e} (limit {limit_ref:.3e})")
+        assert err <= limit, (name, err, limit)
+        assert err_ref <= limit_ref, (name, err_ref, limit_ref)
+    print(f"{policy_name}: worst error/limit {worst:.3f}")
+
+
 @pytest.fixture(scope="module")
 def full_grads(bridged):
     jparams, _, x, y = bridged
@@ -312,35 +349,8 @@ def test_fno_gradients_match_reference(bridged, full_grads, policy_name, monkeyp
     the port's cotangents summed the reference's way, which the test
     recomputes; the port's own bias gradients are those cotangents summed
     in f32 and rounded once (checked to the cotangent dtype's ε)."""
-    import repro.core.stabilizer as jstabilizer
-    from repro_torch.core.precision import FORMAT_EPS, dtype_name
-
     jparams, tree, x, y = bridged
-    ref = _jgrads(jparams, x, y, policy_name, unrolled=True)
-    got, cots = _tgrads(tree, x, y, policy_name, monkeypatch)
-    monkeypatch.setitem(jstabilizer.STABILIZERS, "tanh", _tanh_one_cotangent)
-    want = _jgrads(jparams, x, y, policy_name, unrolled=True)
-    emulated = {}
-    for name, c in cots.items():
-        f32 = c.float().sum(dim=-2).numpy()
-        assert rel_err(got[name], f32) <= FORMAT_EPS[dtype_name(c.dtype)], name
-        seq = [_seq_sum(part) for part in (c if c.ndim == 3 else [c])]
-        emulated[name] = torch.stack(seq).float().numpy().reshape(got[name].shape)
-    worst = 0.0
-    for name, w in want.items():
-        port = emulated.get(name, got[name])
-        err, err_ref = rel_err(port, w), rel_err(port, ref[name])
-        if policy_name == "full":
-            limit = limit_ref = 1e-5
-        else:
-            gap = rel_err(ref[name], full_grads[name])
-            limit, limit_ref = 0.25 * gap, 0.95 * gap
-        worst = max(worst, err / limit)
-        print(f"{policy_name} {name}: port vs reference {err:.3e} (limit {limit:.3e}); "
-              f"vs unchanged reference {err_ref:.3e} (limit {limit_ref:.3e})")
-        assert err <= limit, (name, err, limit)
-        assert err_ref <= limit_ref, (name, err_ref, limit_ref)
-    print(f"{policy_name}: worst error/limit {worst:.3f}")
+    check_fno_gradients(jparams, tree, x, y, full_grads, policy_name, monkeypatch)
 
 
 # -- optimizer, loss scale, schedule, loss ---------------------------------------
