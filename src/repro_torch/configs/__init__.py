@@ -1,2 +1,9 @@
 """Model configurations of the port."""
-from .fno_paper import FNO_DARCY, FNO_DARCY_SMOKE, TFNO_NS, TFNO_NS_SMOKE  # noqa: F401
+from .fno_paper import (  # noqa: F401
+    FNO_DARCY,
+    FNO_DARCY_SMOKE,
+    SFNO_SWE,
+    SFNO_SWE_SMOKE,
+    TFNO_NS,
+    TFNO_NS_SMOKE,
+)

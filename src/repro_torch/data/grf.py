@@ -1,9 +1,10 @@
-"""Gaussian random fields on the periodic unit torus, sampled spectrally.
+"""Gaussian random fields on the periodic unit torus, sampled spectrally,
+and smooth random fields on the sphere.
 
 The measure N(0, σ²(-Δ + τ²I)^(-α)) is the standard source of PDE
 coefficients (Li et al. 2021; Kossaifi et al. 2023).  Same covariance as
-the JAX reference's ``grf_2d``; the numbers differ, since the noise comes
-from a ``torch.Generator``.
+the JAX reference's ``grf_2d`` and ``grf_sphere``; the numbers differ,
+since the noise comes from a ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -38,3 +39,32 @@ def grf_2d(
     )
     field = torch.fft.ifft2(noise * sqrt_eig[None]).real * n
     return field.to(torch.float32)
+
+
+def sphere_field(re: torch.Tensor, im: torch.Tensor, nlat: int, nlon: int,
+                 decay: float = 2.0) -> torch.Tensor:
+    """The field synthesised from unit noise ``re``/``im`` (batch, lmax,
+    mmax) on ``re``'s device: coefficients with power-law decay
+    ``(1 + l)^-decay``, zero for m > l, and a real m = 0 column (a real
+    field's zonal coefficients are real)."""
+    from repro_torch.models.sht import sht_inverse
+
+    lmax, mmax = re.shape[-2:]
+    l = torch.arange(lmax, device=re.device)[:, None]
+    m = torch.arange(mmax, device=re.device)[None, :]
+    amp = (1.0 + l.to(torch.float32)) ** (-decay)
+    valid = (m <= l).to(torch.float32)
+    coeffs = torch.complex(re * amp * valid, im * amp * valid)
+    coeffs[..., 0] = coeffs[..., 0].real.to(torch.complex64)
+    return sht_inverse(coeffs, nlat, nlon)
+
+
+def grf_sphere(generator: torch.Generator, nlat: int, nlon: int, lmax: int = 16,
+               decay: float = 2.0, batch: int = 1) -> torch.Tensor:
+    """``batch`` random smooth float32 fields (nlat, nlon) on the
+    Gauss-Legendre grid, on the generator's device: SHT synthesis of
+    random degree < ``lmax`` coefficients with power-law decay."""
+    dev = generator.device
+    re = torch.randn((batch, lmax, lmax), generator=generator, device=dev)
+    im = torch.randn((batch, lmax, lmax), generator=generator, device=dev)
+    return sphere_field(re, im, nlat, nlon, decay)

@@ -1,0 +1,414 @@
+// Order-shared (l-shared) spherical spectral contraction (SFNO), forward and
+// both backward kernels, for Hopper (sm_90a).
+//
+// Replace the TPU kernels `_lshared_fwd_kernel` (ls_fwd),
+// `_lshared_bwd_x_kernel` (ls_bwd_x) and `_lshared_bwd_w_kernel` (ls_bwd_w)
+// in src/repro/kernels/spectral_contract.py, reached through
+// `spectral_contract_lshared_pallas` and its custom VJP `_lshared_op_bwd`.
+// The spherical convolution theorem shares the weight over the order m, so
+// for every degree l
+//
+//     out[b,o,l,m] = sum_i x[b,i,l,m] * w[i,o,l]              (ls_fwd)
+//     dx[b,i,l,m]  = sum_o g[b,o,l,m] * conj(w[i,o,l])        (ls_bwd_x)
+//     dw[i,o,l]    = sum_{b,m} conj(x[b,i,l,m]) * g[b,o,l,m]  (ls_bwd_w)
+//
+// all complex, in split-real form, x (B, I, L, M), g and out (B, O, L, M),
+// w (I, O, L).  Every operand arrives at one dtype T (f32, bf16 or fp16: the
+// caller rounded x and w to the site's storage format, and the cotangent g
+// comes back at the forward's output dtype).  Each term is summed in f32 as
+// four real products (rr - ii, ri + ir); a product of two bf16 or two fp16
+// values is exact in f32, so f32 FMAs give what the reference's matmuls at
+// preferred_element_type=f32 give, up to the order of the sums.  out, dx and
+// dw are stored at T, as `_lshared_op_bwd` stores dx at x's dtype and dw at
+// w's dtype.
+//
+// What bounds them.  At the SFNO_SWE path's shape (B=8, I=O=64, L=M=128)
+// each kernel does 8*B*I*O*L*M = 4.29 GFLOP against 69 MB of operands and
+// results at bf16 (138 MB at f32).  In a half mode every product is half x
+// half with f32 sums, which the tensor cores compute exactly: 4.3 us at
+// 989 TFLOP/s, under the 20.7 us the bytes take at 3.35 TB/s, so the bound
+// is bytes.  In f32 mode the products need the CUDA cores: 64 us at 67
+// TFLOP/s against 41 us of bytes, bound by operations.
+//
+// What the design does about it, simply: f32 FMAs on the CUDA cores (not the
+// tensor cores, so a half mode runs at the f32 rate: several times its
+// bound), with the operands staged in shared memory as f32 so that the inner
+// loops read shared memory only.
+//  * ls_fwd and ls_bwd_x are one kernel, ls_mix: a batched complex GEMM per
+//    degree, (B*M x K) times (K x N), K = I and N = O (forward) or K = O and
+//    N = I against conj(w) transposed (bwd_x).  The weight's l-slice is
+//    strided by L in w, so a small staging kernel first writes w as f32 in
+//    (L, K, N) order into a workspace; each ls_mix block (64-order tile, l,
+//    b) then copies its contiguous l-slice (32 KB at 64 x 64) and its x (or
+//    g) tile into shared memory.  Threads run along m, which is contiguous in
+//    x and out, so loads and stores coalesce; a thread keeps 8 output
+//    channels of one order in registers, fed by one x load and two float4
+//    broadcasts of the weight per 32 FMAs.
+//  * ls_bwd_w: one block per (l, 64 x 64 tile of (i, o)), walking every
+//    (b, m) term in a fixed order through 32-order chunks of x and g in
+//    shared memory; a thread owns a 4 x 4 register tile of (i, o), strided by
+//    16 so the shared reads do not conflict.  No atomics and no partials: a
+//    rerun is bit-identical.
+
+#include <algorithm>
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int NT = 256;          // threads per block
+constexpr int TM = 64;           // orders per ls_mix block
+constexpr int NG = 8;            // output channels per ls_mix thread
+constexpr int TW = 64;           // (i, o) tile edge of an ls_bwd_w block
+constexpr int TC = 32;           // orders per ls_bwd_w chunk
+constexpr int SMEM_MAX = 232448;  // 227 KB, the most a block may opt in to
+
+enum { FMT_F32 = 0, FMT_BF16 = 1, FMT_F16 = 2 };
+
+template <int FMT>
+struct Fmt;
+
+template <>
+struct Fmt<FMT_F32> {
+  using T = float;
+  __device__ static float ld(T v) { return v; }
+  __device__ static T st(float v) { return v; }
+};
+
+template <>
+struct Fmt<FMT_BF16> {
+  using T = __nv_bfloat16;
+  __device__ static float ld(T v) { return __bfloat162float(v); }
+  __device__ static T st(float v) { return __float2bfloat16_rn(v); }
+};
+
+template <>
+struct Fmt<FMT_F16> {
+  using T = __half;
+  __device__ static float ld(T v) { return __half2float(v); }
+  __device__ static T st(float v) { return __float2half_rn(v); }
+};
+
+__host__ __device__ inline int pad_ng(int n) { return (n + NG - 1) / NG * NG; }
+
+long long mix_smem_floats(int K, int N) {
+  // the weight's l-slice [K][N pad 8] and the x (or g) tile [K][TM], re/im
+  return 2LL * K * pad_ng(N) + 2LL * K * TM;
+}
+
+int n_tiles(int n, int t) { return (n + t - 1) / t; }
+
+// ---------------------------------------------------------------------------
+// Staging: ws[l][k][n] = w[i][o][l] as f32 (re, then im after L*I*O floats),
+// with (k, n) = (i, o) for ls_fwd and (o, i) for ls_bwd_x.  Threads walk w in
+// its own order, so the reads coalesce.
+// ---------------------------------------------------------------------------
+template <int FMT, bool BWD>
+__global__ void __launch_bounds__(NT)
+ls_stage_w_kernel(const typename Fmt<FMT>::T* __restrict__ wr,
+                  const typename Fmt<FMT>::T* __restrict__ wi,
+                  float* __restrict__ ws, int I, int O, int L) {
+  using F = Fmt<FMT>;
+  const size_t total = static_cast<size_t>(I) * O * L;
+  for (size_t e = static_cast<size_t>(blockIdx.x) * NT + threadIdx.x; e < total;
+       e += static_cast<size_t>(gridDim.x) * NT) {
+    const size_t l = e % L, io = e / L;
+    const size_t o = io % O, i = io / O;
+    const size_t dst = BWD ? (l * O + o) * I + i : (l * I + i) * O + o;
+    ws[dst] = F::ld(wr[e]);
+    ws[total + dst] = F::ld(wi[e]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// ls_mix: block (order tile m0..m0+TM, degree l, batch row b).
+//   out[b][n][l][m] = sum_k a[b][k][l][m] * W[k][n]      (BWD: * conj(W[k][n]))
+// ---------------------------------------------------------------------------
+template <int FMT, bool BWD>
+__global__ void __launch_bounds__(NT)
+ls_mix_kernel(const typename Fmt<FMT>::T* __restrict__ ar,
+              const typename Fmt<FMT>::T* __restrict__ ai,
+              const float* __restrict__ ws,
+              typename Fmt<FMT>::T* __restrict__ outr,
+              typename Fmt<FMT>::T* __restrict__ outi,
+              int K, int N, int L, int M) {
+  using F = Fmt<FMT>;
+  extern __shared__ __align__(16) float smem[];
+  const int NP = pad_ng(N);
+  float* swr = smem;            // W, [K][NP], zero past N
+  float* swi = swr + K * NP;
+  float* sar = swi + K * NP;    // a, [K][TM], zero past M
+  float* sai = sar + K * TM;
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * TM;
+  const size_t l = blockIdx.y, b = blockIdx.z;
+  const size_t kn = static_cast<size_t>(K) * N;
+  const float* wlr = ws + l * kn;
+  const float* wli = ws + static_cast<size_t>(L) * kn + l * kn;
+
+  for (int t = tid; t < K * NP; t += NT) {
+    const int k = t / NP, n = t % NP;
+    swr[t] = n < N ? wlr[k * N + n] : 0.f;
+    swi[t] = n < N ? wli[k * N + n] : 0.f;
+  }
+  for (int t = tid; t < K * TM; t += NT) {
+    const int k = t / TM, m = m0 + t % TM;
+    float vr = 0.f, vi = 0.f;
+    if (m < M) {
+      const size_t off = ((b * K + k) * L + l) * M + m;
+      vr = F::ld(ar[off]);
+      vi = F::ld(ai[off]);
+    }
+    sar[t] = vr;
+    sai[t] = vi;
+  }
+  __syncthreads();
+
+  for (int t = tid; t < (NP / NG) * TM; t += NT) {
+    const int n0 = NG * (t / TM), mm = t % TM, m = m0 + mm;
+    if (m >= M) continue;
+    float accr[NG], acci[NG];
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      accr[j] = 0.f;
+      acci[j] = 0.f;
+    }
+    for (int k = 0; k < K; ++k) {
+      const float xr = sar[k * TM + mm], xi = sai[k * TM + mm];
+      const float4 r0 = *reinterpret_cast<const float4*>(swr + k * NP + n0);
+      const float4 r1 = *reinterpret_cast<const float4*>(swr + k * NP + n0 + 4);
+      const float4 i0 = *reinterpret_cast<const float4*>(swi + k * NP + n0);
+      const float4 i1 = *reinterpret_cast<const float4*>(swi + k * NP + n0 + 4);
+      const float pr[NG] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+      const float pi[NG] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        if (BWD) {   // a * conj(W)
+          accr[j] = fmaf(xr, pr[j], accr[j]);
+          accr[j] = fmaf(xi, pi[j], accr[j]);
+          acci[j] = fmaf(xi, pr[j], acci[j]);
+          acci[j] = fmaf(-xr, pi[j], acci[j]);
+        } else {     // a * W
+          accr[j] = fmaf(xr, pr[j], accr[j]);
+          accr[j] = fmaf(-xi, pi[j], accr[j]);
+          acci[j] = fmaf(xr, pi[j], acci[j]);
+          acci[j] = fmaf(xi, pr[j], acci[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int n = n0 + j;
+      if (n >= N) break;
+      const size_t off = ((b * N + n) * L + l) * M + m;
+      outr[off] = F::st(accr[j]);
+      outi[off] = F::st(acci[j]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// ls_bwd_w: block (degree l, i tile, o tile).  Thread (ti, to) owns
+// i = i0 + ti + 16r and o = o0 + to + 16c, r, c < 4.
+// ---------------------------------------------------------------------------
+template <int FMT>
+__global__ void __launch_bounds__(NT)
+ls_bwd_w_kernel(const typename Fmt<FMT>::T* __restrict__ xr,
+                const typename Fmt<FMT>::T* __restrict__ xi,
+                const typename Fmt<FMT>::T* __restrict__ gr,
+                const typename Fmt<FMT>::T* __restrict__ gi,
+                typename Fmt<FMT>::T* __restrict__ dwr,
+                typename Fmt<FMT>::T* __restrict__ dwi,
+                int B, int I, int O, int L, int M) {
+  using F = Fmt<FMT>;
+  constexpr int P = TC + 1;     // padded row: conflict-free column reads
+  __shared__ float sxr[TW * P], sxi[TW * P], sgr[TW * P], sgi[TW * P];
+
+  const int tid = threadIdx.x;
+  const int ti = tid / 16, to = tid % 16;
+  const size_t l = blockIdx.x;
+  const int i0 = blockIdx.y * TW, o0 = blockIdx.z * TW;
+  const int ni = min(TW, I - i0), no = min(TW, O - o0);
+
+  float accr[4][4], acci[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      accr[r][c] = 0.f;
+      acci[r][c] = 0.f;
+    }
+  }
+
+  for (size_t b = 0; b < static_cast<size_t>(B); ++b) {
+    for (int c0 = 0; c0 < M; c0 += TC) {
+      // the x and g chunks of (b, l, c0..c0+TC) as f32, zero past M and the tile
+      for (int t = tid; t < TW * TC; t += NT) {
+        const int row = t / TC, col = t % TC, m = c0 + col;
+        float ar = 0.f, aim = 0.f, br = 0.f, bim = 0.f;
+        if (m < M) {
+          if (row < ni) {
+            const size_t off = ((b * I + i0 + row) * L + l) * M + m;
+            ar = F::ld(xr[off]);
+            aim = F::ld(xi[off]);
+          }
+          if (row < no) {
+            const size_t off = ((b * O + o0 + row) * L + l) * M + m;
+            br = F::ld(gr[off]);
+            bim = F::ld(gi[off]);
+          }
+        }
+        sxr[row * P + col] = ar;
+        sxi[row * P + col] = aim;
+        sgr[row * P + col] = br;
+        sgi[row * P + col] = bim;
+      }
+      __syncthreads();
+      for (int col = 0; col < TC; ++col) {
+        float pr[4], pi[4], qr[4], qi[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pr[r] = sxr[(ti + 16 * r) * P + col];
+          pi[r] = sxi[(ti + 16 * r) * P + col];
+          qr[r] = sgr[(to + 16 * r) * P + col];
+          qi[r] = sgi[(to + 16 * r) * P + col];
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {   // conj(x) * g
+            accr[r][c] = fmaf(pr[r], qr[c], accr[r][c]);
+            accr[r][c] = fmaf(pi[r], qi[c], accr[r][c]);
+            acci[r][c] = fmaf(pr[r], qi[c], acci[r][c]);
+            acci[r][c] = fmaf(-pi[r], qr[c], acci[r][c]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = ti + 16 * r;
+    if (i >= ni) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int o = to + 16 * c;
+      if (o >= no) continue;
+      const size_t off = (static_cast<size_t>(i0 + i) * O + o0 + o) * L + l;
+      dwr[off] = F::st(accr[r][c]);
+      dwi[off] = F::st(acci[r][c]);
+    }
+  }
+}
+
+template <int FMT, bool BWD>
+int launch_mix(const void* ar, const void* ai, const void* wr, const void* wi,
+               void* outr, void* outi, float* ws, int B, int I, int O, int L, int M,
+               cudaStream_t stream) {
+  using T = typename Fmt<FMT>::T;
+  const int K = BWD ? O : I, N = BWD ? I : O;
+  const size_t smem = mix_smem_floats(K, N) * sizeof(float);
+  if (smem > SMEM_MAX) return -2;
+  // opt in to more than 48 KB of dynamic shared memory once, at the first
+  // launch (never inside a CUDA graph capture, which follows a warm-up)
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      ls_mix_kernel<FMT, BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  const size_t total = static_cast<size_t>(I) * O * L;
+  if (total > 0) {   // no channels: the products are empty sums, zeros
+    const int stage_blocks = static_cast<int>(std::min<size_t>((total + NT - 1) / NT, 4096));
+    ls_stage_w_kernel<FMT, BWD><<<stage_blocks, NT, 0, stream>>>(
+        static_cast<const T*>(wr), static_cast<const T*>(wi), ws, I, O, L);
+    const int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  const dim3 grid(n_tiles(M, TM), L, B);
+  ls_mix_kernel<FMT, BWD><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(ar), static_cast<const T*>(ai), ws, static_cast<T*>(outr),
+      static_cast<T*>(outi), K, N, L, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int FMT>
+int launch_bwd_w(const void* xr, const void* xi, const void* gr, const void* gi,
+                 void* dwr, void* dwi, int B, int I, int O, int L, int M,
+                 cudaStream_t stream) {
+  using T = typename Fmt<FMT>::T;
+  const dim3 grid(L, n_tiles(I, TW), n_tiles(O, TW));
+  ls_bwd_w_kernel<FMT><<<grid, NT, 0, stream>>>(
+      static_cast<const T*>(xr), static_cast<const T*>(xi), static_cast<const T*>(gr),
+      static_cast<const T*>(gi), static_cast<T*>(dwr), static_cast<T*>(dwi), B, I, O, L, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool BWD>
+int dispatch_mix(const void* ar, const void* ai, const void* wr, const void* wi,
+                 void* outr, void* outi, void* workspace, int B, int I, int O, int L,
+                 int M, int fmt, void* stream) {
+  float* ws = static_cast<float*>(workspace);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (fmt) {
+    case FMT_F32:
+      return launch_mix<FMT_F32, BWD>(ar, ai, wr, wi, outr, outi, ws, B, I, O, L, M, s);
+    case FMT_BF16:
+      return launch_mix<FMT_BF16, BWD>(ar, ai, wr, wi, outr, outi, ws, B, I, O, L, M, s);
+    case FMT_F16:
+      return launch_mix<FMT_F16, BWD>(ar, ai, wr, wi, outr, outi, ws, B, I, O, L, M, s);
+  }
+  return -1;
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes.  The launchers launch on `stream`,
+// allocate nothing, and return cudaGetLastError(), -1 for an unknown format
+// code or -2 for widths whose working set exceeds a block's shared memory
+// (the Python wrapper checks both first).  ls_fwd and ls_bwd_x take an f32
+// workspace of spectral_contract_ls_workspace(I, O, L) floats.
+
+// bytes of shared memory an ls_fwd (K = I, N = O) or ls_bwd_x (K = O, N = I)
+// block needs
+extern "C" long long spectral_contract_ls_smem(int K, int N) {
+  return mix_smem_floats(K, N) * static_cast<long long>(sizeof(float));
+}
+
+extern "C" long long spectral_contract_ls_workspace(int I, int O, int L) {
+  return 2LL * I * O * L;
+}
+
+extern "C" int spectral_contract_ls_fwd(const void* xr, const void* xi, const void* wr,
+                                        const void* wi, void* outr, void* outi,
+                                        void* workspace, int B, int I, int O, int L, int M,
+                                        int fmt, void* stream) {
+  return dispatch_mix<false>(xr, xi, wr, wi, outr, outi, workspace, B, I, O, L, M, fmt,
+                             stream);
+}
+
+extern "C" int spectral_contract_ls_bwd_x(const void* gr, const void* gi, const void* wr,
+                                          const void* wi, void* dxr, void* dxi,
+                                          void* workspace, int B, int I, int O, int L,
+                                          int M, int fmt, void* stream) {
+  return dispatch_mix<true>(gr, gi, wr, wi, dxr, dxi, workspace, B, I, O, L, M, fmt,
+                            stream);
+}
+
+extern "C" int spectral_contract_ls_bwd_w(const void* xr, const void* xi, const void* gr,
+                                          const void* gi, void* dwr, void* dwi, int B,
+                                          int I, int O, int L, int M, int fmt,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (fmt) {
+    case FMT_F32:
+      return launch_bwd_w<FMT_F32>(xr, xi, gr, gi, dwr, dwi, B, I, O, L, M, s);
+    case FMT_BF16:
+      return launch_bwd_w<FMT_BF16>(xr, xi, gr, gi, dwr, dwi, B, I, O, L, M, s);
+    case FMT_F16:
+      return launch_bwd_w<FMT_F16>(xr, xi, gr, gi, dwr, dwi, B, I, O, L, M, s);
+  }
+  return -1;
+}

@@ -8,7 +8,8 @@ runs the plain versions for CPU tensors, forward and backward.
 ``spectral_contract_cp`` folds the CP mode factor, rounds every operand
 to the site's storage dtype outside the kernels (differentiably, so the
 gradients come back to f32 through the casts) and hands them to
-``CPContract``.
+``CPContract``.  ``spectral_contract_lshared`` does the same for the
+SFNO's order-shared contraction and ``LSharedContract``.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.precision import FULL, PrecisionPolicy
 
-from .spectral_contract import CPContract, DenseContract
+from .spectral_contract import CPContract, DenseContract, LSharedContract
 
 
 def _site_of(policy, site: str):
@@ -82,6 +83,11 @@ def cp_mode_factor(lam: torch.Tensor, mode_factors: Sequence[torch.Tensor]) -> t
     return w
 
 
+def _pair(z: torch.Tensor, dtype: torch.dtype):
+    """Split-real parts of ``z`` at ``dtype``, contiguous (differentiable)."""
+    return z.real.to(dtype).contiguous(), z.imag.to(dtype).contiguous()
+
+
 def spectral_contract_cp(
     x: torch.Tensor, lam: torch.Tensor, ui: torch.Tensor, uo: torch.Tensor,
     mode_factors: Sequence[torch.Tensor], *, policy=FULL,
@@ -112,10 +118,33 @@ def spectral_contract_cp(
         M *= m
     w = cp_mode_factor(lam, mode_factors)  # (R, M) complex
 
-    def pair(z):
-        return z.real.to(half).contiguous(), z.imag.to(half).contiguous()
-
-    out_re, out_im = CPContract.apply(*pair(x.reshape(B, I, M)), *pair(ui), *pair(uo),
-                                      *pair(w))
+    out_re, out_im = CPContract.apply(*_pair(x.reshape(B, I, M), half), *_pair(ui, half),
+                                      *_pair(uo, half), *_pair(w, half))
     O = uo.shape[0]
     return torch.complex(out_re.float(), out_im.float()).reshape(B, O, *modes)
+
+
+def spectral_contract_lshared(
+    x: torch.Tensor, w: torch.Tensor, *, policy=FULL,
+    site: str = "model/spectral/contract",
+) -> torch.Tensor:
+    """Order-shared spherical contraction ``bilm,iol->bolm`` (SFNO).
+
+    ``x``: complex64 (B, I, L, M), the (degree, order) spherical spectrum;
+    ``w``: complex (I, O, L), shared across orders m by the spherical
+    convolution theorem, so the dense (I, O, L, M) weight and its gradient
+    are never formed.  ``policy``: the resolved contract site, or a
+    PrecisionPolicy resolved here at ``site``.
+
+    x and w are rounded to the site's storage dtype (f32 when it does not
+    quantise) before the kernels, which sum in f32 and store the product
+    at that dtype.  Returns complex64 (B, O, L, M).
+    """
+    policy = _site_of(policy, site)
+    if x.ndim != 4 or w.ndim != 3:
+        raise ValueError(
+            f"spectral_contract_lshared: expected x (B, I, L, M) and w (I, O, L), "
+            f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    half = policy.spectral_dtype if policy.spectral_is_half else torch.float32
+    out_re, out_im = LSharedContract.apply(*_pair(x, half), *_pair(w, half))
+    return torch.complex(out_re.float(), out_im.float())

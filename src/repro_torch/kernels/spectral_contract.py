@@ -26,18 +26,31 @@ dW.  The operands arrive already rounded to one dtype (f32, bf16 or
 fp16); t, u and every sum are f32; the output and all four gradients are
 stored at the operands' dtype, as ``_cp_op_bwd`` stores them.
 
+Order-shared (SFNO), the weight shared over the order m:
+
+    out[b,o,l,m] = Σ_i x[b,i,l,m] · w[i,o,l]            (ls_fwd)
+    dx[b,i,l,m]  = Σ_o g[b,o,l,m] · conj(w[i,o,l])      (ls_bwd_x)
+    dw[i,o,l]    = Σ_{b,m} conj(x[b,i,l,m]) · g[b,o,l,m] (ls_bwd_w)
+
+with every operand at one dtype (f32, bf16 or fp16), f32 sums, and every
+result stored at that dtype, as ``_lshared_op_bwd`` stores them.
+
 The kernels replace the TPU kernels ``_dense_fwd_kernel``,
-``_dense_bwd_x_kernel``, ``_dense_bwd_w_kernel``, ``_cp_fwd_kernel`` and
-``_cp_bwd_kernel`` of ``repro.kernels.spectral_contract``; their sources
-(``csrc/spectral_contract.cu``, ``csrc/spectral_contract_bwd.cu``,
-``csrc/spectral_contract_cp.cu``) state their bounds and designs.
+``_dense_bwd_x_kernel``, ``_dense_bwd_w_kernel``, ``_cp_fwd_kernel``,
+``_cp_bwd_kernel``, ``_lshared_fwd_kernel``, ``_lshared_bwd_x_kernel`` and
+``_lshared_bwd_w_kernel`` of ``repro.kernels.spectral_contract``; their
+sources (``csrc/spectral_contract.cu``, ``csrc/spectral_contract_bwd.cu``,
+``csrc/spectral_contract_cp.cu``, ``csrc/spectral_contract_lshared.cu``)
+state their bounds and designs.
 
 Dispatch follows the tensors' device: CPU tensors take the plain
 versions, CUDA tensors launch the kernels or raise.  Each source is
 compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/repro_torch_kernels/`` at the repository root, and loaded with
 ``ctypes``.  ``launches``, ``launches_bwd_x``, ``launches_bwd_w``,
-``launches_cp_fwd`` and ``launches_cp_bwd`` count the kernels' launches.
+``launches_cp_fwd``, ``launches_cp_bwd``, ``launches_ls_fwd``,
+``launches_ls_bwd_x`` and ``launches_ls_bwd_w`` count the kernels'
+launches.
 """
 from __future__ import annotations
 
@@ -58,18 +71,27 @@ launches_bwd_x = 0
 launches_bwd_w = 0
 launches_cp_fwd = 0
 launches_cp_bwd = 0
+launches_ls_fwd = 0
+launches_ls_bwd_x = 0
+launches_ls_bwd_w = 0
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "spectral_contract.cu"
 SOURCE_BWD = CSRC / "spectral_contract_bwd.cu"
 SOURCE_CP = CSRC / "spectral_contract_cp.cu"
-SOURCES = (SOURCE, SOURCE_BWD, SOURCE_CP)
+SOURCE_LS = CSRC / "spectral_contract_lshared.cu"
+SOURCES = (SOURCE, SOURCE_BWD, SOURCE_CP, SOURCE_LS)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: format codes of the C interface
 _FMT = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The accumulator dtype: f32, f64 in a gradcheck."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def _round(ts, cast_to, dtype):
@@ -300,7 +322,7 @@ def _cp_stages(xr, xi, uir, uii, uor, uoi, wr, wi):
     """The rank-project and mode-scale stages at the accumulator dtype
     (f32; f64 in a gradcheck): ``(tr, ti, ur, ui)`` of shape (B, M, R),
     and the factors at that dtype."""
-    acc = torch.float64 if xr.dtype == torch.float64 else torch.float32
+    acc = _acc(xr.dtype)
     xr, xi, uir, uii, uor, uoi, wr, wi = (
         t.to(acc) for t in (xr, xi, uir, uii, uor, uoi, wr, wi))
 
@@ -369,7 +391,7 @@ def cp_magnitudes(xr, xi, uir, uii, uor, uoi, wr, wi, gr=None, gi=None):
     (``core.theory.contract_budget``).  ``"out"``: Σ_{i,r} |x||U_i||W||U_o|;
     given the cotangent g, also the gradients' ``"dx"``, ``"dU_i"``,
     ``"dU_o"`` and ``"dW"``."""
-    acc = torch.float64 if xr.dtype == torch.float64 else torch.float32
+    acc = _acc(xr.dtype)
 
     def mag(re, im):
         return torch.hypot(re.to(acc), im.to(acc))
@@ -502,6 +524,204 @@ def _launch_cp_bwd(xr, xi, uir, uii, uor, uoi, wr, wi, gr, gi):
     return tuple(grads)
 
 
+# -- order-shared contraction (SFNO) ---------------------------------------------
+
+def spectral_contract_lshared_plain(xr, xi, wr, wi):
+    """``ls_fwd``'s function in plain PyTorch: ``x`` (B, I, L, M) and ``w``
+    (I, O, L) at one dtype, f32 sums (f64 in a gradcheck), the result
+    stored at that dtype.  Returns ``(out_re, out_im)`` (B, O, L, M)."""
+    dtype, acc = xr.dtype, _acc(xr.dtype)
+    xr, xi, wr, wi = (t.to(acc) for t in (xr, xi, wr, wi))
+
+    def bmm(a, b):
+        return torch.einsum("bilm,iol->bolm", a, b)
+
+    return (bmm(xr, wr) - bmm(xi, wi)).to(dtype), (bmm(xr, wi) + bmm(xi, wr)).to(dtype)
+
+
+def spectral_contract_lshared_bwd_x_plain(gr, gi, wr, wi):
+    """``ls_bwd_x``'s function: ``dx = Σ_o g·conj(w)`` from ``g`` (B, O, L,
+    M) and ``w`` (I, O, L), f32 sums, stored at ``w``'s dtype.  Returns
+    ``(dxr, dxi)`` (B, I, L, M)."""
+    dtype, acc = wr.dtype, _acc(wr.dtype)
+    gr, gi, wr, wi = (t.to(acc) for t in (gr, gi, wr, wi))
+
+    def bmm(a, b):
+        return torch.einsum("bolm,iol->bilm", a, b)
+
+    return (bmm(gr, wr) + bmm(gi, wi)).to(dtype), (bmm(gi, wr) - bmm(gr, wi)).to(dtype)
+
+
+def spectral_contract_lshared_bwd_w_plain(xr, xi, gr, gi):
+    """``ls_bwd_w``'s function: ``dw = Σ_{b,m} conj(x)·g`` from ``x`` (B, I,
+    L, M) and ``g`` (B, O, L, M), f32 sums, stored at ``x``'s dtype.
+    Returns ``(dwr, dwi)`` (I, O, L)."""
+    dtype, acc = xr.dtype, _acc(xr.dtype)
+    xr, xi, gr, gi = (t.to(acc) for t in (xr, xi, gr, gi))
+
+    def bmm(a, b):
+        return torch.einsum("bilm,bolm->iol", a, b)
+
+    return (bmm(xr, gr) + bmm(xi, gi)).to(dtype), (bmm(xr, gi) - bmm(xi, gr)).to(dtype)
+
+
+def lshared_magnitudes(xr, xi, wr, wi, gr=None, gi=None):
+    """The contraction of |operands| each output of the order-shared
+    contraction sums, in f32 (f64 for f64 operands): what the tolerance of
+    a comparison between two evaluations scales with.  ``"out"``:
+    Σ_i |x||w|; given the cotangent g, also ``"dx"``: Σ_o |g||w| and
+    ``"dw"``: Σ_{b,m} |x||g|."""
+    acc = _acc(xr.dtype)
+
+    def mag(re, im):
+        return torch.hypot(re.to(acc), im.to(acc))
+
+    ax, aw = mag(xr, xi), mag(wr, wi)
+    out = {"out": torch.einsum("bilm,iol->bolm", ax, aw)}
+    if gr is not None:
+        ag = mag(gr, gi)
+        out.update(dx=torch.einsum("bolm,iol->bilm", ag, aw),
+                   dw=torch.einsum("bilm,bolm->iol", ax, ag))
+    return out
+
+
+def _check_ls(xr, xi, wr, wi) -> torch.device:
+    """The checks every order-shared entry makes; returns the device."""
+    ops = (xr, xi, wr, wi)
+    devices = {t.device for t in ops}
+    dtypes = {t.dtype for t in ops}
+    on_cpu = devices == {torch.device("cpu")}
+    allowed = _CP_DTYPES + ((torch.float64,) if on_cpu else ())
+    if len(dtypes) != 1 or xr.dtype not in allowed:
+        raise TypeError(
+            f"spectral_contract_lshared takes operands of one dtype of {list(allowed)}, "
+            f"got {[t.dtype for t in ops]}")
+    if xr.ndim != 4 or wr.ndim != 3 or xi.shape != xr.shape or wi.shape != wr.shape:
+        raise ValueError(
+            f"spectral_contract_lshared: expected x (B, I, L, M) and w (I, O, L) as "
+            f"re/im pairs, got {tuple(xr.shape)}/{tuple(xi.shape)} and "
+            f"{tuple(wr.shape)}/{tuple(wi.shape)}")
+    if wr.shape[0] != xr.shape[1] or wr.shape[2] != xr.shape[2]:
+        raise ValueError(
+            f"spectral_contract_lshared: x {tuple(xr.shape)} and w {tuple(wr.shape)} "
+            f"disagree on channels or degrees")
+    if len(devices) != 1:
+        raise ValueError(f"spectral_contract_lshared: operands on {devices}")
+    device = xr.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"spectral_contract_lshared: no kernel for {device}")
+    if device.type == "cuda" and not all(t.is_contiguous() for t in ops):
+        raise ValueError("spectral_contract_lshared: operands must be contiguous")
+    return device
+
+
+class LSharedContract(torch.autograd.Function):
+    """The order-shared contraction ``bilm,iol->bolm`` with the reference's
+    custom VJP.
+
+    Inputs: ``xr, xi`` (B, I, L, M) and ``wr, wi`` (I, O, L), all of one
+    dtype (the site's storage dtype, rounded by the caller).  Forward: the
+    plain version on the CPU, ``ls_fwd`` on CUDA.  Backward: dx and dw at
+    the operands' dtype, each only where it is needed: the plain versions
+    on the CPU, ``ls_bwd_x`` and ``ls_bwd_w`` on CUDA."""
+
+    @staticmethod
+    def forward(ctx, xr, xi, wr, wi):
+        device = _check_ls(xr, xi, wr, wi)
+        ctx.save_for_backward(xr, xi, wr, wi)
+        if device.type == "cpu":
+            return spectral_contract_lshared_plain(xr, xi, wr, wi)
+        return _launch_ls_fwd(xr, xi, wr, wi)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gr, gi):
+        xr, xi, wr, wi = ctx.saved_tensors
+        like = gr if gr is not None else gi
+        gr = torch.zeros_like(like) if gr is None else gr
+        gi = torch.zeros_like(like) if gi is None else gi
+        need_x = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        need_w = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
+        dxr = dxi = dwr = dwi = None
+        if xr.device.type == "cpu":
+            if need_x:
+                dxr, dxi = spectral_contract_lshared_bwd_x_plain(gr, gi, wr, wi)
+            if need_w:
+                dwr, dwi = spectral_contract_lshared_bwd_w_plain(xr, xi, gr, gi)
+            return dxr, dxi, dwr, dwi
+        if gr.dtype != xr.dtype or gi.dtype != xr.dtype:
+            raise TypeError(f"spectral_contract_lshared backward: cotangents of "
+                            f"{gr.dtype}/{gi.dtype}, operands of {xr.dtype}")
+        gr, gi = gr.contiguous(), gi.contiguous()
+        if need_x:
+            dxr, dxi = _launch_ls_bwd_x(gr, gi, wr, wi)
+        if need_w:
+            dwr, dwi = _launch_ls_bwd_w(xr, xi, gr, gi)
+        return dxr, dxi, dwr, dwi
+
+
+def _ls_workspace(K: int, N: int, L: int, device) -> torch.Tensor:
+    """The f32 workspace of ``ls_fwd`` (K = I, N = O) or ``ls_bwd_x``
+    (K = O, N = I): the weight restaged in (L, K, N) order; raises where a
+    block's working set exceeds its shared memory."""
+    lib = _library_ls()
+    need = int(lib.spectral_contract_ls_smem(K, N))
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"spectral_contract_lshared: a block holds the weight's degree slice in "
+            f"shared memory, and {K} x {N} channels need {need} bytes, more than a "
+            f"block's {SMEM_LIMIT}")
+    return torch.empty(int(lib.spectral_contract_ls_workspace(K, N, L)),
+                       dtype=torch.float32, device=device)
+
+
+def _launch_ls_fwd(xr, xi, wr, wi):
+    global launches_ls_fwd
+    B, I, L, M = xr.shape
+    O = wr.shape[1]
+    outr = torch.empty((B, O, L, M), dtype=xr.dtype, device=xr.device)
+    outi = torch.empty_like(outr)
+    if outr.numel() == 0:
+        return outr, outi
+    work = _ls_workspace(I, O, L, xr.device)
+    _call(_library_ls().spectral_contract_ls_fwd, "spectral_contract_ls_fwd", xr.device,
+          *(t.data_ptr() for t in (xr, xi, wr, wi, outr, outi, work)),
+          B, I, O, L, M, _FMT[xr.dtype])
+    launches_ls_fwd += 1
+    return outr, outi
+
+
+def _launch_ls_bwd_x(gr, gi, wr, wi):
+    global launches_ls_bwd_x
+    B, O, L, M = gr.shape
+    I = wr.shape[0]
+    dxr = torch.empty((B, I, L, M), dtype=wr.dtype, device=wr.device)
+    dxi = torch.empty_like(dxr)
+    if dxr.numel() == 0:
+        return dxr, dxi
+    work = _ls_workspace(O, I, L, wr.device)
+    _call(_library_ls().spectral_contract_ls_bwd_x, "spectral_contract_ls_bwd_x",
+          wr.device, *(t.data_ptr() for t in (gr, gi, wr, wi, dxr, dxi, work)),
+          B, I, O, L, M, _FMT[wr.dtype])
+    launches_ls_bwd_x += 1
+    return dxr, dxi
+
+
+def _launch_ls_bwd_w(xr, xi, gr, gi):
+    global launches_ls_bwd_w
+    B, I, L, M = xr.shape
+    O = gr.shape[1]
+    dwr = torch.empty((I, O, L), dtype=xr.dtype, device=xr.device)
+    dwi = torch.empty_like(dwr)
+    if dwr.numel() == 0:
+        return dwr, dwi
+    _call(_library_ls().spectral_contract_ls_bwd_w, "spectral_contract_ls_bwd_w",
+          xr.device, *(t.data_ptr() for t in (xr, xi, gr, gi, dwr, dwi)),
+          B, I, O, L, M, _FMT[xr.dtype])
+    launches_ls_bwd_w += 1
+    return dwr, dwi
+
+
 def build(source: Path = SOURCE) -> Tuple[Path, str]:
     """Compile ``source`` unless its library is already built.  Returns
     the library's path and the compiler's report (``-Xptxas -v``:
@@ -562,4 +782,15 @@ def _library_cp() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int] * 4
         fn.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.cache
+def _library_ls() -> ctypes.CDLL:
+    lib = _bind(SOURCE_LS, spectral_contract_ls_fwd=(7, 6),
+                spectral_contract_ls_bwd_x=(7, 6), spectral_contract_ls_bwd_w=(6, 6))
+    lib.spectral_contract_ls_smem.argtypes = [ctypes.c_int] * 2
+    lib.spectral_contract_ls_smem.restype = ctypes.c_longlong
+    lib.spectral_contract_ls_workspace.argtypes = [ctypes.c_int] * 3
+    lib.spectral_contract_ls_workspace.restype = ctypes.c_longlong
     return lib

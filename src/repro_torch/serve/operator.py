@@ -1,11 +1,12 @@
-"""Operator serving: micro-batched FNO field inference.
+"""Operator serving: micro-batched FNO/SFNO field inference.
 
 Each request carries one input field ``(C, *spatial)``.  The engine
 groups the waiting queue into *resolution buckets* (FNO weights are
-resolution-agnostic, but one batched forward needs one spatial shape),
-admits up to ``max_batch`` same-resolution requests per tick through the
-scheduler policy, pads them to ``max_batch`` fields and runs one batched
-``fno_infer`` on the engine's device.
+resolution-agnostic, but one batched forward needs one spatial shape; the
+SFNO's grid is fixed by its Legendre matrices), admits up to
+``max_batch`` same-resolution requests per tick through the scheduler
+policy, pads them to ``max_batch`` fields and runs one batched
+``fno_infer`` / ``sfno_infer`` on the engine's device.
 
 Every op in the forward is per-sample independent and every micro-batch
 has the same width, so a field's answer does not depend on what it was
@@ -17,14 +18,15 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.spectral import check_grid
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.fno import FNO, fno_infer
+from repro_torch.models.fno import FNO, FNOConfig, fno_infer
+from repro_torch.models.sfno import SFNO, SFNOConfig, sfno_infer
 from repro_torch.precision import FULL, PrecisionPolicy
 
 from .engine import EngineBase
@@ -66,11 +68,12 @@ class FieldRequest:
 
 
 class OperatorEngine(EngineBase):
-    """Micro-batching engine over ``fno_infer``.
+    """Micro-batching engine over ``fno_infer`` / ``sfno_infer``.
 
-    ``net``: an :class:`~repro_torch.models.fno.FNO` that already lives on
-    ``device`` (CUDA unless the caller names another).  ``max_batch`` is
-    the micro-batch width: each tick fills up to ``max_batch``
+    ``net``: an :class:`~repro_torch.models.fno.FNO` (``model="fno"``) or
+    an :class:`~repro_torch.models.sfno.SFNO` (``model="sfno"``) that
+    already lives on ``device`` (CUDA unless the caller names another).
+    ``max_batch`` is the micro-batch width: each tick fills up to ``max_batch``
     same-resolution requests into one batched forward.  ``memo_window``
     > 0 keeps an LRU of that many distinct fields' outputs, keyed by
     content, so a repeated field is answered without compute.
@@ -80,7 +83,7 @@ class OperatorEngine(EngineBase):
 
     def __init__(
         self,
-        net: FNO,
+        net: Union[FNO, SFNO],
         model: str = "fno",
         policy: PrecisionPolicy = FULL,
         max_batch: int = 8,
@@ -91,11 +94,12 @@ class OperatorEngine(EngineBase):
         autoprec=None,
         calibration_state: Optional[str] = None,
     ):
-        if model == "sfno":
-            raise NotImplementedError(
-                "model='sfno' is not ported yet (ROADMAP: SFNO slice)")
-        if model != "fno":
+        kinds = {"fno": FNOConfig, "sfno": SFNOConfig}
+        if model not in kinds:
             raise ValueError(f"model must be 'fno' or 'sfno', got {model!r}")
+        if not isinstance(net.cfg, kinds[model]):
+            raise ValueError(f"model={model!r} needs a {kinds[model].__name__} network, "
+                             f"got one of {type(net.cfg).__name__}")
         if telemetry or autoprec is not None:
             raise NotImplementedError(
                 "telemetry/autoprec are not ported yet (ROADMAP: auto-precision slice)")
@@ -119,6 +123,7 @@ class OperatorEngine(EngineBase):
         self.net = net
         self.cfg = net.cfg
         self.model = model
+        self._infer = fno_infer if model == "fno" else sfno_infer
         self.policy = policy
         self.max_batch = max_batch
         # content-hash memo: identical input fields (by value, under the
@@ -145,6 +150,11 @@ class OperatorEngine(EngineBase):
                 f"field has {shape[0]} channels but the {self.model} config "
                 f"expects {self.cfg.in_channels}"
             )
+        if self.model == "sfno":
+            want = (self.cfg.nlat, self.cfg.nlon)
+            if shape[1:] != want:
+                return False, f"sfno grid is fixed at {want}, got {shape[1:]}"
+            return True, ""
         if len(shape) - 1 != self.cfg.ndim:
             return False, f"{self.cfg.ndim}-d FNO got a {len(shape) - 1}-d field"
         try:
@@ -194,8 +204,8 @@ class OperatorEngine(EngineBase):
             xb = np.zeros((self.max_batch, *np.shape(batch[0].x)), np.float32)
             for pos, j in enumerate(compute):
                 xb[pos] = np.asarray(batch[j].x, np.float32)
-            yb = fno_infer(self.net, torch.from_numpy(xb), self.policy,
-                           device=self.device)
+            yb = self._infer(self.net, torch.from_numpy(xb), self.policy,
+                             device=self.device)
             yb = yb.cpu().numpy()[:len(compute)]
             self._n_batches += 1
             names = [str(j) for j in compute] if keys is None else [keys[j] for j in compute]

@@ -1,9 +1,11 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA spectral
 contraction kernels (the dense forward and its two backward kernels, the
-CP kernels ``cp_fwd`` and ``cp_bwd``) against their plain PyTorch versions
-on the card, the wrappers' checks, the autograd Functions on CUDA against
-the CPU, the FNO and TFNO serving and training paths on CUDA against the
-CPU, and the Navier-Stokes solver on CUDA against the CPU.
+CP kernels ``cp_fwd`` and ``cp_bwd``, the order-shared kernels ``ls_fwd``,
+``ls_bwd_x`` and ``ls_bwd_w``) against their plain PyTorch versions on
+the card, the wrappers' checks, the autograd Functions on CUDA against the
+CPU, the FNO, TFNO and SFNO serving and training paths on CUDA against the
+CPU, the SHT's synthesis on CUDA against the CPU, and the Navier-Stokes
+and shallow-water solvers on CUDA against the CPU.
 
 Imports no JAX (the GPU machine has none).  Every test carries the
 ``cuda`` marker and skips, from inside a fixture, where no card is
@@ -484,3 +486,214 @@ def test_ns_solver_cuda_matches_cpu(cuda):
     want = solve_ns_vorticity(f, 32, T=1.0, steps=128)
     got = solve_ns_vorticity(f.to(cuda), 32, T=1.0, steps=128).cpu()
     assert _rel_l2(got.numpy(), want.numpy()) <= 1e-5
+
+
+# -- the order-shared contraction (SFNO) ----------------------------------------------
+def _ls_operands(B, I, O, L, M, dtype, device, seed=0):
+    """x (B, I, L, M), w (I, O, L) and a cotangent (B, O, L, M) as re/im
+    pairs at ``dtype``, scaled so the outputs are O(1)."""
+    g = torch.Generator().manual_seed(seed)
+    shapes = [(B, I, L, M), (I, O, L), (B, O, L, M)]
+    scale = [1.0, I ** -0.5, 1.0]
+    out = [s * torch.randn(*shape, generator=g) for shape, s in zip(shapes, scale, strict=True)
+           for _ in range(2)]
+    return [t.to(dtype).to(device) for t in out]
+
+
+@pytest.mark.parametrize("shape", [(8, 64, 64, 128, 128), (3, 5, 7, 37, 29),
+                                   (1, 1, 1, 1, 1), (9, 17, 5, 33, 70), (2, 80, 70, 5, 40)])
+@pytest.mark.parametrize("dtype", CP_DTYPES)
+def test_lshared_kernels_match_plain_within_budget(cuda, shape, dtype):
+    """ls_fwd, ls_bwd_x and ls_bwd_w against their plain versions, every
+    operand at ``dtype``: each result within one rounding at ``dtype``
+    plus the f32 order of its magnitude contraction (``store_budget``);
+    B > 8, ragged L and M and more than one 64-channel tile included."""
+    xr, xi, wr, wi, gr, gi = _ls_operands(*shape, dtype, cuda)
+    before = (sc.launches_ls_fwd, sc.launches_ls_bwd_x, sc.launches_ls_bwd_w)
+    got = {"out": sc._launch_ls_fwd(xr, xi, wr, wi), "dx": sc._launch_ls_bwd_x(gr, gi, wr, wi),
+           "dw": sc._launch_ls_bwd_w(xr, xi, gr, gi)}
+    torch.cuda.synchronize()
+    assert (sc.launches_ls_fwd, sc.launches_ls_bwd_x, sc.launches_ls_bwd_w) == \
+        tuple(b + 1 for b in before)
+    want = {"out": sc.spectral_contract_lshared_plain(xr, xi, wr, wi),
+            "dx": sc.spectral_contract_lshared_bwd_x_plain(gr, gi, wr, wi),
+            "dw": sc.spectral_contract_lshared_bwd_w_plain(xr, xi, gr, gi)}
+    mags = sc.lshared_magnitudes(xr, xi, wr, wi, gr, gi)
+    eps = FORMAT_EPS[dtype_name(dtype)]
+    for name, pair in got.items():
+        for g, w in zip(pair, want[name], strict=True):
+            assert g.dtype == dtype and g.shape == w.shape, name
+            assert _cp_budget_ok(g, w, mags[name], eps), name
+
+
+@pytest.mark.parametrize("dtype", CP_DTYPES)
+def test_lshared_kernels_rerun_bit_identically(cuda, dtype):
+    xr, xi, wr, wi, gr, gi = _ls_operands(8, 64, 64, 128, 128, dtype, cuda, seed=3)
+    runs = [(sc._launch_ls_fwd(xr, xi, wr, wi), sc._launch_ls_bwd_x(gr, gi, wr, wi),
+             sc._launch_ls_bwd_w(xr, xi, gr, gi)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs, strict=True):
+        assert all(torch.equal(a, b) for a, b in zip(first, second, strict=True))
+
+
+@pytest.mark.parametrize("dtype", CP_DTYPES)
+def test_lshared_contract_cuda_matches_cpu(cuda, dtype):
+    """``LSharedContract`` on the card (ls_fwd, ls_bwd_x, ls_bwd_w) against
+    the same Function on the CPU (the plain versions): the outputs and the
+    four gradients, at ``dtype``, within ``store_budget``."""
+    ops_cpu = _ls_operands(5, 12, 9, 21, 30, dtype, "cpu", seed=6)
+    results = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_() for t in ops_cpu[:4]]
+        out = sc.LSharedContract.apply(*leaves)
+        grads = torch.autograd.grad(out, leaves, [g.to(dev) for g in ops_cpu[4:]])
+        results[str(dev)] = [t.detach().cpu() for t in (*out, *grads)]
+    mags = sc.lshared_magnitudes(*ops_cpu)
+    eps = FORMAT_EPS[dtype_name(dtype)]
+    names = ("out", "out", "dx", "dx", "dw", "dw")
+    for got, want, name in zip(results[str(cuda)], results["cpu"], names, strict=True):
+        assert got.dtype == dtype and _cp_budget_ok(got, want, mags[name], eps), name
+
+
+def test_lshared_wrapper_rejects_what_the_kernels_do_not_take(cuda):
+    xr, xi, wr, wi, _, _ = _ls_operands(2, 4, 3, 5, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.LSharedContract.apply(xr.transpose(2, 3).contiguous().transpose(2, 3), xi, wr, wi)
+    with pytest.raises(ValueError, match="operands on"):
+        sc.LSharedContract.apply(xr.cpu(), xi, wr, wi)
+    with pytest.raises(TypeError, match="one dtype"):
+        sc.LSharedContract.apply(xr.half(), xi, wr, wi)
+    with pytest.raises(TypeError):
+        sc.LSharedContract.apply(*(t.double() for t in (xr, xi, wr, wi)))
+    # ls_fwd holds the weight's degree slice in shared memory: widths
+    # beyond a block's are refused before launch
+    big = _ls_operands(1, 200, 200, 2, 4, torch.float32, cuda)
+    before = sc.launches_ls_fwd
+    with pytest.raises(ValueError, match="shared"):
+        sc._launch_ls_fwd(*big[:4])
+    assert sc.launches_ls_fwd == before
+
+
+@pytest.mark.parametrize("nlon,mmax", [(64, 16), (32, 17)])
+def test_sht_inverse_cuda_matches_cpu_on_a_complex_zero_order(cuda, nlon, mmax):
+    """A spectrum whose m = 0 column (and, at mmax = nlon/2 + 1, Nyquist
+    column) is complex, as the contraction leaves it: cuFFT's synthesis on
+    the card agrees with pocketfft's on the CPU (1e-5 relative L2), which
+    reads only those bins' real parts."""
+    from repro_torch.models import sht_inverse
+
+    g = torch.Generator().manual_seed(11)
+    c = torch.complex(torch.randn(3, 4, 16, mmax, generator=g),
+                      torch.randn(3, 4, 16, mmax, generator=g))
+    assert float(c[..., 0].imag.abs().min()) > 0
+    want = sht_inverse(c, 32, nlon).numpy()
+    got = sht_inverse(c.to(cuda), 32, nlon).cpu().numpy()
+    assert _rel_l2(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("policy_name", ["full", "mixed_fno_bf16", "mixed_fno_fp16"])
+def test_sfno_infer_cuda_matches_cpu(cuda, policy_name):
+    """SFNO_SWE_SMOKE on the card against the CPU, same weights: 1e-5
+    relative L2 under ``full``; under a half policy half the CPU's own gap
+    between the AMP policy of the same half dtype and ``full``, which
+    leaves the tanh out (the card's other FFT and GEMM last bits carry
+    through the half roundings of every layer: chip_smoke.py's SFNO phase
+    states why half)."""
+    from repro_torch.configs.fno_paper import SFNO_SWE_SMOKE
+    from repro_torch.models import init_sfno, sfno_infer
+
+    policy = get_policy(policy_name)
+    x = np.random.RandomState(4).randn(3, 3, 16, 32).astype(np.float32)
+    nets = {d: init_sfno(torch.Generator().manual_seed(5), SFNO_SWE_SMOKE, device=d)
+            for d in ("cpu", cuda)}
+    y_cpu = sfno_infer(nets["cpu"], x, policy, device="cpu").numpy()
+    y_gpu = sfno_infer(nets[cuda], x, policy, device=cuda).cpu().numpy()
+    if policy_name == "full":
+        assert _rel_l2(y_gpu, y_cpu) <= 1e-5
+    else:
+        amp = get_policy("amp_bf16" if "bf16" in policy_name else "amp_fp16")
+        gap = _rel_l2(sfno_infer(nets["cpu"], x, amp, device="cpu").numpy(),
+                      sfno_infer(nets["cpu"], x, get_policy("full"), device="cpu").numpy())
+        assert _rel_l2(y_gpu, y_cpu) <= 0.5 * gap
+
+
+@pytest.mark.parametrize("policy_name", ["full", "mixed_fno_bf16"])
+def test_sfno_engine_launches_ls_fwd_per_layer(cuda, policy_name):
+    """The full-width SFNO served: one ls_fwd launch per layer and
+    micro-batch and no dense or CP launch; batched == solo bit for bit."""
+    from repro_torch.configs.fno_paper import SFNO_SWE
+    from repro_torch.models import init_sfno
+
+    policy = get_policy(policy_name)
+    net = init_sfno(torch.Generator().manual_seed(1), SFNO_SWE, device=cuda)
+    rng = np.random.RandomState(9)
+    xs = [rng.randn(3, 256, 512).astype(np.float32) for _ in range(5)]
+    engine = OperatorEngine(net, model="sfno", policy=policy, max_batch=4, device=cuda)
+    reqs = [FieldRequest(uid=i, x=x) for i, x in enumerate(xs)]
+    for r in reqs:
+        engine.submit(r)
+    before = (sc.launches, sc.launches_cp_fwd, sc.launches_ls_fwd)
+    engine.drain()
+    torch.cuda.synchronize()
+    assert engine.stats()["batches"] == 2
+    after = (sc.launches, sc.launches_cp_fwd, sc.launches_ls_fwd)
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 0, 2 * SFNO_SWE.n_layers)
+    assert all(r.status == "done" and r.y.shape == (3, 256, 512) and np.isfinite(r.y).all()
+               for r in reqs)
+    solo = OperatorEngine(net, model="sfno", policy=policy, max_batch=4, device=cuda)
+    alone = FieldRequest(uid=0, x=xs[4])
+    solo.submit(alone)
+    solo.drain()
+    assert np.array_equal(alone.y, reqs[4].y)
+
+
+def test_sfno_trainer_two_steps_cuda_matches_cpu(cuda):
+    """Two steps of the port's Trainer on SFNO_SWE_SMOKE with the relative
+    L² loss, on the card and on the CPU, under ``full``: losses within
+    1e-5 relative, parameters within 1e-4 relative L2, and ls_fwd,
+    ls_bwd_x and ls_bwd_w launched once per layer per step."""
+    from repro_torch.configs.fno_paper import SFNO_SWE_SMOKE
+    from repro_torch.core.schedule import PrecisionSchedule
+    from repro_torch.models import init_sfno, sfno_apply
+    from repro_torch.train import Trainer, TrainerConfig, relative_l2
+
+    cfg = SFNO_SWE_SMOKE
+    rng = np.random.RandomState(8)
+    batches = [{"x": rng.randn(4, 3, 16, 32).astype(np.float32),
+                "y": rng.randn(4, 3, 16, 32).astype(np.float32)} for _ in range(2)]
+
+    def loss_fn(model, batch, policy):
+        return relative_l2(sfno_apply(model, batch["x"], policy), batch["y"])
+
+    def ls_counts():
+        return (sc.launches_ls_fwd, sc.launches_ls_bwd_x, sc.launches_ls_bwd_w)
+
+    net = init_sfno(torch.Generator().manual_seed(2), cfg, device="cpu")
+    runs = {}
+    for dev in ("cpu", cuda):
+        tt = Trainer(loss_fn, net, TrainerConfig(
+            total_steps=2, schedule=PrecisionSchedule.constant("full")), device=dev)
+        counts = ls_counts()
+        tt.run(lambda s: batches[s])
+        torch.cuda.synchronize()
+        runs[str(dev)] = (tt, tuple(b - a for a, b in zip(counts, ls_counts())))
+    cpu, gpu = runs["cpu"][0], runs[str(cuda)][0]
+    assert runs["cpu"][1] == (0, 0, 0)
+    assert runs[str(cuda)][1] == (2 * cfg.n_layers,) * 3
+    for h_cpu, h_gpu in zip(cpu.history, gpu.history, strict=True):
+        assert abs(h_gpu["loss"] - h_cpu["loss"]) <= 1e-5 * abs(h_cpu["loss"])
+    for k, p in cpu.params.items():
+        assert _rel_l2(gpu.params[k].detach().cpu().numpy(), p.detach().numpy()) <= 1e-4, k
+
+
+def test_swe_solver_cuda_matches_cpu(cuda):
+    """The shallow-water solver on the card against the CPU at 32x64 for
+    40 steps (cuFFT and cuBLAS against pocketfft and the CPU's GEMMs):
+    within 1e-5 relative L2 per field."""
+    from repro_torch.data import grf_sphere, solve_swe_linear
+
+    phi0 = grf_sphere(torch.Generator().manual_seed(0), 32, 64, batch=2) * 1e2
+    want = solve_swe_linear(phi0, 32, 64, steps=40)
+    got = solve_swe_linear(phi0.to(cuda), 32, 64, steps=40)
+    for g, w in zip(got, want, strict=True):
+        assert _rel_l2(g.cpu().numpy(), w.numpy()) <= 1e-5

@@ -160,12 +160,15 @@ def test_scheduler_policies():
 
 
 def test_engine_refuses_what_is_not_ported_or_misplaced(net, monkeypatch):
-    for kw in ({"model": "sfno"}, {"telemetry": True}, {"autoprec": object()},
+    for kw in ({"telemetry": True}, {"autoprec": object()},
                {"calibration_state": "state.json"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _engine(net, **kw)
     with pytest.raises(ValueError, match="model must be"):
         _engine(net, model="unet")
+    # model="sfno" serves an SFNO and refuses an FNO
+    with pytest.raises(ValueError, match="needs a SFNOConfig network"):
+        _engine(net, model="sfno")
     with pytest.raises(ValueError, match="live on"):
         OperatorEngine(net, device="meta")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

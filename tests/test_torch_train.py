@@ -172,9 +172,13 @@ def bridged():
     return jparams, tree, x, y
 
 
-def _jgrads(jparams, x, y, policy_name, unrolled=False, cfg=J_CFG, loss=jrelative_l2):
-    f = lambda p: loss(jfno.fno_apply(p, jnp.asarray(x), cfg,  # noqa: E731
-                                      jget_policy(policy_name)), jnp.asarray(y))
+def _jgrads(jparams, x, y, policy_name, unrolled=False, cfg=J_CFG, loss=jrelative_l2,
+            apply=None):
+    """The reference's gradients; ``apply`` is its forward (default
+    ``fno_apply``)."""
+    apply = apply or jfno.fno_apply
+    f = lambda p: loss(apply(p, jnp.asarray(x), cfg,  # noqa: E731
+                             jget_policy(policy_name)), jnp.asarray(y))
     uniform = jfno.layers_uniform
     if unrolled:   # the reference's own block loop, unrolled instead of scanned
         jfno.layers_uniform = lambda *a: False
@@ -194,10 +198,13 @@ def _seq_sum(g: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _tgrads(tree, x, y, policy_name, monkeypatch, cfg=FNO_DARCY_SMOKE, loss=relative_l2):
+def _tgrads(tree, x, y, policy_name, monkeypatch, cfg=FNO_DARCY_SMOKE, loss=relative_l2,
+            module=None, build=params_from_jax):
     """The port's gradients; each bias's cotangent (the gradient at its
     broadcast add, one row per position); and those cotangents summed the
-    reference's way (see the test)."""
+    reference's way (see the test).  ``module`` is the port's model module
+    whose ``_linear`` is recorded (default ``models.fno``), ``build`` its
+    loader of a reference tree."""
     import repro_torch.models.fno as tfno
 
     pre_bias = []   # in call order: lift1, lift2, skip of each layer, proj1, proj2
@@ -207,10 +214,9 @@ def _tgrads(tree, x, y, policy_name, monkeypatch, cfg=FNO_DARCY_SMOKE, loss=rela
         pre_bias.append(y_)
         return y_ + b.to(dtype)
 
-    monkeypatch.setattr(tfno, "_linear", recording)
-    net = params_from_jax(tree, cfg, device="cpu")
-    value = loss(fno_apply(net, torch.from_numpy(x), get_policy(policy_name)),
-                 torch.from_numpy(y))
+    monkeypatch.setattr(module or tfno, "_linear", recording)
+    net = build(tree, cfg, device="cpu")
+    value = loss(net(torch.from_numpy(x), get_policy(policy_name)), torch.from_numpy(y))
     names = [k for k, _ in net.named_parameters()]
     params = dict(net.named_parameters())
     out = torch.autograd.grad(value, [params[n] for n in names] + pre_bias)
@@ -284,18 +290,27 @@ def test_spectral_layer_vjp_matches_reference():
 
 def check_fno_gradients(jparams, tree, x, y, full_grads, policy_name, monkeypatch,
                         jcfg=J_CFG, tcfg=FNO_DARCY_SMOKE, jloss=jrelative_l2,
-                        tloss=relative_l2):
+                        tloss=relative_l2, japply=None, tmodule=None,
+                        tbuild=params_from_jax, gap_grads=None):
     """The per-leaf comparison of ``test_fno_gradients_match_reference``
-    (its docstring states the limits), for any FNO configuration and loss:
-    ``jcfg``/``jloss`` on the reference's side, ``tcfg``/``tloss`` on the
-    port's; ``full_grads`` are the reference's gradients under ``full``."""
+    (its docstring states the limits), for any operator configuration and
+    loss: ``jcfg``/``jloss``/``japply`` on the reference's side,
+    ``tcfg``/``tloss``/``tmodule``/``tbuild`` on the port's (see
+    ``_jgrads`` and ``_tgrads``); ``full_grads`` are the reference's
+    gradients under ``full``.  ``gap_grads``, where given, are the
+    reference's gradients under another policy whose gap to ``full`` sets
+    the limit against the reference in the port's tanh order (a quarter of
+    it) in place of this policy's own gap."""
     import repro.core.stabilizer as jstabilizer
     from repro_torch.core.precision import FORMAT_EPS, dtype_name
 
-    ref = _jgrads(jparams, x, y, policy_name, unrolled=True, cfg=jcfg, loss=jloss)
-    got, cots = _tgrads(tree, x, y, policy_name, monkeypatch, cfg=tcfg, loss=tloss)
+    ref = _jgrads(jparams, x, y, policy_name, unrolled=True, cfg=jcfg, loss=jloss,
+                  apply=japply)
+    got, cots = _tgrads(tree, x, y, policy_name, monkeypatch, cfg=tcfg, loss=tloss,
+                        module=tmodule, build=tbuild)
     monkeypatch.setitem(jstabilizer.STABILIZERS, "tanh", _tanh_one_cotangent)
-    want = _jgrads(jparams, x, y, policy_name, unrolled=True, cfg=jcfg, loss=jloss)
+    want = _jgrads(jparams, x, y, policy_name, unrolled=True, cfg=jcfg, loss=jloss,
+                   apply=japply)
     emulated = {}
     for name, c in cots.items():
         f32 = c.float().sum(dim=-2).numpy()
@@ -310,7 +325,8 @@ def check_fno_gradients(jparams, tree, x, y, full_grads, policy_name, monkeypatc
             limit = limit_ref = 1e-5
         else:
             gap = rel_err(ref[name], full_grads[name])
-            limit, limit_ref = 0.25 * gap, 0.95 * gap
+            other = gap if gap_grads is None else rel_err(gap_grads[name], full_grads[name])
+            limit, limit_ref = 0.25 * other, 0.95 * gap
         worst = max(worst, err / limit)
         print(f"{policy_name} {name}: port vs reference {err:.3e} (limit {limit:.3e}); "
               f"vs unchanged reference {err_ref:.3e} (limit {limit_ref:.3e})")
