@@ -9,9 +9,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    and reduced-precision half reductions off (the ``full`` policy means
    real f32, and the reference accumulates half products in f32).
 2. Build: compile the hand-written kernels (the dense forward source, the
-   dense backward source, the CP source and the order-shared source, one
-   ``nvcc`` each, started together) for ``sm_90a`` from the sources in
-   this checkout; print each ptxas report.
+   dense backward source, the CP source, the order-shared source and the
+   fused source, one ``nvcc`` each, started together) for ``sm_90a`` from
+   the sources in this checkout; print each ptxas report.
 3. Kernels vs plain: the dense forward kernel and its two backward
    kernels, the CP kernels ``cp_fwd`` and ``cp_bwd``, and the order-shared
    kernels ``ls_fwd``, ``ls_bwd_x`` and ``ls_bwd_w``, against their plain
@@ -21,21 +21,42 @@ Phases, in order; any failure exits non-zero and prints no result:
    contraction of |operands| it sums).  CP and order-shared (kernel and
    plain both sum in f32 from the same operands): within one rounding of
    the stored result, ``2ε/(1-ε)·|plain| + (1+ε)(32·ε_f32·M + 1e-5)``, a
-   budget that every zeroed output is checked to exceed.
-4. Darcy serving: the full-width Darcy FNO (``FNO_DARCY``) through
-   ``OperatorEngine(max_batch=8)`` under ``mixed_fno_bf16`` and ``full``:
+   budget that every zeroed output is checked to exceed.  The fused
+   kernels ``fused_fwd`` and ``fused_bwd`` at the Darcy path's shape,
+   421x421, GINO_CAR's 3-d latent FNO (32³, modes 12³) and a ragged 1-d
+   shape whose last axis keeps its Nyquist row, in five modes (f32, bf16,
+   fp16, simulated fp8 e4m3 and e5m2): each output within the composed
+   envelope budget (one ``4ε·M`` per requantising stage on either side, the
+   f32 order term, M from ``fused_magnitude``) and, in the half modes,
+   within 1/4 of the plain version's own gap to its answer with the
+   quantisation skipped (relative L2); a zeroed output must fail one.
+4. Darcy serving, staged path (``FNO_DARCY`` with ``fuse_spectral=False``
+   on both devices, so kernel 1 keeps a path that this script drives)
+   through ``OperatorEngine(max_batch=8)`` under ``mixed_fno_bf16`` and
+   ``full``:
    16 GRF fields at 128x128 and 8 at 421x421, two rounds (the first warms
    cuFFT plans and cuBLAS).  Outputs finite and shaped; 8 kernel launches
    per micro-batch; a re-served field through a fresh engine bit-identical
    to its batched answer; one 128x128 field against the same weights run
    on the CPU.
-5. Darcy training: 32 Darcy pairs at 128x128 from the ported CG solver on
-   the card; ``FNO_DARCY`` trained 12 steps in batches of 8 under the
+5. Darcy training, staged path (``fuse_spectral=False``, kernels 1–3):
+   32 Darcy pairs at 128x128 from the ported CG solver on the card;
+   ``FNO_DARCY`` trained 12 steps in batches of 8 under the
    paper's schedule (``paper_default("bf16")``: 3 mixed, 6 AMP, 3 full).
    Losses finite and falling, the schedule followed, no skipped step, 8
    forward, 8 bwd_x and 8 bwd_w launches per step; a restore of the step-6
    checkpoint reruns step 7 bit-identically; one step's gradients on the
    card against the CPU; a 4-step fp16 run with its loss scale accounted.
+5b. Darcy through the fused path, ``FNO_DARCY`` at its default config
+   (fused on the card): served as in phase 4, 4 ``fused_fwd`` launches per
+   micro-batch (one per layer, the corners gathered) and no dense launch,
+   batched == solo, card vs CPU (the CPU told ``fuse_spectral=True``)
+   within phase 4's limits; trained as in phase 5 on its Darcy pairs, 4
+   ``fused_fwd`` and 4 ``fused_bwd`` launches per step (one batch tile of
+   8) and no dense launch, the schedule, a falling loss, the step-6
+   restore rerun, gradients card vs CPU (CPU fused) within phase 5's
+   limits; then fused against staged, side by side, per resolution and
+   policy.
 6. TFNO serving: the paper's CP-factorised TFNO (``TFNO_NS``) served as in
    phase 4, NS forcings at 128x128 (16) and 256x256 (8): 8 ``cp_fwd``
    launches per micro-batch and no dense launch, batched == solo, card vs
@@ -71,7 +92,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    same function; engine fields/s and ms per micro-batch per resolution;
    ms per training step, fields/s and peak memory per policy; profiler
    breakdowns of serving micro-batches and of a ``mixed_fno_bf16`` and a
-   ``full`` training step of each model.
+   ``full`` training step of each model (the fused Darcy path too).  The
+   fused kernels at 128² and 421² in their five modes are timed with CUDA
+   events over 40 back-to-back launches (20 at 421²), not as a CUDA graph,
+   beside their plain versions and the fused and the staged layer's
+   forward and forward + backward at the same shape and policy; no single
+   PyTorch call computes the fused layer, so their library time is null.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -115,10 +141,23 @@ NS_T, NS_STEPS = 5.0, 512
 LS_PATH_SHAPE = (8, 64, 64, 128, 128)
 LS_RAGGED_SHAPE = (3, 5, 7, 37, 29)
 SWE_GRID, SWE_FIELDS, SWE_STEPS, SFNO_SERVE_FIELDS = (256, 512), 32, 200, 16
+#: (B, I, O, spatial, modes) of the fused kernels' checks: the Darcy path
+#: at 128² and 421², GINO_CAR's latent FNO, and a 1-d shape whose last axis
+#: keeps its Nyquist row (m - 1 = S/2)
+FUSED_SHAPES = ((8, 64, 64, (128, 128), (32, 32)), (8, 64, 64, (421, 421), (32, 32)),
+                (2, 64, 64, (32, 32, 32), (12, 12, 12)), (3, 5, 7, (30,), (16,)))
+#: (cast_to, sim_fmt) of the fused kernels' five modes: full/amp,
+#: mixed_fno_bf16, the fp16 policies, sim_fp8_e4m3, sim_fp8_e5m2
+FUSED_MODES = ((None, None), (torch.bfloat16, None), (torch.float16, None),
+               (torch.float16, "fp8_e4m3"), (torch.float16, "fp8_e5m2"))
+#: the policy each fused mode stands for, for the layer timings
+FUSED_MODE_POLICY = {"f32": "full", "bf16": "mixed_fno_bf16", "fp16": "mixed_fno_fp16",
+                     "fp8_e4m3": "sim_fp8_e4m3", "fp8_e5m2": "sim_fp8_e5m2"}
 #: every kernel's launch count on ``repro_torch.kernels.spectral_contract``
 LAUNCH_COUNTERS = ("launches", "launches_bwd_x", "launches_bwd_w",
                    "launches_cp_fwd", "launches_cp_bwd", "launches_ls_fwd",
-                   "launches_ls_bwd_x", "launches_ls_bwd_w")
+                   "launches_ls_bwd_x", "launches_ls_bwd_w", "launches_fused_fwd",
+                   "launches_fused_bwd")
 #: H100 SXM data sheet: HBM rate, f32 (non-tensor-core) peak, and the dense
 #: bf16/fp16 tensor-core peak (half x half products summed in f32)
 HBM_BYTES_PER_S = 3.35e12
@@ -371,6 +410,92 @@ def ls_kernel_phase(sc):
     return worst
 
 
+def mode_name(cast_to, sim_fmt):
+    return sim_fmt or {None: "f32", torch.bfloat16: "bf16", torch.float16: "fp16"}[cast_to]
+
+
+def fused_operands(shape, seed):
+    """x, the gathered weight (scaled so y is O(1)) and a cotangent g of
+    the fused layer on the card."""
+    from repro_torch.kernels.spectral_contract import fused_rows
+
+    B, I, O, spatial, modes = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Mh = int(np.prod(fused_rows(spatial, modes)))
+    x = torch.randn(B, I, *spatial, generator=g, device="cuda")
+    w = [torch.randn(I, O, Mh, generator=g, device="cuda") / I for _ in range(2)]
+    return x, *w, torch.randn(B, O, *spatial, generator=g, device="cuda")
+
+
+def rel_l2_dev(a, b):
+    """Relative L2 of two tensors on the card, in f64."""
+    a, b = a.double(), b.double()
+    return (torch.linalg.vector_norm(a - b) / (torch.linalg.vector_norm(b) + 1e-12)).item()
+
+
+def fused_kernel_phase(sc):
+    """fused_fwd and fused_bwd against their plain versions at
+    ``FUSED_SHAPES`` in ``FUSED_MODES``; returns each kernel's worst
+    max-abs error at the Darcy path's shape."""
+    from repro_torch.core.precision import FORMAT_EPS, dtype_name
+    from repro_torch.core.theory import contract_budget
+
+    worst = {"fused_fwd": 0.0, "fused_bwd": 0.0}
+    for k, shape in enumerate(FUSED_SHAPES):
+        x, wgr, wgi, g = fused_operands(shape, SEED + 50 + k)
+        modes = shape[-1]
+        mags = sc.fused_magnitude(x, wgr, wgi, modes, g=g)
+        mags = (mags["out"], mags["dx"], mags["dw"], mags["dw"])
+        raw = (sc.spectral_fused_plain(x, wgr, wgi, modes),
+               *sc.spectral_fused_bwd_plain(x, wgr, wgi, g, modes))
+        for cast_to, sim_fmt in FUSED_MODES:
+            got = (sc._launch_fused_fwd(x, wgr, wgi, modes, cast_to, sim_fmt),
+                   *sc._launch_fused_bwd(x, wgr, wgi, g, modes, cast_to, sim_fmt))
+            torch.cuda.synchronize()
+            q = {"cast_to": cast_to, "sim_fmt": sim_fmt}
+            want = (sc.spectral_fused_plain(x, wgr, wgi, modes, **q),
+                    *sc.spectral_fused_bwd_plain(x, wgr, wgi, g, modes, **q))
+            torch.cuda.synchronize()
+            eps = FORMAT_EPS[sim_fmt or dtype_name(cast_to or torch.float32)]
+            rows, ok, blind = {}, True, []
+            for name, a, b, r, mag, stages in zip(("y", "dx", "dwr", "dwi"), got, want, raw,
+                                                  mags, (2, 4, 4, 4), strict=True):
+                budget = contract_budget(eps, mag, stages=stages)
+                diff = (a.double() - b.double()).abs()
+                row = {"max_abs_err": diff.max().item(), "stages": stages,
+                       "excess_over_budget": (diff - budget).max().item(),
+                       "zeroed_excess_over_budget": (b.double().abs() - budget).max().item()}
+                ok &= row["excess_over_budget"] <= 0
+                zero_fails = row["zeroed_excess_over_budget"] > 0
+                if cast_to is not None:
+                    gap = rel_l2_dev(b, r)
+                    row.update(rel_l2=rel_l2_dev(a, b), rel_l2_limit=0.25 * gap,
+                               rel_l2_excess=rel_l2_dev(a, b) - 0.25 * gap)
+                    ok &= row["rel_l2_excess"] <= 0
+                    zero_fails |= 1.0 > 0.25 * gap
+                if not zero_fails:
+                    blind.append(name)
+                rows[name] = row
+            emit("fused_kernel_vs_plain", shape=[shape[0], shape[1], shape[2], list(shape[3]),
+                                                 list(modes)],
+                 mode=mode_name(cast_to, sim_fmt), eps=eps, outputs=rows,
+                 ok=ok and not blind)
+            if not ok:
+                fail(f"fused kernels disagree with their plain versions at {shape} "
+                     f"{mode_name(cast_to, sim_fmt)}: {rows}")
+            if blind:
+                fail(f"fused kernels at {shape} {mode_name(cast_to, sim_fmt)}: the checks "
+                     f"would accept a zeroed {blind}")
+            if k == 0:
+                worst["fused_fwd"] = max(worst["fused_fwd"], rows["y"]["max_abs_err"])
+                worst["fused_bwd"] = max(worst["fused_bwd"],
+                                         *(rows[n]["max_abs_err"] for n in ("dx", "dwr", "dwi")))
+            del got, want
+        del x, wgr, wgi, g, mags, raw
+        torch.cuda.empty_cache()
+    return worst
+
+
 # -- phases 4 and 6: serving ---------------------------------------------------
 def serve(engine, fields, uid0, times):
     """Submit ``fields`` and tick the engine dry, recording per tick the
@@ -404,7 +529,7 @@ def check_outputs(reqs, cfg):
 #: the kernels' names, as the profiler reports them
 KERNEL_NAMES = ("dense_fwd_kernel", "dense_bwd_x_kernel", "dense_bwd_w_kernel",
                 "cp_fwd_kernel", "cp_bwd_kernel", "ls_stage_w_kernel", "ls_mix_kernel",
-                "ls_bwd_w_kernel")
+                "ls_bwd_w_kernel", "fused_fwd_kernel", "fused_bwd_kernel")
 
 
 def profiled(fn):
@@ -495,17 +620,19 @@ def serve_model(sc, tag, cfg, net, net_cpu, fields, solo_picks, counter, model="
     """Serve ``fields`` ({grid: [field]}) through ``OperatorEngine`` under
     each policy, two rounds, then check launches, batched == solo and card
     vs CPU; ``counter`` names the one launch count the path must move (8
-    per micro-batch for an FNO, 4 for an SFNO), every other count must stay
-    at 0.  Phases are emitted under ``tag`` + their name.  Returns the
-    path's launches."""
+    per micro-batch for a staged FNO, one per corner and layer; 4 for an
+    SFNO or a fused FNO, one per layer), every other count must stay at 0.
+    Phases are emitted under ``tag`` + their name.  Returns the path's
+    launches and the engine's numbers per (policy, grid)."""
     from repro_torch.models import fno_infer, sfno_infer
     from repro_torch.precision import get_policy
     from repro_torch.serve import OperatorEngine
 
     sfno = model == "sfno"
+    per_layer = sfno or counter == "launches_fused_fwd"
     infer = sfno_infer if sfno else fno_infer
-    per_batch = cfg.n_layers if sfno else cfg.n_layers * 2 ** (cfg.ndim - 1)
-    if per_batch != (4 if sfno else 8):
+    per_batch = cfg.n_layers if per_layer else cfg.n_layers * 2 ** (cfg.ndim - 1)
+    if per_batch != (4 if per_layer else 8):
         fail(f"{tag}model launches {per_batch} kernels per micro-batch, not the path's")
     grids = list(fields)
     zero_counts(sc)          # the serving path's run starts here
@@ -578,23 +705,38 @@ def serve_model(sc, tag, cfg, net, net_cpu, fields, solo_picks, counter, model="
         if not parity[pname] <= limits[pname]:
             fail(f"{tag}{pname}: card vs CPU relative L2 {parity[pname]:.3e} "
                  f"> {limits[pname]:.3e}")
-    return launches
+    return launches, stats
 
 
-def serve_phase(sc):
-    from repro_torch.configs.fno_paper import FNO_DARCY
+def darcy_fields():
+    """The Darcy serving inputs: GRF fields per resolution, host arrays."""
     from repro_torch.data import grf_2d
+
+    return {n: list(grf_2d(torch.Generator().manual_seed(n), n, batch=count).numpy()[:, None])
+            for n, count in RESOLUTIONS}
+
+
+def serve_phase(sc, fused=False):
+    """FNO_DARCY served on the staged path (``fuse_spectral=False`` on both
+    devices) or, with ``fused``, at its default config, fused on the card,
+    against the CPU told ``fuse_spectral=True``.  Returns the path's
+    launches and the engine's numbers."""
+    import dataclasses
+
+    from repro_torch.configs.fno_paper import FNO_DARCY
     from repro_torch.models import init_fno, param_count
 
+    tag = "fused_" if fused else ""
+    cfg = FNO_DARCY if fused else dataclasses.replace(FNO_DARCY, fuse_spectral=False)
+    cpu_cfg = dataclasses.replace(FNO_DARCY, fuse_spectral=True) if fused else cfg
     t0 = time.perf_counter()
-    net = init_fno(torch.Generator().manual_seed(SEED), FNO_DARCY)
-    net_cpu = init_fno(torch.Generator().manual_seed(SEED), FNO_DARCY, device="cpu")
-    fields = {n: list(grf_2d(torch.Generator().manual_seed(n), n, batch=count)
-                      .numpy()[:, None])
-              for n, count in RESOLUTIONS}
-    emit("setup", params=param_count(net), seconds=time.perf_counter() - t0)
-    return serve_model(sc, "", FNO_DARCY, net, net_cpu, fields, ((128, 5), (421, 3)),
-                       "launches")
+    net = init_fno(torch.Generator().manual_seed(SEED), cfg)
+    net_cpu = init_fno(torch.Generator().manual_seed(SEED), cpu_cfg, device="cpu")
+    fields = darcy_fields()
+    emit(f"{tag}setup", params=param_count(net), fuse_spectral=cfg.fuse_spectral,
+         seconds=time.perf_counter() - t0)
+    return serve_model(sc, tag, cfg, net, net_cpu, fields, ((128, 5), (421, 3)),
+                       "launches_fused_fwd" if fused else "launches")
 
 
 def ns_forcing(n, count):
@@ -616,8 +758,8 @@ def tfno_serve_phase(sc):
     net_cpu = init_fno(torch.Generator().manual_seed(SEED + 2), TFNO_NS, device="cpu")
     fields = {n: ns_forcing(n, count) for n, count in TFNO_RESOLUTIONS}
     emit("tfno_setup", params=param_count(net), seconds=time.perf_counter() - t0)
-    launches = serve_model(sc, "tfno_", TFNO_NS, net, net_cpu, fields, ((128, 5), (256, 3)),
-                           "launches_cp_fwd")
+    launches, _ = serve_model(sc, "tfno_", TFNO_NS, net, net_cpu, fields,
+                              ((128, 5), (256, 3)), "launches_cp_fwd")
     tucker_parity(fields[128][:MAX_BATCH])
     return launches
 
@@ -740,17 +882,20 @@ def leaf_grads(loss_fn, model, batch, policy):
     return {k: g.detach().cpu().numpy() for k, g in zip(names, grads)}
 
 
-def grad_parity(tag, loss_fn, net_cpu, data, yard="mixed_fno_bf16", share=0.25):
+def grad_parity(tag, loss_fn, net_cpu, data, yard="mixed_fno_bf16", share=0.25, cpu_net=None):
     """One step's gradients on the card against the CPU, same weights and
     2 fields of ``data``.  Limits per leaf: 1e-4 relative L2 under full;
     under mixed_fno_bf16 ``share`` of the card's own gradient gap between
     the ``yard`` policy and full (a quarter of mixed_fno_bf16's own for an
-    FNO; half of amp_bf16's, which leaves the tanh out, for an SFNO)."""
+    FNO; half of amp_bf16's, which leaves the tanh out, for an SFNO).
+    ``cpu_net``, where given, is the CPU's model (the same weights under
+    another config); the card runs ``net_cpu``'s."""
     import copy
 
     from repro_torch.precision import get_policy
 
     net_gpu = copy.deepcopy(net_cpu).cuda()
+    net_cpu = cpu_net or net_cpu
     batch = {k: torch.from_numpy(v[:2]) for k, v in data.items()}
     got, gap, limits = {}, {}, {}
     g = {}
@@ -777,19 +922,21 @@ def grad_parity(tag, loss_fn, net_cpu, data, yard="mixed_fno_bf16", share=0.25):
             fail(f"{tag}{key}: card vs CPU gradient relative L2 {err:.3e} > {limits[key]:.3e}")
 
 
-def train_model(sc, tag, cfg, data, loss_fn, seed, path_counters, sfno=False):
+def train_model(sc, tag, cfg, data, loss_fn, seed, path_counters, sfno=False, cpu_cfg=None):
     """Train ``cfg`` 12 steps on ``data`` under ``paper_default("bf16")``
     and check it (launches of ``path_counters``, each once per layer and
-    corner per step (an SFNO layer has no corners), and no other; schedule;
-    falling loss; the step-6 restore rerun; gradients card vs CPU);
-    profile one step per policy.  Returns the path's launches, the CPU
-    model and the loader."""
+    corner per step (an SFNO layer has no corners, a fused layer gathers
+    them), and no other; schedule; falling loss; the step-6 restore rerun;
+    gradients card vs CPU, the CPU under ``cpu_cfg`` where given); profile
+    one step per policy.  Returns the path's launches, the CPU model, the
+    loader and the numbers per policy."""
     from repro_torch.core.schedule import PrecisionSchedule
     from repro_torch.data import CachedDataset
-    from repro_torch.models import init_fno, init_sfno
+    from repro_torch.models import FNO, init_fno, init_sfno
     from repro_torch.train import Trainer, TrainerConfig
 
-    per_step = cfg.n_layers if sfno else cfg.n_layers * 2 ** (cfg.ndim - 1)
+    per_layer = sfno or "launches_fused_fwd" in path_counters
+    per_step = cfg.n_layers if per_layer else cfg.n_layers * 2 ** (cfg.ndim - 1)
     loader = CachedDataset(data, TRAIN_BATCH, seed=SEED)
     net_cpu = (init_sfno if sfno else init_fno)(torch.Generator().manual_seed(seed), cfg,
                                                 device="cpu")
@@ -863,7 +1010,11 @@ def train_model(sc, tag, cfg, data, loss_fn, seed, path_counters, sfno=False):
     if sfno:
         grad_parity(tag, loss_fn, net_cpu, data, "amp_bf16", 0.5)
     else:
-        grad_parity(tag, loss_fn, net_cpu, data)
+        twin = None
+        if cpu_cfg is not None:
+            twin = FNO(cpu_cfg)
+            twin.load_state_dict(net_cpu.state_dict())
+        grad_parity(tag, loss_fn, net_cpu, data, cpu_net=twin)
 
     # one profiled step per policy, after a warm step
     for pname in ("mixed_fno_bf16", "full"):
@@ -875,19 +1026,22 @@ def train_model(sc, tag, cfg, data, loss_fn, seed, path_counters, sfno=False):
         prof["idle_share_unprofiled"] = max(
             0.0, 1.0 - prof["device_busy_ms"] / prof["step_ms_unprofiled"])
         emit(f"{tag}train_profile", policy=pname, **prof)
-    return {k: launched[k] for k in path_counters}, net_cpu, loader
+    return {k: launched[k] for k in path_counters}, net_cpu, loader, by_policy
 
 
 def train_phase(sc):
-    """The Darcy training slice; returns the launches of each kernel in
-    the main run."""
+    """The Darcy training slice on the staged path (``fuse_spectral=False``,
+    kernels 1–3); returns the launches of each kernel in the main run, the
+    Darcy pairs and the numbers per policy."""
+    import dataclasses
+
     from repro_torch.configs.fno_paper import FNO_DARCY
     from repro_torch.core.schedule import PrecisionSchedule
     from repro_torch.train import Trainer, TrainerConfig
 
     data = darcy_data()
-    launched, net_cpu, loader = train_model(
-        sc, "", FNO_DARCY, data, loss_l2, SEED + 1,
+    launched, net_cpu, loader, by_policy = train_model(
+        sc, "", dataclasses.replace(FNO_DARCY, fuse_spectral=False), data, loss_l2, SEED + 1,
         ("launches", "launches_bwd_x", "launches_bwd_w"))
 
     # a short fp16 run: the loss scale stays finite and every skipped step
@@ -904,8 +1058,45 @@ def train_phase(sc):
             scale != 2.0 ** 15 * 0.5 ** skipped:
         fail(f"fp16 run: scale {scale}, skipped {fp16.stats['skipped_steps']} "
              f"vs {skipped} non-finite steps")
-    return {"fwd": launched["launches"], "bwd_x": launched["launches_bwd_x"],
-            "bwd_w": launched["launches_bwd_w"]}
+    return ({"fwd": launched["launches"], "bwd_x": launched["launches_bwd_x"],
+             "bwd_w": launched["launches_bwd_w"]}, data, by_policy)
+
+
+def fused_train_phase(sc, data):
+    """FNO_DARCY at its default config (fused on the card) trained on the
+    phase-5 Darcy pairs, gradients against the CPU told
+    ``fuse_spectral=True``; returns the launches of each fused kernel in
+    the main run and the numbers per policy."""
+    import dataclasses
+
+    from repro_torch.configs.fno_paper import FNO_DARCY
+
+    launched, _, _, by_policy = train_model(
+        sc, "fused_", FNO_DARCY, data, loss_l2, SEED + 1,
+        ("launches_fused_fwd", "launches_fused_bwd"),
+        cpu_cfg=dataclasses.replace(FNO_DARCY, fuse_spectral=True))
+    return ({"fused_fwd": launched["launches_fused_fwd"],
+             "fused_bwd": launched["launches_fused_bwd"]}, by_policy)
+
+
+def fused_vs_staged(serve_stats, train_stats):
+    """Fused against staged, side by side: per policy and resolution the
+    median ms per micro-batch, fields/s and peak memory of serving; per
+    policy the median ms per step, fields/s and peak memory of training."""
+    for key, staged in serve_stats["staged"].items():
+        fused = serve_stats["fused"][key]
+        row = {}
+        for name, st in (("staged", staged), ("fused", fused)):
+            ms = float(np.median(st["ms_per_micro_batch"]))
+            row[name] = {"median_ms_per_micro_batch": ms, "fields_per_s": st["fields_per_s"],
+                         "peak_mem_bytes": st["peak_mem_bytes"]}
+        row["speedup"] = row["staged"]["median_ms_per_micro_batch"] / \
+            row["fused"]["median_ms_per_micro_batch"]
+        emit("fused_vs_staged_serve", policy=key[0], grid=key[1], **row)
+    for pname, staged in train_stats["staged"].items():
+        fused = train_stats["fused"][pname]
+        emit("fused_vs_staged_train", policy=pname, staged=staged, fused=fused,
+             speedup=staged["median_ms_per_step"] / fused["median_ms_per_step"])
 
 
 def tfno_train_phase(sc):
@@ -914,8 +1105,8 @@ def tfno_train_phase(sc):
     from repro_torch.configs.fno_paper import TFNO_NS
 
     data = ns_data()
-    launched, _, _ = train_model(sc, "tfno_", TFNO_NS, data, loss_h1, SEED + 4,
-                                 ("launches_cp_fwd", "launches_cp_bwd"))
+    launched, _, _, _ = train_model(sc, "tfno_", TFNO_NS, data, loss_h1, SEED + 4,
+                                    ("launches_cp_fwd", "launches_cp_bwd"))
     ns_solver_parity()
     return {"cp_fwd": launched["launches_cp_fwd"], "cp_bwd": launched["launches_cp_bwd"]}
 
@@ -976,8 +1167,10 @@ def sfno_serve_phase(sc, data):
     net_cpu = init_sfno(torch.Generator().manual_seed(SEED + 7), SFNO_SWE, device="cpu")
     fields = {SWE_GRID[0]: list(data["a"][:SFNO_SERVE_FIELDS])}
     emit("sfno_setup", params=param_count(net), seconds=time.perf_counter() - t0)
-    return serve_model(sc, "sfno_", SFNO_SWE, net, net_cpu, fields,
-                       ((SWE_GRID[0], 5), (SWE_GRID[0], 12)), "launches_ls_fwd", model="sfno")
+    launches, _ = serve_model(sc, "sfno_", SFNO_SWE, net, net_cpu, fields,
+                              ((SWE_GRID[0], 5), (SWE_GRID[0], 12)), "launches_ls_fwd",
+                              model="sfno")
+    return launches
 
 
 def sfno_train_phase(sc, data):
@@ -985,9 +1178,9 @@ def sfno_train_phase(sc, data):
     each order-shared kernel in the main run."""
     from repro_torch.configs.fno_paper import SFNO_SWE
 
-    launched, _, _ = train_model(sc, "sfno_", SFNO_SWE, data, loss_l2, SEED + 8,
-                                 ("launches_ls_fwd", "launches_ls_bwd_x", "launches_ls_bwd_w"),
-                                 sfno=True)
+    launched, _, _, _ = train_model(sc, "sfno_", SFNO_SWE, data, loss_l2, SEED + 8,
+                                    ("launches_ls_fwd", "launches_ls_bwd_x",
+                                     "launches_ls_bwd_w"), sfno=True)
     return {"ls_fwd": launched["launches_ls_fwd"], "ls_bwd_x": launched["launches_ls_bwd_x"],
             "ls_bwd_w": launched["launches_ls_bwd_w"]}
 
@@ -1228,6 +1421,127 @@ def ls_timing_phase(sc, max_err, launches):
     return entries
 
 
+def event_ms(fn, sets, iters):
+    """Device ms per call of ``fn``: ``iters`` back-to-back calls cycling
+    through ``sets`` between two CUDA events, after one warm call per set.
+    The fused kernels are cooperative launches and are timed this way, not
+    as a CUDA graph; at a few ms per call the host's launch time hides
+    behind the device's."""
+    for args in sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for k in range(iters):
+        fn(*sets[k % len(sets)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def fused_work(B, I, O, spatial, modes):
+    """The fused layer's operations, from the shapes: ``(transform flops
+    of one slab, contraction flops of a forward)``.  A slab's analysis and
+    its synthesis take the same count.  The last axis goes first, over
+    every row of the slab, then each other axis over the columns the later
+    axes retain.  Each axis counts the fewer of two ways to transform it:
+    the truncated DFT (a real-by-complex factor on the last axis, 4 flops
+    per term; complex by complex on the others, 8) and a whole FFT at the
+    conventional 5 N log2 N flops (2.5 N log2 N on the real last axis;
+    Rader's algorithm keeps a prime N in this order), pruning left out."""
+    from repro_torch.kernels.spectral_contract import fused_rows
+
+    rows = fused_rows(spatial, modes)
+    S = [int(v) for v in spatial]
+    T = int(np.prod(S[:-1])) * min(4 * S[-1] * rows[-1], 2.5 * S[-1] * np.log2(S[-1]))
+    for k in range(len(S) - 1):
+        T += int(np.prod(S[:k])) * int(np.prod(rows[k + 1:])) * min(
+            8 * S[k] * rows[k], 5 * S[k] * np.log2(S[k]))
+    return float(T), 8 * B * I * O * int(np.prod(rows))
+
+
+def fused_timing_phase(sc, max_err, launches):
+    """fused_fwd and fused_bwd at the Darcy path's shape at 128² and 421² in
+    the five modes, beside their bounds (bytes: x, y and the f32 weight in
+    the forward; x, g, dx, the weight and dw in the backward; operations:
+    ``fused_work``'s transforms at the CUDA cores' f32 rate, the
+    contraction's half x half products at the tensor cores' rate in the
+    half modes), their plain versions, and the fused and the staged layer
+    (``spectral_conv_apply`` under the mode's policy) forward and forward +
+    backward.  Returns the kernels line's entries (bf16 mode at 128²)."""
+    from repro_torch.core.spectral import init_spectral_weights, spectral_conv_apply
+    from repro_torch.kernels.spectral_contract import fused_rows
+    from repro_torch.precision import get_policy
+
+    rows = {"fused_fwd": {}, "fused_bwd": {}}
+    for grid, nsets, iters in ((128, 4, 40), (421, 2, 20)):
+        B, I, O, spatial, modes = shape = (8, 64, 64, (grid, grid), (32, 32))
+        # 4 operand sets of 134 MB at 128² (x, g and the weight), 2 of 793 MB
+        # at 421²: consecutive calls find their operands outside the L2
+        sets = [fused_operands(shape, 500 + k) for k in range(nsets)]
+        N, Mh = grid * grid, int(np.prod(fused_rows(spatial, modes)))
+        T, C = fused_work(*shape)
+        nbytes = {"fused_fwd": 4 * (B * I * N + B * O * N) + 8 * I * O * Mh,
+                  "fused_bwd": 4 * (2 * B * I * N + B * O * N) + 16 * I * O * Mh}
+        flops = {"fused_fwd": (B * I + B * O) * T + C, "fused_bwd": (2 * B * I + B * O) * T + 2 * C}
+        contract = {"fused_fwd": C, "fused_bwd": 2 * C}
+        params = {k: v.cuda().requires_grad_() for k, v in init_spectral_weights(
+            I, O, modes, generator=torch.Generator().manual_seed(SEED + 9)).items()}
+        lsets = [(x.detach().clone().requires_grad_(), g) for x, _, _, g in sets]
+        for cast_to, sim_fmt in FUSED_MODES:
+            mode = mode_name(cast_to, sim_fmt)
+            policy = get_policy(FUSED_MODE_POLICY[mode])
+            q = {"cast_to": cast_to, "sim_fmt": sim_fmt}
+            runs = {
+                "fused_fwd": (lambda x, wr, wi, _g, q=q, m=modes: sc._launch_fused_fwd(
+                                  x, wr, wi, m, q["cast_to"], q["sim_fmt"]),
+                              lambda x, wr, wi, _g, q=q, m=modes: sc.spectral_fused_plain(
+                                  x, wr, wi, m, **q)),
+                "fused_bwd": (lambda x, wr, wi, g, q=q, m=modes: sc._launch_fused_bwd(
+                                  x, wr, wi, g, m, q["cast_to"], q["sim_fmt"]),
+                              lambda x, wr, wi, g, q=q, m=modes: sc.spectral_fused_bwd_plain(
+                                  x, wr, wi, g, m, **q)),
+            }
+            layer = {}
+            for path, fuse in (("fused", True), ("staged", False)):
+                def fwd(x, _g, fuse=fuse, policy=policy, p=params, m=modes):
+                    with torch.no_grad():
+                        return spectral_conv_apply(p, x, m, policy, fuse_spectral=fuse)
+
+                def fwd_bwd(x, g, fuse=fuse, policy=policy, p=params, m=modes):
+                    y = spectral_conv_apply(p, x, m, policy, fuse_spectral=fuse)
+                    return torch.autograd.grad(y, [x, p["w_re"], p["w_im"]], g.to(y.dtype))
+
+                layer[f"{path}_layer_fwd_ms"] = event_ms(fwd, lsets, iters)
+                layer[f"{path}_layer_fwd_bwd_ms"] = event_ms(fwd_bwd, lsets, iters)
+            for name, (kernel, plain) in runs.items():
+                half = contract[name] if cast_to is not None else 0
+                rows[name][(grid, mode)] = {
+                    "ms": event_ms(kernel, sets, iters), "plain_ms": event_ms(plain, sets, iters),
+                    **_bound(nbytes[name], flops[name], half), **layer}
+        del sets, lsets, params
+        torch.cuda.empty_cache()
+    meta = {"fused_fwd": ("spectral_fused_fwd", "src/repro/kernels/spectral_contract.py:856"),
+            "fused_bwd": ("spectral_fused_bwd", "src/repro/kernels/spectral_contract.py:890")}
+    entries = []
+    for key, by in rows.items():
+        for (grid, mode), t in by.items():
+            emit("kernel_time", kernel=key, shape=[8, 64, 64, [grid, grid], [32, 32]], mode=mode,
+                 timing="cuda events, back-to-back launches", library_ms=None, **t)
+        t = by[(128, "bf16")]
+        name, replaces = meta[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/spectral_fused.cu",
+            "replaces": replaces, "launches": launches[key], "max_abs_err": max_err[key],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "ms_f32_mode": by[(128, "f32")]["ms"], "ms_421_bf16": by[(421, "bf16")]["ms"],
+            "staged_layer_fwd_ms": t["staged_layer_fwd_ms"],
+            "staged_layer_fwd_bwd_ms": t["staged_layer_fwd_bwd_ms"]})
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -1238,9 +1552,14 @@ def main():
     card = device_phase()
     build_phase(sc)
     max_err = {"fwd": kernel_phase(sc), **backward_kernel_phase(sc), **cp_kernel_phase(sc),
-               **ls_kernel_phase(sc)}
-    served = serve_phase(sc)
-    trained = train_phase(sc)
+               **ls_kernel_phase(sc), **fused_kernel_phase(sc)}
+    served, staged_serve = serve_phase(sc)
+    trained, darcy, staged_train = train_phase(sc)
+    fused_served, fused_serve = serve_phase(sc, fused=True)
+    fused_trained, fused_train = fused_train_phase(sc, darcy)
+    fused_vs_staged({"staged": staged_serve, "fused": fused_serve},
+                    {"staged": staged_train, "fused": fused_train})
+    del darcy
     tfno_served = tfno_serve_phase(sc)
     tfno_trained = tfno_train_phase(sc)
     swe = swe_data()
@@ -1250,13 +1569,17 @@ def main():
     launches = {"fwd": served + trained["fwd"], "bwd_x": trained["bwd_x"],
                 "bwd_w": trained["bwd_w"], "cp_fwd": tfno_served + tfno_trained["cp_fwd"],
                 "cp_bwd": tfno_trained["cp_bwd"], "ls_fwd": sfno_served + sfno_trained["ls_fwd"],
-                "ls_bwd_x": sfno_trained["ls_bwd_x"], "ls_bwd_w": sfno_trained["ls_bwd_w"]}
+                "ls_bwd_x": sfno_trained["ls_bwd_x"], "ls_bwd_w": sfno_trained["ls_bwd_w"],
+                "fused_fwd": fused_served + fused_trained["fused_fwd"],
+                "fused_bwd": fused_trained["fused_bwd"]}
     emit("launches_by_path", serve={"fwd": served}, train=trained,
+         fused_serve={"fused_fwd": fused_served}, fused_train=fused_trained,
          tfno_serve={"cp_fwd": tfno_served}, tfno_train=tfno_trained,
          sfno_serve={"ls_fwd": sfno_served}, sfno_train=sfno_trained)
     del swe
     entries = (timing_phase(sc, max_err, launches) + cp_timing_phase(sc, max_err, launches)
-               + ls_timing_phase(sc, max_err, launches))
+               + ls_timing_phase(sc, max_err, launches)
+               + fused_timing_phase(sc, max_err, launches))
     emit("done", seconds=time.perf_counter() - t0)
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,11 +1,15 @@
-"""Mixed-precision Fourier convolution (paper Section 4.2, Fig. 2), staged
-path, for dense, CP-factorised (TFNO, §4.6) and Tucker weights.
+"""Mixed-precision Fourier convolution (paper Section 4.2, Fig. 2), for
+dense, CP-factorised (TFNO, §4.6) and Tucker weights.
 
-The layer computes ``(K v)(x) = iFFT( R · T_K( FFT v ) )(x)``: stabilise
-→ f32 ``rfftn`` → boundary quantisation → per-corner contraction through
-the dense or the CP kernel (Tucker: the memory-greedy einsum path of
-``core.contraction``) → complex64 scatter → ``irfftn`` → ``fft_out``
-storage cast → input dtype.  Each stage resolves its precision through
+A dense layer whose ``fuse_spectral`` resolves on (by default: on a CUDA
+tensor) and which ``kernels.ops.fused_spectral_viable`` admits runs the
+whole pipeline as the fused kernels (``kernels.ops.spectral_conv_fused``);
+every other layer takes the staged path.  The staged layer computes
+``(K v)(x) = iFFT( R · T_K( FFT v ) )(x)``: stabilise → f32 ``rfftn`` →
+boundary quantisation → per-corner contraction through the dense or the
+CP kernel (Tucker: the memory-greedy einsum path of ``core.contraction``)
+→ complex64 scatter → ``irfftn`` → ``fft_out`` storage cast → input
+dtype.  Each stage resolves its precision through
 the rule table at ``{site}/fft_in``, ``{site}/contract`` and
 ``{site}/fft_out``.
 """
@@ -172,13 +176,12 @@ def spectral_conv_apply(
 
     ``params``: dense ``{"w_re", "w_im"}`` (corners, I, O, *modes), or the
     CP or Tucker factors of :func:`init_spectral_weights`.  ``fuse_spectral``:
-    ``None``/``False`` take the staged path; the fused megakernel is not
-    ported yet.
+    tri-state (``kernels.ops.resolve_fuse_spectral``: ``None`` is on for a
+    CUDA tensor, off for a CPU tensor).  Where it resolves on, the layer is
+    dense and ``fused_spectral_viable`` admits its shapes and policy, the
+    whole pipeline runs as the fused kernels; a fused launch that fails
+    raises and is never retried on the staged path.
     """
-    if fuse_spectral:
-        raise NotImplementedError(
-            "fuse_spectral=True: the fused rFFT-contract-irFFT kernel is not "
-            "ported yet (ROADMAP: fused dispatch, kernels 9-10)")
     kind = _kind(params)
     from repro_torch.core.contraction import ComplexPair
     from repro_torch.kernels import ops as kops
@@ -193,6 +196,12 @@ def spectral_conv_apply(
     fft_in = policy.at(f"{site}/fft_in")
     ctr = policy.at(f"{site}/contract")
     fft_out = policy.at(f"{site}/fft_out")
+
+    if kind == "dense" and kops.resolve_fuse_spectral(fuse_spectral, x.device) and \
+            kops.fused_spectral_viable(fft_in, ctr, x.shape[1], _out_channels(params),
+                                       spatial, modes):
+        return kops.spectral_conv_fused(x, params["w_re"], params["w_im"], modes,
+                                        policy=policy, site=site)
 
     # 1. stabiliser before the forward FFT (only active for half spectral)
     x = fft_in.stabilize(x)

@@ -10,16 +10,33 @@ to the site's storage dtype outside the kernels (differentiably, so the
 gradients come back to f32 through the casts) and hands them to
 ``CPContract``.  ``spectral_contract_lshared`` does the same for the
 SFNO's order-shared contraction and ``LSharedContract``.
+``spectral_conv_fused`` runs a dense Fourier layer's whole rFFT ->
+contract -> irFFT pipeline through ``FusedSpectral``, on the weight that
+``gather_corner_weights`` lays out; ``resolve_fuse_spectral`` and
+``fused_spectral_viable`` decide, from the device, shapes and policy
+alone, when ``core.spectral`` takes it.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.precision import FULL, PrecisionPolicy
 
-from .spectral_contract import CPContract, DenseContract, LSharedContract
+from .spectral_contract import (
+    L2_BUDGET,
+    SMEM_LIMIT,
+    CPContract,
+    DenseContract,
+    FusedSpectral,
+    LSharedContract,
+    fused_rows,
+    fused_scratch_bytes,
+    fused_smem_bytes,
+    fused_supported,
+)
 
 
 def _site_of(policy, site: str):
@@ -148,3 +165,115 @@ def spectral_contract_lshared(
     half = policy.spectral_dtype if policy.spectral_is_half else torch.float32
     out_re, out_im = LSharedContract.apply(*_pair(x, half), *_pair(w, half))
     return torch.complex(out_re.float(), out_im.float())
+
+
+# -- the fused spectral layer ------------------------------------------------------
+
+def resolve_fuse_spectral(flag: Optional[bool], device) -> bool:
+    """Resolve the tri-state ``fuse_spectral`` setting.  An explicit
+    True/False wins; ``None`` is on for a CUDA tensor and off for a CPU
+    tensor, as the reference's auto is on where its kernels compile (the
+    TPU) and off on the CPU.  The reference's ``REPRO_FUSE_SPECTRAL``
+    switch has no counterpart: ``FNOConfig.fuse_spectral`` carries the
+    choice."""
+    if flag is not None:
+        return bool(flag)
+    return torch.device(device).type == "cuda"
+
+
+def fused_spectral_viable(fft_in, ctr, I: int, O: int, spatial: Sequence[int],
+                          modes: Sequence[int]) -> bool:
+    """Can this dense layer run the fused kernels?  The reference's vetoes
+    (``repro.kernels.ops.fused_spectral_viable``) with the H100's budgets:
+    the shape must suit the truncated-DFT factor layout on at most 3 axes,
+    the floor tile's truncated spectra (``fused_scratch_bytes(1, ...)``)
+    must fit in the L2 and a slab's partial transform in a block's shared
+    memory, and ``fft_in`` and ``contract`` must quantise to one format
+    (and one compute dtype when they quantise).  Decided from shapes and
+    policy alone, before any launch; the batch does not enter (the kernels
+    tile it)."""
+    spatial, modes = tuple(spatial), tuple(modes)
+    if not fused_supported(spatial, modes) or len(modes) > 3:
+        return False
+    if fused_scratch_bytes(1, I, O, spatial, modes) > L2_BUDGET:
+        return False
+    if fused_smem_bytes(spatial, modes) > SMEM_LIMIT:
+        return False
+    if fft_in.quantize_fmt != ctr.quantize_fmt:
+        return False
+    if fft_in.quantize_fmt is not None and fft_in.compute != ctr.compute:
+        return False
+    return True
+
+
+def _fused_qspec(ctr):
+    """``(cast_to, sim_fmt)`` of a contract-site rule: ``half`` rounds the
+    spectrum and the weight onto the compute dtype; a simulated fp8 format
+    rounds the spectrum onto the fp8 grid, then both onto the compute
+    dtype, as the staged ``fft_in.quantize`` then half contraction do."""
+    fmt = ctr.quantize_fmt
+    if fmt is None:
+        return None, None
+    return ctr.compute, None if fmt == "half" else fmt
+
+
+def gather_corner_weights(w_re: torch.Tensor, w_im: torch.Tensor, modes: Sequence[int]):
+    """Fold per-corner dense weights into the fused kernels' layout.
+
+    ``w_re``/``w_im``: (corners, I, O, *modes).  The fused forward DFT
+    keeps, per truncated axis, the low block ``[0, m)`` then the high block
+    ``[S-m, S)``, so corner ``c``'s weight lands at axis-``k`` rows
+    ``[m, 2m)`` when bit ``k`` of ``c`` is set and at ``[0, m)`` otherwise
+    (the last axis: always ``[0, m)``).  Returns ``(wgr, wgi)`` of shape
+    (I, O, Mh), flattened row-major.  A permutation of the corners, so
+    gradients scatter back to them exactly."""
+    nd = len(modes)
+    nc, I, O = w_re.shape[:3]
+    if nc != 2 ** (nd - 1) or tuple(w_re.shape[3:]) != tuple(modes):
+        raise ValueError(f"gather_corner_weights: weight {tuple(w_re.shape)}, expected "
+                         f"({2 ** (nd - 1)} corners, I, O, *{tuple(modes)})")
+    Mh = math.prod(fused_rows(None, modes))
+    # the corner index, bit k for axis k, as (bit_{nd-2}, ..., bit_0) row-major
+    # axes; each bit goes in front of its axis' modes
+    perm = [nd - 1, nd]
+    for k in range(nd - 1):
+        perm += [nd - 2 - k, nd + 1 + k]
+    perm.append(2 * nd)
+
+    def gather(w):
+        w = w.reshape(*([2] * (nd - 1)), I, O, *modes).permute(*perm)
+        return w.reshape(I, O, Mh)
+
+    return gather(w_re), gather(w_im)
+
+
+def spectral_conv_fused(x: torch.Tensor, w_re: torch.Tensor, w_im: torch.Tensor,
+                        modes: Sequence[int], *, policy=FULL,
+                        site: str = "model/spectral") -> torch.Tensor:
+    """The dense Fourier convolution as one fused launch per batch tile.
+
+    Semantically ``spectral_conv_apply`` for a dense layer: the stabiliser
+    (outside the kernels, on the input the caller owns), the ``fft_in``
+    quantisation of the truncated spectrum, the per-corner contraction as
+    row blocks of the gathered weight, the inverse transform.  The kernels'
+    output is f32 with no store rounding; it is cast at ``fft_out`` when
+    that site is half, then to ``x``'s dtype.  ``x``: real (B, I,
+    *spatial); ``w_re``/``w_im``: (corners, I, O, *modes); ``policy``: a
+    PrecisionPolicy, resolved here at ``{site}/fft_in|contract|fft_out``.
+    """
+    if not isinstance(policy, PrecisionPolicy):
+        raise ValueError("spectral_conv_fused resolves fft_in/contract/fft_out sites "
+                         "itself: pass the PrecisionPolicy, not a SitePrecision")
+    fft_in = policy.at(f"{site}/fft_in")
+    ctr = policy.at(f"{site}/contract")
+    fft_out = policy.at(f"{site}/fft_out")
+    modes = tuple(int(m) for m in modes)
+    in_dtype = x.dtype
+    x = fft_in.stabilize(x)
+    wgr, wgi = gather_corner_weights(w_re, w_im, modes)
+    cast_to, sim_fmt = _fused_qspec(ctr)
+    y = FusedSpectral.apply(x.float().contiguous(), wgr.contiguous(), wgi.contiguous(),
+                            modes, cast_to, sim_fmt)
+    if fft_out.spectral_is_half:
+        y = y.to(fft_out.compute_dtype)
+    return y.to(in_dtype)

@@ -35,13 +35,26 @@ Order-shared (SFNO), the weight shared over the order m:
 with every operand at one dtype (f32, bf16 or fp16), f32 sums, and every
 result stored at that dtype, as ``_lshared_op_bwd`` stores them.
 
+Fused (the dense FNO layer's whole rFFT -> contract -> irFFT pipeline):
+
+    x̂ = q(F x)    ŷ[b,o,k] = Σ_i x̂[b,i,k] · c(w[i,o,k])    y = G ŷ   (fused_fwd)
+
+with F the truncated forward DFT (per axis, the retained rows of
+``fused_factors``), q the ``fft_in`` quantisation (the simulated fp8 grid,
+then the bf16/fp16 round trip), c the storage rounding of the gathered
+weight and G the inverse DFT with the hermitian real-output fold on the
+last axis; the output is f32 with no store rounding.  ``fused_bwd``
+recomputes x̂, rounds ĝ = Gᴴ g onto the storage grid, and returns
+dx = Re Fᴴ(ĝ · conj(w)) and dw = Σ_b conj(x̂) · ĝ at f32.
+
 The kernels replace the TPU kernels ``_dense_fwd_kernel``,
 ``_dense_bwd_x_kernel``, ``_dense_bwd_w_kernel``, ``_cp_fwd_kernel``,
-``_cp_bwd_kernel``, ``_lshared_fwd_kernel``, ``_lshared_bwd_x_kernel`` and
-``_lshared_bwd_w_kernel`` of ``repro.kernels.spectral_contract``; their
-sources (``csrc/spectral_contract.cu``, ``csrc/spectral_contract_bwd.cu``,
-``csrc/spectral_contract_cp.cu``, ``csrc/spectral_contract_lshared.cu``)
-state their bounds and designs.
+``_cp_bwd_kernel``, ``_lshared_fwd_kernel``, ``_lshared_bwd_x_kernel``,
+``_lshared_bwd_w_kernel``, ``_fused_fwd_kernel`` and ``_fused_bwd_kernel``
+of ``repro.kernels.spectral_contract``; their sources
+(``csrc/spectral_contract.cu``, ``csrc/spectral_contract_bwd.cu``,
+``csrc/spectral_contract_cp.cu``, ``csrc/spectral_contract_lshared.cu``,
+``csrc/spectral_fused.cu``) state their bounds and designs.
 
 Dispatch follows the tensors' device: CPU tensors take the plain
 versions, CUDA tensors launch the kernels or raise.  Each source is
@@ -49,19 +62,21 @@ compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/repro_torch_kernels/`` at the repository root, and loaded with
 ``ctypes``.  ``launches``, ``launches_bwd_x``, ``launches_bwd_w``,
 ``launches_cp_fwd``, ``launches_cp_bwd``, ``launches_ls_fwd``,
-``launches_ls_bwd_x`` and ``launches_ls_bwd_w`` count the kernels'
-launches.
+``launches_ls_bwd_x``, ``launches_ls_bwd_w``, ``launches_fused_fwd`` and
+``launches_fused_bwd`` count the kernels' launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -74,13 +89,16 @@ launches_cp_bwd = 0
 launches_ls_fwd = 0
 launches_ls_bwd_x = 0
 launches_ls_bwd_w = 0
+launches_fused_fwd = 0
+launches_fused_bwd = 0
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "spectral_contract.cu"
 SOURCE_BWD = CSRC / "spectral_contract_bwd.cu"
 SOURCE_CP = CSRC / "spectral_contract_cp.cu"
 SOURCE_LS = CSRC / "spectral_contract_lshared.cu"
-SOURCES = (SOURCE, SOURCE_BWD, SOURCE_CP, SOURCE_LS)
+SOURCE_FUSED = CSRC / "spectral_fused.cu"
+SOURCES = (SOURCE, SOURCE_BWD, SOURCE_CP, SOURCE_LS, SOURCE_FUSED)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -722,6 +740,404 @@ def _launch_ls_bwd_w(xr, xi, gr, gi):
     return dwr, dwi
 
 
+# -- fused rFFT -> contract -> irFFT (dense FNO layer) ------------------------------
+
+#: the H100's L2 cache, which holds the fused kernels' truncated spectra
+#: between their stages: the counterpart of the TPU kernels' VMEM budget
+L2_BUDGET = 50 * 2 ** 20
+#: codes of the C interface for the simulated fp8 grids
+_SIM = {None: 0, "fp8_e4m3": 1, "fp8_e5m2": 2}
+
+
+def fused_rows(_spatial, modes) -> Tuple[int, ...]:
+    """Retained spectrum rows per axis: 2m for truncated full-FFT axes
+    (low and high corner blocks), m for the last (rfft) axis; the grid
+    does not enter (the reference's signature)."""
+    return tuple(2 * int(m) for m in modes[:-1]) + (int(modes[-1]),)
+
+
+def fused_supported(spatial, modes) -> bool:
+    """Whether the truncated-DFT factorisation is exact for this shape:
+    corner blocks must not overlap (2m_k <= S_k) and the last axis must
+    retain no more than the rfft spectrum holds."""
+    if len(spatial) != len(modes) or not modes:
+        return False
+    if any(2 * m > s for m, s in zip(modes[:-1], spatial[:-1], strict=True)):
+        return False
+    return modes[-1] <= spatial[-1] // 2 + 1
+
+
+def fused_factors(spatial, modes):
+    """The DFT and inverse-DFT factor matrices (numpy, float64), the
+    reference's: per axis k the forward pair (re, im) of
+    ``F_k[mu, t] = exp(-2πi f_mu t / S_k)`` over the retained rows, then per
+    axis the inverse pair, ``G_k[mu, t] = exp(+2πi f_mu t / S_k) / S_k`` for
+    full-FFT axes and, for the last axis, the real-output pair
+    ``C_re = w_mu cos(2π mu t / S) / S``, ``C_im = -w_mu sin(...) / S`` with
+    hermitian weights w (1 at DC and at an even-S Nyquist row, 2
+    elsewhere), so ``y = yh_re @ C_re + yh_im @ C_im`` is ``irfftn`` of the
+    zero-scattered truncated spectrum."""
+    ndim = len(modes)
+    fwd, inv = [], []
+    for k in range(ndim):
+        S, m = int(spatial[k]), int(modes[k])
+        last = k == ndim - 1
+        freqs = np.arange(m) if last else np.concatenate([np.arange(m), np.arange(S - m, S)])
+        ang = 2.0 * np.pi * np.outer(freqs, np.arange(S)) / S
+        fwd.append((np.cos(ang), -np.sin(ang)))
+        if not last:
+            inv.append((np.cos(ang) / S, np.sin(ang) / S))
+        else:
+            w = np.full(m, 2.0)
+            w[0] = 1.0
+            if S % 2 == 0 and m - 1 == S // 2:
+                w[m - 1] = 1.0  # the Nyquist row is its own conjugate
+            inv.append((w[:, None] * np.cos(ang) / S, -w[:, None] * np.sin(ang) / S))
+    return tuple(x for pair in fwd + inv for x in pair)
+
+
+@functools.cache
+def _factors(spatial, modes, dtype, device):
+    """``fused_factors`` at ``dtype`` on ``device``, cast from float64 as
+    the reference casts them: ``(fwd, inv)``, lists of (re, im) pairs."""
+    f = [torch.from_numpy(a).to(dtype).to(device) for a in fused_factors(spatial, modes)]
+    nd = len(modes)
+    return ([(f[2 * k], f[2 * k + 1]) for k in range(nd)],
+            [(f[2 * nd + 2 * k], f[2 * nd + 2 * k + 1]) for k in range(nd)])
+
+
+def _cplx_apply(ar, ai, fr, fi, axis, f_axis, conj=False):
+    """Apply one split-real complex factor along ``axis``: contract it with
+    axis ``f_axis`` of the factor, the factor's other axis taking its place.
+    ``ai=None`` is a real operand; ``conj`` multiplies by the conjugate."""
+
+    def td(a, f):
+        return torch.movedim(torch.tensordot(a, f, dims=([axis], [f_axis])), -1, axis)
+
+    if ai is None:
+        br, bi = td(ar, fr), td(ar, fi)
+        if conj:
+            bi = -bi
+    elif conj:
+        br = td(ar, fr) + td(ai, fi)
+        bi = td(ai, fr) - td(ar, fi)
+    else:
+        br = td(ar, fr) - td(ai, fi)
+        bi = td(ar, fi) + td(ai, fr)
+    return br, bi
+
+
+def _fused_spectrum(x, fwd, cast_to, sim_fmt):
+    """x -> the quantised, mode-flattened split-real spectrum: the
+    simulated fp8 grid (on f32 values), then the ``cast_to`` round trip."""
+    from repro_torch.core.precision import simulate_fp8
+
+    acc = _acc(x.dtype)
+    ar, ai = x.to(acc), None
+    for k, (fr, fi) in enumerate(fwd):
+        ar, ai = _cplx_apply(ar, ai, fr, fi, 2 + k, 1)
+    B, I = ar.shape[:2]
+    xh = (ar.reshape(B, I, -1), ai.reshape(B, I, -1))
+    if sim_fmt is not None:
+        xh = tuple(simulate_fp8(t.float(), sim_fmt).to(acc) for t in xh)
+    return (*_round(xh, cast_to, acc), tuple(ar.shape[2:]))
+
+
+def spectral_fused_plain(x, wgr, wgi, modes, *, cast_to=None, sim_fmt=None):
+    """``fused_fwd``'s function in plain PyTorch, the reference's
+    ``_fused_fwd_kernel`` in tensordots: the truncated DFT axis by axis
+    (axis 0 first), the ``fft_in`` quantisation, the contraction against
+    the gathered weight rounded onto ``cast_to``, the inverse DFT and the
+    hermitian fold.  Sums at f32 (f64 in a gradcheck).  ``x`` (B, I,
+    *spatial), ``wgr``/``wgi`` (I, O, Mh); returns y (B, O, *spatial) at
+    ``x``'s dtype."""
+    nd = len(modes)
+    acc = _acc(x.dtype)
+    fwd, inv = _factors(tuple(x.shape[2:]), tuple(modes), acc, x.device)
+    xhr, xhi, mode_shape = _fused_spectrum(x, fwd, cast_to, sim_fmt)
+    wr, wi = _round((wgr, wgi), cast_to, acc)
+
+    def bmm(a, b):
+        return torch.einsum("bim,iom->bom", a, b)
+
+    yhr, yhi = bmm(xhr, wr) - bmm(xhi, wi), bmm(xhr, wi) + bmm(xhi, wr)
+    B, O = yhr.shape[:2]
+    br, bi = yhr.reshape(B, O, *mode_shape), yhi.reshape(B, O, *mode_shape)
+    for k in range(nd - 1):
+        br, bi = _cplx_apply(br, bi, *inv[k], 2 + k, 0)
+    (cr, ci), ax = inv[nd - 1], 1 + nd
+    y = (torch.tensordot(br, cr, dims=([ax], [0]))
+         + torch.tensordot(bi, ci, dims=([ax], [0])))
+    return torch.movedim(y, -1, ax).to(x.dtype)
+
+
+def spectral_fused_bwd_plain(x, wgr, wgi, g, modes, *, cast_to=None, sim_fmt=None):
+    """``fused_bwd``'s function in plain PyTorch, the reference's
+    ``_fused_bwd_kernel``: recompute the quantised x̂, take the cotangent
+    through the adjoint of the inverse transform and round ĝ onto
+    ``cast_to``, then ``dx̂ = Σ_o ĝ·conj(w)``, ``dw = Σ_b conj(x̂)·ĝ`` and
+    ``dx = Re Fᴴ dx̂``.  Returns ``(dx, dwr, dwi)`` at the operands' dtype
+    (f32; f64 in a gradcheck)."""
+    nd = len(modes)
+    acc = _acc(x.dtype)
+    fwd, inv = _factors(tuple(x.shape[2:]), tuple(modes), acc, x.device)
+    xhr, xhi, mode_shape = _fused_spectrum(x, fwd, cast_to, sim_fmt)
+    wr, wi = _round((wgr, wgi), cast_to, acc)
+    g = g.to(acc)
+    (cr, ci), ax = inv[nd - 1], 1 + nd
+    ghr = torch.movedim(torch.tensordot(g, cr, dims=([ax], [1])), -1, ax)
+    ghi = torch.movedim(torch.tensordot(g, ci, dims=([ax], [1])), -1, ax)
+    for k in reversed(range(nd - 1)):
+        ghr, ghi = _cplx_apply(ghr, ghi, *inv[k], 2 + k, 1, conj=True)
+    B, O = ghr.shape[:2]
+    ghr, ghi = _round((ghr.reshape(B, O, -1), ghi.reshape(B, O, -1)), cast_to, acc)
+
+    def e(spec, a, b):
+        return torch.einsum(spec, a, b)
+
+    dxhr = e("bom,iom->bim", ghr, wr) + e("bom,iom->bim", ghi, wi)
+    dxhi = e("bom,iom->bim", ghi, wr) - e("bom,iom->bim", ghr, wi)
+    dwr = e("bim,bom->iom", xhr, ghr) + e("bim,bom->iom", xhi, ghi)
+    dwi = e("bim,bom->iom", xhr, ghi) - e("bim,bom->iom", xhi, ghr)
+    I = dxhr.shape[1]
+    dar, dai = dxhr.reshape(B, I, *mode_shape), dxhi.reshape(B, I, *mode_shape)
+    for k in reversed(range(nd)):
+        dar, dai = _cplx_apply(dar, dai, *fwd[k], 2 + k, 0, conj=True)
+    return dar.to(x.dtype), dwr.to(wgr.dtype), dwi.to(wgi.dtype)
+
+
+def fused_magnitude(x, wgr, wgi, modes, g=None):
+    """The composed magnitude envelope of the fused pipeline, in f64: |x|
+    through the absolute forward factors, the absolute gathered weight and
+    the absolute inverse factors (``"out"``, what every rounding stage of
+    either the fused or the staged path lives under, the reference's
+    ``fused_mag``).  Given the cotangent g, also ``"dx"`` (|g| through the
+    adjoints back to the input) and ``"dw"`` (Σ_b of the two spectra's
+    envelopes)."""
+    nd = len(modes)
+    spatial = tuple(x.shape[2:])
+    fwd, inv = _factors(spatial, tuple(modes), torch.float64, x.device)
+    rows = fused_rows(spatial, modes)
+    fwd = [torch.hypot(fr, fi) for fr, fi in fwd]
+    lead = [torch.hypot(fr, fi) for fr, fi in inv[:-1]]
+    last = inv[-1][0].abs() + inv[-1][1].abs()
+
+    def apply(a, f, axis, f_axis):
+        return torch.movedim(torch.tensordot(a, f, dims=([axis], [f_axis])), -1, axis)
+
+    B, I = x.shape[:2]
+    ax = x.double().abs()
+    for k in range(nd):
+        ax = apply(ax, fwd[k], 2 + k, 1)
+    ax = ax.reshape(B, I, -1)
+    aw = torch.hypot(wgr.double(), wgi.double())
+    ay = torch.einsum("bim,iom->bom", ax, aw)
+    O = ay.shape[1]
+    ay = ay.reshape(B, O, *rows)
+    for k in range(nd - 1):
+        ay = apply(ay, lead[k], 2 + k, 0)
+    out = {"out": apply(ay, last, 1 + nd, 0)}
+    if g is not None:
+        ag = apply(g.double().abs(), last, 1 + nd, 1)
+        for k in reversed(range(nd - 1)):
+            ag = apply(ag, lead[k], 2 + k, 1)
+        ag = ag.reshape(B, O, -1)
+        adx = torch.einsum("bom,iom->bim", ag, aw).reshape(B, I, *rows)
+        for k in reversed(range(nd)):
+            adx = apply(adx, fwd[k], 2 + k, 0)
+        out.update(dx=adx, dw=torch.einsum("bim,bom->iom", ax, ag))
+    return out
+
+
+def fused_smem_bytes(spatial, modes) -> int:
+    """Shared memory one block of the fused kernels holds for these axes:
+    the slab after its last axis (S0·R1 complex f32 for 2 axes; S0·S1·R2
+    and S0·R1·R2 for 3), mirrored by ``spectral_fused_smem`` in the source."""
+    S, R = tuple(int(s) for s in spatial), fused_rows(spatial, modes)
+    if len(S) == 2:
+        return 8 * S[0] * R[1]
+    if len(S) == 3:
+        return 8 * (S[0] * S[1] * R[2] + S[0] * R[1] * R[2])
+    return 0
+
+
+def fused_scratch_bytes(block_b: int, I: int, O: int, spatial, modes) -> int:
+    """The bytes the fused kernels keep between their stages for a batch
+    tile of ``block_b`` rows: the truncated spectra, complex f32 of Mh
+    modes each, x̂, ĝ and dx̂ in the backward.  The forward's x̂ and ŷ fill
+    the first ``I + O`` rows of the same scratch, so one size serves both
+    directions."""
+    return 8 * block_b * (2 * I + O) * math.prod(fused_rows(spatial, modes))
+
+
+def pick_block_b(B: int, I: int, O: int, spatial, modes) -> int:
+    """The largest power-of-two batch tile, at most 8 (the kernels keep a
+    mode's rows of a tile in registers), whose fused scratch fits in half
+    the L2 (1 is the last resort: callers deciding fused against staged
+    check ``fused_scratch_bytes(1, ...)`` themselves)."""
+    for bb in (8, 4, 2, 1):
+        if bb <= max(B, 1) and fused_scratch_bytes(bb, I, O, spatial, modes) <= L2_BUDGET // 2:
+            return bb
+    return 1
+
+
+@functools.cache
+def _fused_pack(spatial, modes, device) -> torch.Tensor:
+    """The kernels' factor pack on ``device``: per axis eight f32 matrices,
+    each cast from ``fused_factors`` as the reference casts them and then
+    transposed or negated (exact): the forward DFT and its adjoint, the
+    inverse and its adjoint (the layout ``spectral_fused.cu`` states)."""
+    nd = len(modes)
+    f = [torch.from_numpy(a).float() for a in fused_factors(spatial, modes)]
+    parts = []
+    for k in range(nd):
+        fr, fi = f[2 * k], f[2 * k + 1]
+        gr, gi = f[2 * nd + 2 * k], f[2 * nd + 2 * k + 1]
+        last = k == nd - 1
+        parts += [fr.T, fi.T, gr, gi, gr.T, gi.T if last else -gi.T, fr, fi if last else -fi]
+    return torch.cat([p.contiguous().reshape(-1) for p in parts]).to(device)
+
+
+def _check_fused(x, wgr, wgi, modes, cast_to, sim_fmt) -> torch.device:
+    """The checks every fused entry makes; returns the operands' device."""
+    ops = (x, wgr, wgi)
+    devices = {t.device for t in ops}
+    dtypes = {t.dtype for t in ops}
+    on_cpu = devices == {torch.device("cpu")}
+    allowed = (torch.float32, torch.float64) if on_cpu else (torch.float32,)
+    if len(dtypes) != 1 or x.dtype not in allowed:
+        raise TypeError(
+            f"spectral_fused takes float32 operands of one dtype (float64 too on the "
+            f"CPU), got {[t.dtype for t in ops]}")
+    spatial = tuple(x.shape[2:])
+    if x.ndim != 2 + len(modes) or not fused_supported(spatial, modes):
+        raise ValueError(
+            f"spectral_fused: x {tuple(x.shape)} cannot retain modes {tuple(modes)} "
+            f"(need (B, I, *spatial), 2m <= S per truncated axis and m <= S//2+1 on "
+            f"the last)")
+    Mh = math.prod(fused_rows(spatial, modes))
+    if wgr.ndim != 3 or wgr.shape != wgi.shape or wgr.shape[0] != x.shape[1] \
+            or wgr.shape[2] != Mh:
+        raise ValueError(
+            f"spectral_fused: weight {tuple(wgr.shape)}/{tuple(wgi.shape)}, expected "
+            f"({x.shape[1]}, O, {Mh}) corner-gathered rows for modes {tuple(modes)}")
+    if cast_to not in (None, torch.bfloat16, torch.float16):
+        raise TypeError(f"cast_to must be None, bfloat16 or float16, got {cast_to}")
+    if sim_fmt not in _SIM:
+        raise ValueError(f"sim_fmt must be one of {list(_SIM)}, got {sim_fmt!r}")
+    if len(devices) != 1:
+        raise ValueError(f"spectral_fused: operands on {devices}")
+    device = x.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"spectral_fused: no kernel for {device}")
+    if device.type == "cuda":
+        if not all(t.is_contiguous() for t in ops):
+            raise ValueError("spectral_fused: operands must be contiguous")
+        if len(modes) > 3:
+            raise ValueError(f"spectral_fused: the kernels take 1 to 3 spatial axes, "
+                             f"not {len(modes)}")
+    return device
+
+
+class FusedSpectral(torch.autograd.Function):
+    """The fused spectral layer with the reference's custom VJP
+    (``_fused_op_bwd``) on both devices.
+
+    Inputs: ``x`` (B, I, *spatial) and the gathered weight ``wgr``/``wgi``
+    (I, O, Mh), f32 (f64 too on the CPU); ``modes``, ``cast_to`` and
+    ``sim_fmt`` are constants.  Forward: the plain version on the CPU,
+    ``fused_fwd`` on CUDA, y at f32.  Backward: recompute x̂, round ĝ onto
+    ``cast_to``, dx and dw at f32: the plain version on the CPU,
+    ``fused_bwd`` on CUDA.  No gradient passes through a rounding."""
+
+    @staticmethod
+    def forward(ctx, x, wgr, wgi, modes, cast_to=None, sim_fmt=None):
+        modes = tuple(int(m) for m in modes)
+        device = _check_fused(x, wgr, wgi, modes, cast_to, sim_fmt)
+        ctx.cfg = (modes, cast_to, sim_fmt)
+        ctx.save_for_backward(x, wgr, wgi)
+        if device.type == "cpu":
+            return spectral_fused_plain(x, wgr, wgi, modes, cast_to=cast_to, sim_fmt=sim_fmt)
+        return _launch_fused_fwd(x, wgr, wgi, modes, cast_to, sim_fmt)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, wgr, wgi = ctx.saved_tensors
+        modes, cast_to, sim_fmt = ctx.cfg
+        if x.device.type == "cpu":
+            dx, dwr, dwi = spectral_fused_bwd_plain(x, wgr, wgi, g, modes, cast_to=cast_to,
+                                                    sim_fmt=sim_fmt)
+        else:
+            dx, dwr, dwi = _launch_fused_bwd(x, wgr, wgi, g.float().contiguous(), modes,
+                                             cast_to, sim_fmt)
+        return dx, dwr, dwi, None, None, None
+
+
+def _fused_args(x, modes):
+    """The C interface's axes: ``(nd, S0, S1, S2, m0, m1, m2)``, unused
+    axes 1."""
+    nd = len(modes)
+    pad = [1] * (3 - nd)
+    return (nd, *(int(s) for s in x.shape[2:]), *pad, *(int(m) for m in modes), *pad)
+
+
+def _fused_setup(x, modes, I, O, bb):
+    """The library, its axes, the factor pack and the scratch of a launch
+    (``fused_scratch_bytes``).  A shape whose slab does not fit a block's
+    shared memory is refused by the launcher."""
+    scratch = torch.empty(fused_scratch_bytes(bb, I, O, x.shape[2:], modes) // 4,
+                          dtype=torch.float32, device=x.device)
+    return (_library_fused(), _fused_args(x, modes),
+            _fused_pack(tuple(x.shape[2:]), tuple(modes), x.device), scratch)
+
+
+def _launch_fused_fwd(x, wgr, wgi, modes, cast_to, sim_fmt):
+    """``fused_fwd``, one launch per batch tile of ``pick_block_b`` rows."""
+    global launches_fused_fwd
+    B, I, *spatial = x.shape
+    O = wgr.shape[1]
+    y = torch.empty((B, O, *spatial), dtype=torch.float32, device=x.device)
+    if y.numel() == 0 or x.numel() == 0:
+        return y.zero_()
+    bb = pick_block_b(B, I, O, spatial, modes)
+    lib, axes, fac, scratch = _fused_setup(x, modes, I, O, bb)
+    for b0 in range(0, B, bb):
+        n = min(bb, B - b0)
+        _call(lib.spectral_fused_fwd, "spectral_fused_fwd", x.device,
+              x[b0:b0 + n].data_ptr(), wgr.data_ptr(), wgi.data_ptr(), fac.data_ptr(),
+              y[b0:b0 + n].data_ptr(), scratch.data_ptr(), n, I, O, *axes,
+              _FMT[cast_to or torch.float32], _SIM[sim_fmt])
+        launches_fused_fwd += 1
+    return y
+
+
+def _launch_fused_bwd(x, wgr, wgi, g, modes, cast_to, sim_fmt):
+    """``fused_bwd``, one launch per batch tile; each tile after the first
+    adds its dw to the earlier tiles' sum, in tile order."""
+    global launches_fused_bwd
+    B, I, *spatial = x.shape
+    O = wgr.shape[1]
+    dx = torch.empty_like(x)
+    dwr, dwi = torch.empty_like(wgr), torch.empty_like(wgi)
+    if x.numel() == 0 or g.numel() == 0 or dwr.numel() == 0:
+        return dx.zero_(), dwr.zero_(), dwi.zero_()
+    if g.shape != (B, O, *spatial):
+        raise ValueError(f"spectral_fused backward: cotangent {tuple(g.shape)}, "
+                         f"expected {(B, O, *spatial)}")
+    bb = pick_block_b(B, I, O, spatial, modes)
+    lib, axes, fac, scratch = _fused_setup(x, modes, I, O, bb)
+    for b0 in range(0, B, bb):
+        n = min(bb, B - b0)
+        _call(lib.spectral_fused_bwd, "spectral_fused_bwd", x.device,
+              x[b0:b0 + n].data_ptr(), wgr.data_ptr(), wgi.data_ptr(), fac.data_ptr(),
+              g[b0:b0 + n].data_ptr(), dx[b0:b0 + n].data_ptr(), dwr.data_ptr(),
+              dwi.data_ptr(), scratch.data_ptr(), n, I, O, *axes,
+              _FMT[cast_to or torch.float32], _SIM[sim_fmt], int(b0 > 0))
+        launches_fused_bwd += 1
+    return dx, dwr, dwi
+
+
 def build(source: Path = SOURCE) -> Tuple[Path, str]:
     """Compile ``source`` unless its library is already built.  Returns
     the library's path and the compiler's report (``-Xptxas -v``:
@@ -793,4 +1209,12 @@ def _library_ls() -> ctypes.CDLL:
     lib.spectral_contract_ls_smem.restype = ctypes.c_longlong
     lib.spectral_contract_ls_workspace.argtypes = [ctypes.c_int] * 3
     lib.spectral_contract_ls_workspace.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.cache
+def _library_fused() -> ctypes.CDLL:
+    lib = _bind(SOURCE_FUSED, spectral_fused_fwd=(6, 12), spectral_fused_bwd=(9, 13))
+    lib.spectral_fused_smem.argtypes = [ctypes.c_int] * 7
+    lib.spectral_fused_smem.restype = ctypes.c_longlong
     return lib

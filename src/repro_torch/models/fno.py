@@ -47,8 +47,9 @@ class FNOConfig:
     #: "dense" | "cp" | "tucker" (TFNO = cp/tucker)
     factorization: str = "dense"
     rank: float = 0.5
-    #: None/False take the staged spectral path; True raises until the
-    #: fused rFFT-contract-irFFT kernel is ported
+    #: the fused rFFT-contract-irFFT kernels for dense layers: None is on
+    #: for CUDA tensors and off for CPU tensors, True/False force it; a
+    #: layer they cannot take (shape, budgets, policy) runs staged
     fuse_spectral: Optional[bool] = None
     positional_embedding: bool = True  # append normalised grid coords
 

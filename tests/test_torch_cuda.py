@@ -1,9 +1,11 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA spectral
 contraction kernels (the dense forward and its two backward kernels, the
 CP kernels ``cp_fwd`` and ``cp_bwd``, the order-shared kernels ``ls_fwd``,
-``ls_bwd_x`` and ``ls_bwd_w``) against their plain PyTorch versions on
-the card, the wrappers' checks, the autograd Functions on CUDA against the
-CPU, the FNO, TFNO and SFNO serving and training paths on CUDA against the
+``ls_bwd_x`` and ``ls_bwd_w``, the fused layer's ``fused_fwd`` and
+``fused_bwd``) against their plain PyTorch versions on the card, the
+wrappers' checks, the autograd Functions on CUDA against the CPU, the FNO
+(staged, pinned with ``fuse_spectral=False``, and fused, its default on
+the card), TFNO and SFNO serving and training paths on CUDA against the
 CPU, the SHT's synthesis on CUDA against the CPU, and the Navier-Stokes
 and shallow-water solvers on CUDA against the CPU.
 
@@ -13,6 +15,8 @@ present.  On a machine with an NVIDIA H100:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -186,20 +190,25 @@ def test_spectral_contract_op_cuda_matches_cpu(cuda, policy_name):
 def test_spectral_conv_cuda_matches_cpu(cuda, spatial, modes, policy_name):
     """The whole staged spectral layer, FFTs included, agrees across
     devices: cuFFT must invert the contracted (non-Hermitian) spectrum as
-    the CPU does."""
+    the CPU does.  Pinned to the staged path on both devices (a CUDA
+    tensor would take the fused one by default)."""
     from repro_torch.core.spectral import init_spectral_weights, spectral_conv_apply
 
     policy = get_policy(policy_name)
     g = torch.Generator().manual_seed(7)
     x = torch.randn(2, 8, *spatial, generator=g)
     params = init_spectral_weights(8, 8, modes, generator=g)
-    want = spectral_conv_apply(params, x, modes, policy).numpy()
+    before = (sc.launches, sc.launches_fused_fwd)
+    want = spectral_conv_apply(params, x, modes, policy, fuse_spectral=False).numpy()
     got = spectral_conv_apply({k: v.to(cuda) for k, v in params.items()},
-                              x.to(cuda), modes, policy).cpu().numpy()
+                              x.to(cuda), modes, policy, fuse_spectral=False).cpu().numpy()
+    assert (sc.launches - before[0], sc.launches_fused_fwd - before[1]) == \
+        (2 ** (len(modes) - 1), 0)
     if policy_name == "full":
         assert _rel_l2(got, want) <= 1e-5
     else:
-        full = spectral_conv_apply(params, x, modes, get_policy("full")).numpy()
+        full = spectral_conv_apply(params, x, modes, get_policy("full"),
+                                   fuse_spectral=False).numpy()
         assert _rel_l2(got, want) <= 0.25 * _rel_l2(want, full)
 
 
@@ -208,26 +217,32 @@ def _fields(n, count, seed):
     return [rng.randn(1, n, n).astype(np.float32) for _ in range(count)]
 
 
+#: the smoke FNO pinned to the staged path, whose dense kernels these tests
+#: hold (on a CUDA tensor the default takes the fused kernels)
+STAGED_SMOKE = dataclasses.replace(FNO_DARCY_SMOKE, fuse_spectral=False)
+
+
 @pytest.mark.parametrize("policy_name", ["full", "mixed_fno_bf16"])
 def test_engine_launches_kernel_per_corner_and_layer(cuda, policy_name):
-    cfg = FNO_DARCY_SMOKE
+    cfg = STAGED_SMOKE
     net = init_fno(torch.Generator().manual_seed(1), cfg, device=cuda)
     engine = OperatorEngine(net, policy=get_policy(policy_name), max_batch=4,
                             device=cuda)
     for i, x in enumerate(_fields(16, 5, 0) + _fields(24, 2, 1)):
         engine.submit(FieldRequest(uid=i, x=x))
-    sc.launches = 0
+    sc.launches = sc.launches_fused_fwd = 0
     done, _ = engine.drain()
     torch.cuda.synchronize()
     corners = 2 ** (cfg.ndim - 1)
     assert engine.stats()["batches"] == 3
     assert sc.launches == 3 * cfg.n_layers * corners
+    assert sc.launches_fused_fwd == 0
     assert all(r.status == "done" and np.isfinite(r.y).all() for r in done)
 
 
 @pytest.mark.parametrize("policy_name", ["full", "mixed_fno_bf16"])
 def test_engine_batched_matches_solo_bit_identically(cuda, policy_name):
-    cfg = FNO_DARCY_SMOKE
+    cfg = STAGED_SMOKE
     policy = get_policy(policy_name)
     net = init_fno(torch.Generator().manual_seed(1), cfg, device=cuda)
     xs = _fields(16, 5, 2)
@@ -248,7 +263,7 @@ def test_engine_batched_matches_solo_bit_identically(cuda, policy_name):
 def test_fno_infer_cuda_matches_cpu(cuda, policy_name):
     """The card and the CPU run the same weights to within a quarter of
     the policy's own precision error (1e-5 relative under full)."""
-    cfg = FNO_DARCY_SMOKE
+    cfg = STAGED_SMOKE
     policy = get_policy(policy_name)
     x = np.stack(_fields(32, 3, 4))
     nets = {d: init_fno(torch.Generator().manual_seed(5), cfg, device=d)
@@ -272,7 +287,7 @@ def test_trainer_two_steps_cuda_matches_cpu(cuda):
     from repro_torch.models import fno_apply
     from repro_torch.train import Trainer, TrainerConfig, relative_l2
 
-    cfg = FNO_DARCY_SMOKE
+    cfg = STAGED_SMOKE
     rng = np.random.RandomState(8)
     batches = [{"a": rng.randn(4, 1, 16, 16).astype(np.float32),
                 "u": rng.randn(4, 1, 16, 16).astype(np.float32)} for _ in range(2)]
@@ -294,6 +309,217 @@ def test_trainer_two_steps_cuda_matches_cpu(cuda):
     per_step = cfg.n_layers * 2 ** (cfg.ndim - 1)
     assert runs["cpu"][1] == (0, 0, 0)
     assert runs[str(cuda)][1] == (2 * per_step,) * 3
+    for h_cpu, h_gpu in zip(cpu.history, gpu.history, strict=True):
+        assert abs(h_gpu["loss"] - h_cpu["loss"]) <= 1e-5 * abs(h_cpu["loss"])
+    for k, p in cpu.params.items():
+        assert _rel_l2(gpu.params[k].detach().cpu().numpy(), p.detach().numpy()) <= 1e-4, k
+
+
+# -- the fused spectral layer (kernels fused_fwd and fused_bwd) ------------------------
+#: (cast_to, sim_fmt) of the fused kernels' five modes: full/amp,
+#: mixed_fno_bf16, the fp16 family, and the two simulated fp8 policies
+FUSED_MODES = [(None, None), (torch.bfloat16, None), (torch.float16, None),
+               (torch.float16, "fp8_e4m3"), (torch.float16, "fp8_e5m2")]
+#: (B, I, O, spatial, modes): the Darcy path's shape, a ragged 2-d, a 3-d, a
+#: 1-d whose last axis keeps its Nyquist row, and two batch tiles
+FUSED_SHAPES = [(8, 64, 64, (128, 128), (32, 32)), (3, 5, 7, (20, 24), (6, 9)),
+                (2, 4, 6, (10, 12, 8), (3, 4, 5)), (3, 5, 7, (30,), (16,)),
+                (11, 3, 4, (16, 16), (4, 5))]
+
+
+def _fused_operands(B, I, O, spatial, modes, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    Mh = int(np.prod(sc.fused_rows(spatial, modes)))
+    x = torch.randn(B, I, *spatial, generator=g)
+    w = [torch.randn(I, O, Mh, generator=g) / I for _ in range(2)]
+    gy = torch.randn(B, O, *spatial, generator=g)
+    return [t.to(device) for t in (x, *w, gy)]
+
+
+def _eps(cast_to, sim_fmt):
+    return FORMAT_EPS[sim_fmt or dtype_name(cast_to or torch.float32)]
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+@pytest.mark.parametrize("cast_to,sim_fmt", FUSED_MODES)
+def test_fused_kernels_match_plain_within_budget(cuda, shape, cast_to, sim_fmt):
+    """fused_fwd and fused_bwd against their plain versions on the card:
+    y within one 4ε·M term per requantising stage on either side (the
+    spectrum: stages=2) plus the f32 order term, dx and dw within stages=4
+    (the spectrum and ĝ), M the composed envelopes; in the half modes also
+    within a quarter of the plain version's own gap to itself with the
+    quantisation skipped (relative L2).  A zeroed output fails one of the
+    two: the envelope budget in f32 mode, the quarter-gap limit in the half
+    modes (there the envelope, ~100x |y| on random data, admits it)."""
+    B, I, O, spatial, modes = shape
+    x, wgr, wgi, g = _fused_operands(*shape, cuda)
+    before = (sc.launches_fused_fwd, sc.launches_fused_bwd)
+    tiles = -(-B // sc.pick_block_b(B, I, O, spatial, modes))
+    y = sc._launch_fused_fwd(x, wgr, wgi, modes, cast_to, sim_fmt)
+    got = (y, *sc._launch_fused_bwd(x, wgr, wgi, g, modes, cast_to, sim_fmt))
+    torch.cuda.synchronize()
+    assert (sc.launches_fused_fwd - before[0], sc.launches_fused_bwd - before[1]) == (tiles,) * 2
+    q = {"cast_to": cast_to, "sim_fmt": sim_fmt}
+    want = (sc.spectral_fused_plain(x, wgr, wgi, modes, **q),
+            *sc.spectral_fused_bwd_plain(x, wgr, wgi, g, modes, **q))
+    raw = (sc.spectral_fused_plain(x, wgr, wgi, modes),
+           *sc.spectral_fused_bwd_plain(x, wgr, wgi, g, modes))
+    mags = sc.fused_magnitude(x, wgr, wgi, modes, g=g)
+    eps = _eps(cast_to, sim_fmt)
+    for name, a, b, r, mag, stages in zip(("y", "dx", "dwr", "dwi"), got, want, raw,
+                                          (mags["out"], mags["dx"], mags["dw"], mags["dw"]),
+                                          (2, 4, 4, 4), strict=True):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        budget = contract_budget(eps, mag, stages=stages)
+        assert bool(((a.double() - b.double()).abs() <= budget).all()), \
+            (name, float(((a.double() - b.double()).abs() - budget).max()))
+        if cast_to is None:
+            assert bool((b.double().abs() > budget).any()), (name, "a zeroed output passes")
+        else:
+            gap = _rel_l2(b.cpu().numpy(), r.cpu().numpy())
+            assert _rel_l2(a.cpu().numpy(), b.cpu().numpy()) <= 0.25 * gap < 1.0, name
+
+
+def test_fused_sizes_match_the_python_budgets(cuda):
+    """The shared memory the library launches with is the formula the CPU
+    decides viability with."""
+    lib = sc._library_fused()
+    for B, I, _O, spatial, modes in FUSED_SHAPES + [(8, 64, 64, (421, 421), (32, 32)),
+                                                    (2, 64, 64, (32, 32, 32), (12, 12, 12))]:
+        x = torch.empty(B, I, *spatial, device="meta")
+        assert lib.spectral_fused_smem(*sc._fused_args(x, modes)) == \
+            sc.fused_smem_bytes(spatial, modes)
+
+
+@pytest.mark.parametrize("cast_to,sim_fmt", FUSED_MODES)
+def test_fused_kernels_rerun_bit_identically(cuda, cast_to, sim_fmt):
+    """Two runs of each kernel, one batch tile and two (dw summed in tile
+    order), agree to the bit."""
+    for shape in (FUSED_SHAPES[0], FUSED_SHAPES[-1]):
+        x, wgr, wgi, g = _fused_operands(*shape, cuda, seed=3)
+        modes = shape[-1]
+        runs = [(sc._launch_fused_fwd(x, wgr, wgi, modes, cast_to, sim_fmt),
+                 *sc._launch_fused_bwd(x, wgr, wgi, g, modes, cast_to, sim_fmt))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs, strict=True))
+
+
+def test_fused_wrapper_rejects_what_the_kernels_do_not_take(cuda):
+    x, wgr, wgi, _ = _fused_operands(2, 3, 4, (16, 16), (4, 5), cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.FusedSpectral.apply(x.transpose(2, 3), wgr, wgi, (4, 5))
+    with pytest.raises(ValueError, match="operands on"):
+        sc.FusedSpectral.apply(x.cpu(), wgr, wgi, (4, 5))
+    big = torch.empty(1, 1, 2048, 64, device=cuda)
+    wb = torch.empty(1, 1, 8 * 32, device=cuda)
+    assert sc.fused_smem_bytes((2048, 64), (4, 32)) > sc.SMEM_LIMIT
+    with pytest.raises(RuntimeError, match="spectral_fused_fwd failed to launch"):
+        sc.FusedSpectral.apply(big, wb, wb, (4, 32))
+
+
+@pytest.mark.parametrize("spatial,modes", [((128, 128), (32, 32)), ((45, 45), (12, 12)),
+                                           ((40,), (9,)), ((12, 10, 16), (4, 3, 5))])
+@pytest.mark.parametrize("policy_name", ["full", "mixed_fno_bf16", "sim_fp8_e4m3"])
+def test_fused_spectral_conv_cuda_matches_cpu(cuda, spatial, modes, policy_name):
+    """The fused layer on the card (its default there) against the same
+    fused path on the CPU (``fuse_spectral=True``): within 1e-5 relative L2
+    under full, a quarter of the CPU's own precision error otherwise."""
+    from repro_torch.core.spectral import init_spectral_weights, spectral_conv_apply
+
+    policy = get_policy(policy_name)
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 8, *spatial, generator=g)
+    params = init_spectral_weights(8, 8, modes, generator=g)
+    before = (sc.launches, sc.launches_fused_fwd)
+    want = spectral_conv_apply(params, x, modes, policy, fuse_spectral=True).numpy()
+    got = spectral_conv_apply({k: v.to(cuda) for k, v in params.items()},
+                              x.to(cuda), modes, policy).cpu().numpy()
+    assert (sc.launches - before[0], sc.launches_fused_fwd - before[1]) == (0, 1)
+    if policy_name == "full":
+        assert _rel_l2(got, want) <= 1e-5
+    else:
+        full = spectral_conv_apply(params, x, modes, get_policy("full"),
+                                   fuse_spectral=True).numpy()
+        assert _rel_l2(got, want) <= 0.25 * _rel_l2(want, full)
+
+
+@pytest.mark.parametrize("policy_name", ["full", "mixed_fno_bf16"])
+def test_fused_engine_launches_per_layer_and_batched_matches_solo(cuda, policy_name):
+    """FNO_DARCY_SMOKE at its default config on the card serves through the
+    fused kernels: one fused_fwd per layer and micro-batch, no dense
+    launch; a field served alone gets its batched answer to the bit."""
+    cfg, policy = FNO_DARCY_SMOKE, get_policy(policy_name)
+    net = init_fno(torch.Generator().manual_seed(1), cfg, device=cuda)
+    xs = _fields(16, 5, 0) + _fields(24, 2, 1)
+    engine = OperatorEngine(net, policy=policy, max_batch=4, device=cuda)
+    reqs = [FieldRequest(uid=i, x=x) for i, x in enumerate(xs)]
+    for r in reqs:
+        engine.submit(r)
+    sc.launches = sc.launches_fused_fwd = 0
+    engine.drain()
+    torch.cuda.synchronize()
+    assert engine.stats()["batches"] == 3
+    assert (sc.launches, sc.launches_fused_fwd) == (0, 3 * cfg.n_layers)
+    for i in (0, 4, 6):
+        solo = OperatorEngine(net, policy=policy, max_batch=4, device=cuda)
+        sr = FieldRequest(uid=0, x=xs[i])
+        solo.submit(sr)
+        solo.drain()
+        assert reqs[i].status == "done" and np.isfinite(reqs[i].y).all()
+        assert np.array_equal(sr.y, reqs[i].y)
+
+
+@pytest.mark.parametrize("policy_name", ["full", "mixed_fno_bf16", "mixed_fno_fp16"])
+def test_fused_fno_infer_cuda_matches_cpu(cuda, policy_name):
+    """The fused path on both devices (the CPU told ``fuse_spectral=True``),
+    the same weights: 1e-5 relative L2 under full, a quarter of the
+    policy's precision error otherwise."""
+    policy = get_policy(policy_name)
+    x = np.stack(_fields(32, 3, 4))
+    cpu_cfg = dataclasses.replace(FNO_DARCY_SMOKE, fuse_spectral=True)
+    net_cpu = init_fno(torch.Generator().manual_seed(5), cpu_cfg, device="cpu")
+    net_gpu = init_fno(torch.Generator().manual_seed(5), FNO_DARCY_SMOKE, device=cuda)
+    y_cpu = fno_infer(net_cpu, x, policy, device="cpu").numpy()
+    y_gpu = fno_infer(net_gpu, x, policy, device=cuda).cpu().numpy()
+    if policy_name == "full":
+        assert _rel_l2(y_gpu, y_cpu) <= 1e-5
+    else:
+        y_full = fno_infer(net_cpu, x, get_policy("full"), device="cpu").numpy()
+        assert _rel_l2(y_gpu, y_cpu) <= 0.25 * _rel_l2(y_cpu, y_full)
+
+
+def test_fused_trainer_two_steps_cuda_matches_cpu(cuda):
+    """Two steps of the Trainer on FNO_DARCY_SMOKE through the fused path on
+    both devices: losses within 1e-5 relative and parameters within 1e-4
+    relative L2 under full; on the card one fused_fwd and one fused_bwd per
+    layer and step and no dense launch."""
+    from repro_torch.core.schedule import PrecisionSchedule
+    from repro_torch.models import fno_apply
+    from repro_torch.train import Trainer, TrainerConfig, relative_l2
+
+    cfg = dataclasses.replace(FNO_DARCY_SMOKE, fuse_spectral=True)
+    rng = np.random.RandomState(9)
+    batches = [{"a": rng.randn(4, 1, 16, 16).astype(np.float32),
+                "u": rng.randn(4, 1, 16, 16).astype(np.float32)} for _ in range(2)]
+
+    def loss_fn(model, batch, policy):
+        return relative_l2(fno_apply(model, batch["a"], policy), batch["u"])
+
+    names = ("launches", "launches_bwd_x", "launches_bwd_w", "launches_fused_fwd",
+             "launches_fused_bwd")
+    net = init_fno(torch.Generator().manual_seed(2), cfg, device="cpu")
+    runs = {}
+    for dev in ("cpu", cuda):
+        tt = Trainer(loss_fn, net, TrainerConfig(
+            total_steps=2, schedule=PrecisionSchedule.constant("full")), device=dev)
+        c0 = [getattr(sc, n) for n in names]
+        tt.run(lambda s: batches[s])
+        torch.cuda.synchronize()
+        runs[str(dev)] = (tt, tuple(getattr(sc, n) - c for n, c in zip(names, c0, strict=True)))
+    cpu, gpu = runs["cpu"][0], runs[str(cuda)][0]
+    assert runs["cpu"][1] == (0,) * 5
+    assert runs[str(cuda)][1] == (0, 0, 0, 2 * cfg.n_layers, 2 * cfg.n_layers)
     for h_cpu, h_gpu in zip(cpu.history, gpu.history, strict=True):
         assert abs(h_gpu["loss"] - h_cpu["loss"]) <= 1e-5 * abs(h_cpu["loss"])
     for k, p in cpu.params.items():

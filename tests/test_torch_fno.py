@@ -137,7 +137,12 @@ def test_unported_options_raise():
     # an unknown factorisation is refused, as the reference refuses it
     with pytest.raises(ValueError, match="unknown factorization"):
         FNO(dataclasses.replace(FNO_DARCY_SMOKE, factorization="bogus"))
-    net = init_fno(torch.Generator().manual_seed(0),
-                   dataclasses.replace(FNO_DARCY_SMOKE, fuse_spectral=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="fused"):
-        fno_infer(net, np.zeros((1, 1, 8, 8), np.float32), device="cpu")
+    # fuse_spectral=True is ported: the CPU runs the fused layer's plain
+    # versions, which agree with the staged layer under full precision
+    x = np.random.RandomState(0).randn(1, 1, 16, 16).astype(np.float32)
+    fused = init_fno(torch.Generator().manual_seed(0),
+                     dataclasses.replace(FNO_DARCY_SMOKE, fuse_spectral=True), device="cpu")
+    staged = init_fno(torch.Generator().manual_seed(0), FNO_DARCY_SMOKE, device="cpu")
+    y = fno_infer(fused, x, device="cpu").numpy()
+    assert y.shape == (1, 1, 16, 16) and np.isfinite(y).all()
+    assert rel_err(y, fno_infer(staged, x, device="cpu").numpy()) <= 1e-5

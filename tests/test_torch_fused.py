@@ -1,0 +1,442 @@
+"""The PyTorch port's fused spectral layer (rFFT -> contract -> irFFT in
+one pipeline, ``FusedSpectral``) against the JAX reference on the CPU,
+where a CPU tensor runs the kernels' plain versions and the reference its
+Pallas kernels in interpret mode.
+
+* The factor layout (``fused_factors``, ``fused_rows``,
+  ``fused_supported``, ``gather_corner_weights``) equals the reference's.
+* Dispatch: the reference's vetoes, with the H100's L2 and shared-memory
+  budgets in place of the TPU's VMEM budget (the cases where they differ
+  are stated); ``None`` is staged on the CPU, fused on CUDA.
+* The layer against the reference's fused layer under every policy and 1
+  to 3 axes (``assert_within_budget(stages=2)``), against the port's own
+  staged layer (``stages=8``, the reference harness's composed budget),
+  and, under the half policies, within a quarter of the reference's own
+  gap to its answer with the quantisation skipped, a yardstick that the
+  port with the spectrum quantisation skipped fails.
+* ``FusedSpectral``'s gradients against ``jax.vjp`` through the reference's
+  custom VJP, and an f64 ``gradcheck``.
+* ``FNO_DARCY_SMOKE`` with ``fuse_spectral=True`` against the reference
+  model on its fused path: forward and per-leaf gradients under the
+  limits of ``tests/test_torch_train.py``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.fno_paper import FNO_DARCY_SMOKE as J_SMOKE
+from repro.core import get_policy as jget_policy
+from repro.core import spectral_conv_apply as jspectral_conv_apply
+from repro.kernels import ops as jops
+from repro.kernels import spectral_contract as jsc
+from repro.models import fno_infer as jfno_infer
+from repro.models import init_fno as jinit_fno
+from repro.precision import SiteRule as JSiteRule
+from repro_torch.configs.fno_paper import FNO_DARCY, FNO_DARCY_SMOKE
+from repro_torch.core.spectral import init_spectral_weights, spectral_conv_apply
+from repro_torch.kernels import ops
+from repro_torch.kernels import spectral_contract as sc
+from repro_torch.models import fno_infer, params_from_jax
+from repro_torch.precision import SiteRule, get_policy
+
+from helpers import (
+    MODES_BY_NDIM,
+    POLICY_NAMES,
+    SPATIAL_BY_NDIM,
+    assert_within_budget,
+    fused_mag,
+    rel_err,
+)
+from test_torch_train import _jgrads, check_fno_gradients
+
+jax.config.update("jax_platform_name", "cpu")
+
+SITE = "fno/layer0/spectral"
+HALF_POLICY_NAMES = [n for n in POLICY_NAMES
+                     if get_policy(n).at(f"{SITE}/contract").spectral_is_half]
+#: the reference on its fused path (Pallas kernels in interpret mode)
+J_FUSED = dataclasses.replace(J_SMOKE, use_pallas=True, fuse_spectral=True)
+T_FUSED = dataclasses.replace(FNO_DARCY_SMOKE, fuse_spectral=True)
+
+
+def _jdtype(dtype):
+    return None if dtype is None else getattr(jnp, str(dtype).removeprefix("torch."))
+
+
+def _layer(seed, I, O, modes):
+    params = init_spectral_weights(I, O, modes, generator=torch.Generator().manual_seed(seed))
+    return params, {k: jnp.asarray(v.numpy()) for k, v in params.items()}
+
+
+def _gathered(params, modes):
+    return ops.gather_corner_weights(params["w_re"], params["w_im"], modes)
+
+
+# -- layout ----------------------------------------------------------------------------
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_factor_layout_equals_the_reference(ndim):
+    spatial, modes = SPATIAL_BY_NDIM[ndim], MODES_BY_NDIM[ndim]
+    assert sc.fused_rows(spatial, modes) == jsc._fused_rows(spatial, modes)
+    for want, got in zip(jsc.fused_factors(spatial, modes), sc.fused_factors(spatial, modes),
+                         strict=True):
+        assert got.dtype == np.float64 and np.array_equal(got, want)
+    # supported shapes, an overlapping corner and an over-long last axis
+    shapes = [(spatial, modes), (spatial, modes[:-1] + (spatial[-1] // 2 + 2,)),
+              ((7,) * ndim, (4,) * ndim), ((8,) * ndim, (4,) * (ndim - 1) + (5,)),
+              (spatial, modes[:-1])]
+    for s, m in shapes:
+        assert sc.fused_supported(s, m) == jsc.fused_supported(s, m), (s, m)
+    params, jparams = _layer(ndim, 3, 4, modes)
+    want = jops.gather_corner_weights(jparams["w_re"], jparams["w_im"], modes)
+    got = _gathered(params, modes)
+    for w, g in zip(want, got, strict=True):
+        assert g.shape == w.shape and np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_fused_magnitude_is_the_reference_envelope(ndim):
+    spatial, modes = SPATIAL_BY_NDIM[ndim], MODES_BY_NDIM[ndim]
+    params, _ = _layer(ndim, 3, 4, modes)
+    wgr, wgi = _gathered(params, modes)
+    x = np.random.RandomState(ndim).randn(2, 3, *spatial).astype(np.float32)
+    got = sc.fused_magnitude(torch.from_numpy(x), wgr, wgi, modes)["out"].numpy()
+    np.testing.assert_allclose(got, fused_mag(x, wgr.numpy(), wgi.numpy(), spatial, modes),
+                               rtol=1e-12)
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_fused_magnitude_bounds_every_output(ndim):
+    """Each envelope bounds its output elementwise (f64, unquantised): y by
+    ``"out"``, dx by ``"dx"``, dw by ``"dw"``, the budgets' M."""
+    spatial, modes = SPATIAL_BY_NDIM[ndim], MODES_BY_NDIM[ndim]
+    params, _ = _layer(5 + ndim, 3, 4, modes)
+    wgr, wgi = (w.double() for w in _gathered(params, modes))
+    rng = np.random.RandomState(ndim)
+    x = torch.from_numpy(rng.randn(2, 3, *spatial))
+    g = torch.from_numpy(rng.randn(2, 4, *spatial))
+    mags = sc.fused_magnitude(x, wgr, wgi, modes, g=g)
+    y = sc.spectral_fused_plain(x, wgr, wgi, modes)
+    dx, dwr, dwi = sc.spectral_fused_bwd_plain(x, wgr, wgi, g, modes)
+    for name, v in (("out", y), ("dx", dx), ("dw", torch.hypot(dwr, dwi))):
+        assert mags[name].shape == v.shape, name
+        assert bool((v.abs() <= mags[name] * (1 + 1e-12)).all()), name
+
+
+# -- dispatch --------------------------------------------------------------------------
+def _sites(pkg_policy, name="contract"):
+    return pkg_policy.at(f"{SITE}/fft_in"), pkg_policy.at(f"{SITE}/{name}")
+
+
+def test_viability_mirrors_the_reference_vetoes():
+    """Every veto of the reference's ``fused_spectral_viable`` but the
+    autoprec collector's (the port has none yet) decides alike where the
+    reference's VMEM budget does not bind."""
+    small = (3, 4, SPATIAL_BY_NDIM[2], MODES_BY_NDIM[2])
+    cases = {
+        "every policy": [(get_policy(n), jget_policy(n), (2, *small)) for n in POLICY_NAMES],
+        # fft_in quantises to another format than contract
+        "formats": [(get_policy("mixed_fno_bf16").with_rules(
+            ("*/spectral/fft_in", SiteRule(quantize=None))),
+            jget_policy("mixed_fno_bf16").with_rules(
+                ("*/spectral/fft_in", JSiteRule(quantize=None))), (2, *small))],
+        # one format, two compute dtypes
+        "compute": [(get_policy("mixed_fno_bf16").with_rules(
+            ("*/spectral/fft_in", SiteRule(compute=torch.float16))),
+            jget_policy("mixed_fno_bf16").with_rules(
+                ("*/spectral/fft_in", JSiteRule(compute=jnp.float16))), (2, *small))],
+        # corners that overlap
+        "support": [(get_policy("full"), jget_policy("full"), (2, 3, 4, (7, 7), (4, 4)))],
+    }
+    for label, rows in cases.items():
+        for tpol, jpol, (B, I, O, spatial, modes) in rows:
+            want = jops.fused_spectral_viable(*_sites(jpol), B, I, O, spatial, modes)
+            got = ops.fused_spectral_viable(*_sites(tpol), I, O, spatial, modes)
+            assert got == want, (label, tpol.name)
+    assert not ops.fused_spectral_viable(*_sites(cases["formats"][0][0]), *small)
+    assert not ops.fused_spectral_viable(*_sites(cases["compute"][0][0]), *small)
+
+
+@pytest.mark.parametrize("grid", [128, 421])
+def test_l2_rule_admits_full_width_darcy_that_vmem_refuses(grid):
+    """FNO_DARCY (hidden 64, modes 32x32) at 128² and 421²: the reference's
+    floor-tile VMEM estimate (160 MiB and 475 MiB, of which 128 MiB is the
+    f32 gathered weight and its gradient accumulator) is over its 16 MiB
+    budget, so the TPU runs it staged; the H100 kernels stream the weight
+    from HBM and keep only the truncated spectra, 3 MiB per batch row, in
+    the 50 MiB L2, so the port fuses it, at a batch tile of 8."""
+    H, modes, spatial = FNO_DARCY.hidden_channels, FNO_DARCY.modes, (grid, grid)
+    fft_in, ctr = _sites(jget_policy("mixed_fno_bf16"))
+    assert jsc.fused_vmem_bytes_bwd(1, H, H, spatial, modes, itemsize=4) > jsc.VMEM_BUDGET
+    assert not jops.fused_spectral_viable(fft_in, ctr, 8, H, H, spatial, modes)
+    for name in POLICY_NAMES:
+        assert ops.fused_spectral_viable(*_sites(get_policy(name)), H, H, spatial, modes)
+    assert sc.fused_scratch_bytes(1, H, H, spatial, modes) == 3 * 2 ** 20
+    assert sc.fused_scratch_bytes(8, H, H, spatial, modes) == 24 * 2 ** 20
+    assert sc.pick_block_b(8, H, H, spatial, modes) == 8
+    assert sc.fused_smem_bytes(spatial, modes) == 8 * grid * 32
+
+
+def test_budgets_refuse_what_the_card_cannot_hold():
+    full = _sites(get_policy("full"))
+    # 512 channels at 128x64 modes: 100 MB of spectra at one batch row > L2
+    assert sc.fused_scratch_bytes(1, 512, 512, (256, 256), (64, 64)) > sc.L2_BUDGET
+    assert not ops.fused_spectral_viable(*full, 512, 512, (256, 256), (64, 64))
+    # a 2048-point leading axis: its slab after the last axis, 512 KB, is
+    # more than a block's shared memory
+    assert sc.fused_smem_bytes((2048, 64), (4, 32)) > sc.SMEM_LIMIT
+    assert not ops.fused_spectral_viable(*full, 4, 4, (2048, 64), (4, 32))
+    # the kernels take 1 to 3 axes
+    assert not ops.fused_spectral_viable(*full, 2, 2, (4, 4, 4, 4), (1, 1, 1, 1))
+    # GINO_CAR's latent FNO, 64 channels on 32³ with 12³ modes, is viable
+    assert ops.fused_spectral_viable(*full, 64, 64, (32, 32, 32), (12, 12, 12))
+    assert sc.fused_smem_bytes((32, 32, 32), (12, 12, 12)) == 172032
+    assert sc.pick_block_b(2, 64, 64, (32, 32, 32), (12, 12, 12)) == 2
+
+
+def test_resolve_fuse_spectral_follows_the_device():
+    assert ops.resolve_fuse_spectral(None, "cpu") is False
+    assert ops.resolve_fuse_spectral(None, torch.device("cuda")) is True
+    assert ops.resolve_fuse_spectral(True, "cpu") is True
+    assert ops.resolve_fuse_spectral(False, "cuda") is False
+
+
+def test_dispatch_on_the_cpu(monkeypatch):
+    """``None`` keeps the staged path on the CPU, ``True`` takes the fused
+    one, and a layer that is not viable runs staged whatever the flag."""
+    calls = []
+    real = ops.spectral_conv_fused
+
+    def spy(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+
+    monkeypatch.setattr(ops, "spectral_conv_fused", spy)
+    params, _ = _layer(0, 3, 4, (3, 5))
+    x = torch.randn(2, 3, 9, 11, generator=torch.Generator().manual_seed(0))
+    policy = get_policy("mixed_fno_bf16")
+    staged = spectral_conv_apply(params, x, (3, 5), policy, site=SITE)
+    assert calls == []
+    fused = spectral_conv_apply(params, x, (3, 5), policy, site=SITE, fuse_spectral=True)
+    assert len(calls) == 1
+    assert torch.equal(fused, real(x, params["w_re"], params["w_im"], (3, 5), policy=policy,
+                                   site=SITE))
+    assert not torch.equal(fused, staged)
+    mismatched = policy.with_rules(("*/spectral/fft_in", SiteRule(quantize=None)))
+    spectral_conv_apply(params, x, (3, 5), mismatched, site=SITE, fuse_spectral=True)
+    p4, _ = _layer(1, 2, 2, (1, 1, 1, 1))
+    spectral_conv_apply(p4, torch.randn(1, 2, 4, 4, 4, 4), (1, 1, 1, 1), fuse_spectral=True)
+    assert len(calls) == 1
+    # CP weights have no fused layout: staged
+    cp = init_spectral_weights(3, 4, (3, 5), "cp", generator=torch.Generator().manual_seed(2))
+    spectral_conv_apply(cp, x, (3, 5), policy, site=SITE, fuse_spectral=True)
+    assert len(calls) == 1
+
+
+def test_wrapper_checks_inputs():
+    params, _ = _layer(0, 3, 4, (3, 5))
+    wgr, wgi = _gathered(params, (3, 5))
+    x = torch.randn(2, 3, 9, 11)
+    with pytest.raises(TypeError, match="float32"):
+        sc.FusedSpectral.apply(x.half(), wgr, wgi, (3, 5))
+    with pytest.raises(ValueError, match="cannot retain"):
+        sc.FusedSpectral.apply(torch.randn(2, 3, 5, 11), wgr, wgi, (3, 5))
+    with pytest.raises(ValueError, match="corner-gathered"):
+        sc.FusedSpectral.apply(x, wgr[..., :7], wgi[..., :7], (3, 5))
+    with pytest.raises(TypeError, match="cast_to"):
+        sc.FusedSpectral.apply(x, wgr, wgi, (3, 5), torch.float64)
+    with pytest.raises(ValueError, match="sim_fmt"):
+        sc.FusedSpectral.apply(x, wgr, wgi, (3, 5), None, "fp4")
+    with pytest.raises(ValueError, match="no kernel"):
+        sc.FusedSpectral.apply(x.to("meta"), wgr.to("meta"), wgi.to("meta"), (3, 5))
+    with pytest.raises(ValueError, match="corners"):
+        ops.gather_corner_weights(params["w_re"][:1], params["w_im"][:1], (3, 5))
+    before = (sc.launches_fused_fwd, sc.launches_fused_bwd)
+    x.requires_grad_()
+    sc.FusedSpectral.apply(x, wgr, wgi, (3, 5)).sum().backward()
+    assert (sc.launches_fused_fwd, sc.launches_fused_bwd) == before  # the CPU runs plain
+
+
+# -- the layer -------------------------------------------------------------------------
+def _stabilised(policy_name, x):
+    return get_policy(policy_name).at(f"{SITE}/fft_in").stabilize(torch.from_numpy(x)).numpy()
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("policy_name", POLICY_NAMES)
+def test_fused_layer_matches_the_reference(policy_name, ndim):
+    """The port's fused layer against the reference's (``use_pallas=True,
+    fuse_spectral=True``: its ``_fused_fwd_kernel`` in interpret mode),
+    within ``assert_within_budget(stages=2)``: one requantising stage each
+    (the spectrum), f32 order, M the composed envelope."""
+    spatial, modes = SPATIAL_BY_NDIM[ndim], MODES_BY_NDIM[ndim]
+    params, jparams = _layer(10 + ndim, 3, 4, modes)
+    x = np.random.RandomState(20 + ndim).randn(2, 3, *spatial).astype(np.float32)
+    want = np.asarray(jspectral_conv_apply(jparams, jnp.asarray(x), modes,
+                                           jget_policy(policy_name), use_pallas=True,
+                                           site=SITE, fuse_spectral=True))
+    got = spectral_conv_apply(params, torch.from_numpy(x), modes, get_policy(policy_name),
+                              site=SITE, fuse_spectral=True).numpy()
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape
+    wgr, wgi = _gathered(params, modes)
+    mag = fused_mag(_stabilised(policy_name, x), wgr.numpy(), wgi.numpy(), spatial, modes)
+    assert_within_budget(got, want, jget_policy(policy_name).at(f"{SITE}/contract").eps, mag,
+                         stages=2, label=f"fused {policy_name} {ndim}d")
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("policy_name", POLICY_NAMES)
+def test_fused_layer_matches_its_staged_path(policy_name, ndim):
+    """Fused and staged differ in their rounding points (no store rounding
+    of the contraction, the inverse as factors): the reference harness's
+    composed budget, ``stages=8``."""
+    spatial, modes = SPATIAL_BY_NDIM[ndim], MODES_BY_NDIM[ndim]
+    params, _ = _layer(30 + ndim, 3, 4, modes)
+    x = np.random.RandomState(40 + ndim).randn(2, 3, *spatial).astype(np.float32)
+    policy = get_policy(policy_name)
+    fused, staged = (spectral_conv_apply(params, torch.from_numpy(x), modes, policy, site=SITE,
+                                         fuse_spectral=f).numpy() for f in (True, False))
+    wgr, wgi = _gathered(params, modes)
+    mag = fused_mag(_stabilised(policy_name, x), wgr.numpy(), wgi.numpy(), spatial, modes)
+    eps = jget_policy(policy_name).at(f"{SITE}/contract").eps
+    assert_within_budget(fused, staged, eps, mag, stages=8,
+                         label=f"fused vs staged {policy_name} {ndim}d")
+
+
+def _yardstick(policy_name, ndim, seed):
+    """The port's fused pipeline against the reference's on one input
+    (``x`` stabilised, as the layer hands it over), and the reference's own
+    gap to its answer with every quantisation skipped: ``(err, gap)``."""
+    spatial, modes = SPATIAL_BY_NDIM[ndim], MODES_BY_NDIM[ndim]
+    params, _ = _layer(seed, 3, 4, modes)
+    wgr, wgi = _gathered(params, modes)
+    x = _stabilised(policy_name, np.random.RandomState(seed).randn(2, 3, *spatial)
+                    .astype(np.float32))
+    cast_to, sim_fmt = ops._fused_qspec(get_policy(policy_name).at(f"{SITE}/contract"))
+    jargs = (jnp.asarray(x), jnp.asarray(wgr.numpy()), jnp.asarray(wgi.numpy()))
+    want = np.asarray(jsc.spectral_fused_pallas(*jargs, modes=modes, interpret=True,
+                                                cast_to=_jdtype(cast_to), sim_fmt=sim_fmt))
+    raw = np.asarray(jsc.spectral_fused_pallas(*jargs, modes=modes, interpret=True))
+    got = sc.FusedSpectral.apply(torch.from_numpy(x), wgr, wgi, modes, cast_to,
+                                 sim_fmt).numpy()
+    return rel_err(got, want), rel_err(want, raw)
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("policy_name", HALF_POLICY_NAMES)
+def test_fused_pipeline_within_a_quarter_of_the_quantisation_gap(policy_name, ndim):
+    err, gap = _yardstick(policy_name, ndim, 50 + ndim)
+    print(f"{policy_name} {ndim}d: port vs reference {err:.3e} (limit {0.25 * gap:.3e})")
+    assert err <= 0.25 * gap, (err, gap)
+
+
+@pytest.mark.parametrize("policy_name", HALF_POLICY_NAMES)
+def test_skipping_the_spectrum_quantisation_fails_the_yardstick(policy_name, monkeypatch):
+    """Negative control: the port whose spectrum is never quantised (the
+    weight still rounded) reads more than a quarter of the gap."""
+    real = sc._fused_spectrum
+    monkeypatch.setattr(sc, "_fused_spectrum", lambda x, fwd, _cast_to, _sim_fmt:
+                        real(x, fwd, None, None))
+    err, gap = _yardstick(policy_name, 2, 52)
+    assert err > 0.25 * gap, (err, gap)
+
+
+# -- gradients -------------------------------------------------------------------------
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("policy_name", POLICY_NAMES)
+def test_fused_grads_match_the_reference_vjp(policy_name, ndim):
+    """``FusedSpectral``'s dx and dw against ``jax.vjp`` of
+    ``spectral_fused_pallas`` (interpret mode: its ``_fused_bwd_kernel``),
+    within ``assert_within_budget(stages=2)`` of each gradient's envelope
+    (``fused_magnitude``): the recomputed spectrum and ĝ are the requantising
+    stages; dx and dw are f32."""
+    spatial, modes = SPATIAL_BY_NDIM[ndim], MODES_BY_NDIM[ndim]
+    params, _ = _layer(60 + ndim, 3, 4, modes)
+    wgr, wgi = _gathered(params, modes)
+    rng = np.random.RandomState(70 + ndim)
+    x = rng.randn(2, 3, *spatial).astype(np.float32)
+    g = rng.randn(2, 4, *spatial).astype(np.float32)
+    ctr = get_policy(policy_name).at(f"{SITE}/contract")
+    cast_to, sim_fmt = ops._fused_qspec(ctr)
+    _, vjp = jax.vjp(lambda *a: jsc.spectral_fused_pallas(
+        *a, modes=modes, interpret=True, cast_to=_jdtype(cast_to), sim_fmt=sim_fmt),
+        jnp.asarray(x), jnp.asarray(wgr.numpy()), jnp.asarray(wgi.numpy()))
+    want = [np.asarray(v) for v in vjp(jnp.asarray(g))]
+    leaves = [torch.from_numpy(x).requires_grad_(), wgr.requires_grad_(), wgi.requires_grad_()]
+    out = sc.FusedSpectral.apply(*leaves, modes, cast_to, sim_fmt)
+    got = [t.numpy() for t in torch.autograd.grad(out, leaves, torch.from_numpy(g))]
+    assert all(t.dtype == np.float32 for t in got)
+    mags = sc.fused_magnitude(torch.from_numpy(x), wgr.detach(), wgi.detach(), modes,
+                              g=torch.from_numpy(g))
+    eps = jget_policy(policy_name).at(f"{SITE}/contract").eps
+    assert_within_budget(got[0], want[0], eps, mags["dx"].numpy(), stages=2,
+                         label=f"dx {policy_name} {ndim}d")
+    assert_within_budget(got[1] + 1j * got[2], want[1] + 1j * want[2], eps,
+                         mags["dw"].numpy(), stages=2, label=f"dw {policy_name} {ndim}d")
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_fused_gradcheck_f64(ndim):
+    spatial, modes = {1: ((8,), (5,)), 2: ((7, 8), (3, 3)), 3: ((4, 5, 4), (2, 2, 3))}[ndim]
+    rng = np.random.RandomState(ndim)
+    Mh = int(np.prod(sc.fused_rows(spatial, modes)))
+    args = [torch.from_numpy(rng.randn(*s)).requires_grad_()
+            for s in ((2, 2, *spatial), (2, 3, Mh), (2, 3, Mh))]
+    assert torch.autograd.gradcheck(lambda *a: sc.FusedSpectral.apply(*a, modes), args)
+
+
+# -- the model -------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def bridged():
+    jparams = jinit_fno(jax.random.PRNGKey(3), J_FUSED)
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 1, 24, 24).astype(np.float32)
+    y = rng.randn(2, 1, 24, 24).astype(np.float32)
+    return jparams, tree, x, y
+
+
+def _jinfer(jparams, x, policy_name):
+    # eager, as test_torch_fno.py runs the reference
+    return np.asarray(jfno_infer(jparams, jnp.asarray(x), J_FUSED, jget_policy(policy_name)))
+
+
+@pytest.mark.parametrize("policy_name", POLICY_NAMES)
+def test_smoke_fno_fused_forward_matches_the_reference(bridged, policy_name):
+    """Relative L2 within 1e-5 under ``full``, otherwise within 1/4 of the
+    reference's own gap to ``full`` on its fused path."""
+    jparams, tree, x, _ = bridged
+    want = _jinfer(jparams, x, policy_name)
+    net = params_from_jax(tree, T_FUSED, device="cpu")
+    got = fno_infer(net, x, get_policy(policy_name), device="cpu").numpy()
+    err = rel_err(got, want)
+    limit = 1e-5 if policy_name == "full" else 0.25 * rel_err(want, _jinfer(jparams, x, "full"))
+    print(f"{policy_name}: fused port vs fused reference {err:.3e} (limit {limit:.3e})")
+    assert err <= limit, (err, limit)
+
+
+@pytest.fixture(scope="module")
+def full_grads(bridged):
+    jparams, _, x, y = bridged
+    return _jgrads(jparams, x, y, "full", unrolled=True, cfg=J_FUSED)
+
+
+@pytest.mark.parametrize("policy_name", POLICY_NAMES)
+def test_smoke_fno_fused_gradients_match_the_reference(bridged, full_grads, policy_name,
+                                                        monkeypatch):
+    """Per leaf, the limits of ``test_torch_train.py``'s
+    ``test_fno_gradients_match_reference`` (its docstring), both packages
+    on their fused paths: 1e-5 under ``full``, else 1/4 of the policy's
+    gap against the reference with the port's order of the tanh VJP's
+    sums.  Against the unchanged reference the limit is 1.5x the gap, not
+    0.95x: the fused path rounds once less (no store of the contraction),
+    so its gaps are smaller (``lift1.b`` under ``mixed_fno_bf16``: 2.0e-2,
+    staged 2.6e-2), while the reference's tanh order alone moves that leaf
+    by 2.7e-2, 1.36x the gap; the port equals the reference in the port's
+    order there to the last bit."""
+    jparams, tree, x, y = bridged
+    check_fno_gradients(jparams, tree, x, y, full_grads, policy_name, monkeypatch,
+                        jcfg=J_FUSED, tcfg=T_FUSED, ref_share=1.5)

@@ -140,9 +140,11 @@ def test_spectral_conv_matches_reference_staged_path(policy_name, ndim):
 
 def test_spectral_conv_refuses_what_is_not_ported():
     params = init_spectral_weights(2, 2, (3, 3), generator=torch.Generator().manual_seed(0))
-    x = torch.zeros(1, 2, 8, 8)
-    with pytest.raises(NotImplementedError, match="fused"):
-        spectral_conv_apply(params, x, (3, 3), fuse_spectral=True)
+    x = torch.randn(1, 2, 8, 8, generator=torch.Generator().manual_seed(1))
+    # fuse_spectral=True is ported: on the CPU it runs the fused kernels'
+    # plain versions (tests/test_torch_fused.py holds them to the reference)
+    fused = spectral_conv_apply(params, x, (3, 3), fuse_spectral=True)
+    assert torch.equal(fused, ops.spectral_conv_fused(x, params["w_re"], params["w_im"], (3, 3)))
     # spectral params of no known kind, and an unknown factorisation, are
     # refused as the reference refuses them
     with pytest.raises(ValueError, match="unrecognised spectral params"):
