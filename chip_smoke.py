@@ -9,16 +9,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    and reduced-precision half reductions off (the ``full`` policy means
    real f32, and the reference accumulates half products in f32).
 2. Build: compile the hand-written kernels (the dense forward source, the
-   dense backward source, the CP source, the order-shared source and the
-   fused source, one ``nvcc`` each, started together) for ``sm_90a`` from
-   the sources in this checkout; print each ptxas report.
+   dense backward source, the CP source, the order-shared source, the
+   fused source, the RMSNorm source and the flash attention source, one
+   ``nvcc`` each, started together) for ``sm_90a`` from the sources in
+   this checkout; print each ptxas report.
 3. Kernels vs plain: the dense forward kernel and its two backward
    kernels, the CP kernels ``cp_fwd`` and ``cp_bwd``, and the order-shared
    kernels ``ls_fwd``, ``ls_bwd_x`` and ``ls_bwd_w``, against their plain
    PyTorch versions on the card, at their path's shape and a ragged one,
-   in the paths' three modes.  Dense: within ``4ε·M + 32·ε_f32·M + 1e-5``
-   elementwise (ε of the format each output is stored at, M the
-   contraction of |operands| it sums).  CP and order-shared (kernel and
+   in the paths' three modes (CP and order-shared also at a width they
+   refused before their channel tiling: I = O = R = 128, I = O = 192).
+   Dense: within ``4ε·M + 32·ε_f32·M + 1e-5`` elementwise (ε of the
+   format each output is stored at, M the contraction of |operands| it
+   sums).  CP and order-shared (kernel and
    plain both sum in f32 from the same operands): within one rounding of
    the stored result, ``2ε/(1-ε)·|plain| + (1+ε)(32·ε_f32·M + 1e-5)``, a
    budget that every zeroed output is checked to exceed.  The fused
@@ -99,8 +102,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    forward and forward + backward at the same shape and policy; no single
    PyTorch call computes the fused layer, so their library time is null.
 
-The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.
+10. The LM pool's substrate kernels (no model calls them): their path is
+   ``kernels.ops.rmsnorm`` at 32768 tokens of 960 and 6144 features
+   (smollm-360m's and granite-34b's widths) and ``kernels.ops.
+   flash_attention``, causal, at one 32k smollm-360m sequence (15 heads of
+   64) and 8 of granite-34b's 48 heads of 128, each in bf16 and f32, with
+   the launch counts set to 0 before and read after (one launch per call).
+   Then each kernel against its plain version on the same inputs (RMSNorm:
+   f32 1e-6 relative per element, half >= 99.9 % bit-equal and within one
+   ulp; flash attention: f32 1e-5 relative L2, half within 1/4 of the
+   plain version's gap to the causal oracle on 256 query rows), a zeroed
+   output checked to fail, and each timed with CUDA events beside its
+   bound, its plain version and ``F.rms_norm`` or ``F.scaled_dot_product_
+   attention(is_causal=True)`` (the backend it took printed).
+
+The line before the last is ``{"kernels": [...]}`` (twelve kernels); the
+last is ``{"ok": true, "device": {...}}``.
 """
 import json
 import subprocess
@@ -141,6 +158,22 @@ NS_T, NS_STEPS = 5.0, 512
 LS_PATH_SHAPE = (8, 64, 64, 128, 128)
 LS_RAGGED_SHAPE = (3, 5, 7, 37, 29)
 SWE_GRID, SWE_FIELDS, SWE_STEPS, SFNO_SERVE_FIELDS = (256, 512), 32, 200, 16
+#: formerly refused widths, checked beside the path's shapes: the CP
+#: kernels at I = O = R = 128, the order-shared ones at I = O = 192
+CP_WIDE_SHAPE = (8, 128, 128, 128, 42 * 42)
+LS_WIDE_SHAPE = (8, 192, 192, 64, 64)
+#: the LM pool's RMSNorm shapes: 32k tokens at smollm-360m's and
+#: granite-34b's d_model (src/repro/configs/smollm_360m.py:7-8,
+#: granite_34b.py:7-8)
+RMS_SHAPES = ((32768, 960), (32768, 6144))
+#: the LM pool's causal flash attention shapes (tag, BH, S = Sk, D): one
+#: smollm-360m sequence of prefill_32k (src/repro/configs/base.py:115),
+#: 15 heads of 64; granite-34b's head dim 128 at 8 of its 48 heads (cut to
+#: bound the script's time)
+FLASH_SHAPES = (("smollm_360m", 15, 32768, 64), ("granite_34b_8_of_48_heads", 8, 32768, 128))
+LM_DTYPES = (torch.bfloat16, torch.float32)
+#: query rows of the flash oracle at 32k (the whole S x S oracle needs 64 GB)
+FLASH_ORACLE_ROWS = 256
 #: (B, I, O, spatial, modes) of the fused kernels' checks: the Darcy path
 #: at 128² and 421², GINO_CAR's latent FNO, and a 1-d shape whose last axis
 #: keeps its Nyquist row (m - 1 = S/2)
@@ -201,10 +234,12 @@ def device_phase():
 
 
 # -- phase 2 ------------------------------------------------------------------
-def build_phase(sc):
+def build_phase():
+    from repro_torch.kernels import build
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sc.SOURCES)) as pool:
-        built = list(pool.map(sc.build, sc.SOURCES))
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:
+        built = list(pool.map(build.build, build.SOURCES))
     for lib, report in built:
         print(report.strip(), flush=True)
     emit("build", libraries=[str(lib.relative_to(ROOT)) for lib, _ in built],
@@ -317,7 +352,7 @@ def cp_kernel_phase(sc):
 
     names = ("out", "out", "dx", "dx", "dU_i", "dU_i", "dU_o", "dU_o", "dW", "dW")
     worst = {"cp_fwd": 0.0, "cp_bwd": 0.0}
-    for k, shape in enumerate((CP_PATH_SHAPE, CP_RAGGED_SHAPE)):
+    for k, shape in enumerate((CP_PATH_SHAPE, CP_RAGGED_SHAPE, CP_WIDE_SHAPE)):
         for dtype in CP_DTYPES:
             ops = cp_operands(shape, dtype, SEED + 30 + k)
             got = (*sc._launch_cp_fwd(*ops[:8]), *sc._launch_cp_bwd(*ops))
@@ -375,7 +410,7 @@ def ls_kernel_phase(sc):
 
     kernels = {"ls_fwd": "out", "ls_bwd_x": "dx", "ls_bwd_w": "dw"}
     worst = dict.fromkeys(kernels, 0.0)
-    for k, shape in enumerate((LS_PATH_SHAPE, LS_RAGGED_SHAPE)):
+    for k, shape in enumerate((LS_PATH_SHAPE, LS_RAGGED_SHAPE, LS_WIDE_SHAPE)):
         for dtype in CP_DTYPES:
             xr, xi, wr, wi, gr, gi = ls_operands(shape, dtype, SEED + 40 + k)
             got = {"out": sc._launch_ls_fwd(xr, xi, wr, wi),
@@ -1542,6 +1577,176 @@ def fused_timing_phase(sc, max_err, launches):
     return entries
 
 
+# -- phase 10: the LM pool's RMSNorm and flash attention -------------------------------
+def lm_operands(seed):
+    """RMSNorm rows and weights, and causal attention q, k, v, on the card
+    at each dtype: {(kind, tag, dtype): operands}."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for dtype in LM_DTYPES:
+        for N, D in RMS_SHAPES:
+            out[("rms", D, dtype)] = (torch.randn(N, D, generator=g, device="cuda").to(dtype),
+                                      (torch.rand(D, generator=g, device="cuda") + 0.5).to(dtype))
+        for tag, BH, S, D in FLASH_SHAPES:
+            out[("flash", tag, dtype)] = tuple(
+                torch.randn(BH, S, D, generator=g, device="cuda").to(dtype) for _ in range(3))
+    return out
+
+
+def flash_rows_oracle(q, k, v, rows):
+    """``flash_attention_ref`` (causal) of the query ``rows`` alone, in f32:
+    the whole S x S oracle does not fit at 32k."""
+    qf = q[:, rows].float()
+    s = torch.matmul(qf, k.float().transpose(1, 2)) * (1.0 / q.shape[-1] ** 0.5)
+    keep = rows[:, None] >= torch.arange(k.shape[1], device=q.device)[None, :]
+    s = torch.where(keep[None], s, torch.tensor(-1e30, device=q.device))
+    return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+
+
+def rms_check(got, want):
+    """f32: 1e-6 relative per element; half: >= 99.9 % bit-equal, every
+    element within one ulp of the dtype.  Returns the check's numbers."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if want.dtype == torch.float32:
+        rel = (err / (w.abs() + 1e-30)).max().item()
+        return {"max_abs_err": err.max().item(), "max_rel_err": rel, "ok": rel <= 1e-6}
+    a = want.abs()
+    ulp = (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).float()
+    equal = (g == w).float().mean().item()
+    worst = (err / ulp).max().item()
+    return {"max_abs_err": err.max().item(), "bit_equal_share": equal, "max_ulps": worst,
+            "ok": equal >= 0.999 and worst <= 1.0}
+
+
+def sdpa_backend(q, k, v):
+    """The backend ``scaled_dot_product_attention(is_causal=True)`` picks
+    for these operands (PyTorch's own dispatch rule)."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
+
+
+def lm_kernel_phase():
+    """RMSNorm and flash attention, the reference's ``kernels.ops`` entry
+    points, at the LM pool's shapes.  Their path: ``ops.rmsnorm`` and
+    ``ops.flash_attention`` called once per shape and dtype, with the
+    launch counts set to 0 just before and read just after.  Then each
+    kernel against its plain version on the same inputs (RMSNorm: f32
+    1e-6 relative per element, half >= 99.9 % bit-equal and within one
+    ulp; flash attention: f32 1e-5 relative L2, half within 1/4 of the
+    plain version's gap to the causal oracle on 256 query rows), a zeroed
+    output checked to fail, and the times: kernel and plain version with
+    CUDA events, the library call (``F.rms_norm``,
+    ``F.scaled_dot_product_attention(is_causal=True)``, top-left aligned
+    like the reference's mask) beside them.  Returns the kernels line's
+    entries (bf16 at the first shape)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+
+    torch.cuda.empty_cache()
+    sets = lm_operands(SEED + 60)
+    fa.launches_flash, rn.launches_rmsnorm = 0, 0
+    for (kind, tag, dtype), ops_ in sets.items():
+        if kind == "rms":
+            y = ops.rmsnorm(ops_[0][None], ops_[1])
+        else:
+            y = ops.flash_attention(*(t[None] for t in ops_), causal=True)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(y.float()).all()) or y.shape[1:] != ops_[0].shape:
+            fail(f"ops {kind} at {tag} {dtype}: output not finite or misshaped")
+    launches = {"rms": rn.launches_rmsnorm, "flash": fa.launches_flash}
+    emit("lm_launches", rmsnorm=launches["rms"], flash_attention=launches["flash"],
+         calls_per_kernel=len(LM_DTYPES) * 2)
+    if launches["rms"] != len(LM_DTYPES) * len(RMS_SHAPES) or \
+            launches["flash"] != len(LM_DTYPES) * len(FLASH_SHAPES):
+        fail(f"the LM path did not launch each kernel once per call: {launches}")
+
+    rows = {}
+    for (kind, tag, dtype), ops_ in sets.items():
+        if kind == "rms":
+            x, w = ops_
+            N, D = x.shape
+            got, want = rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w)
+            check = rms_check(got, want)
+            zero_ok = rms_check(torch.zeros_like(want), want)["ok"]
+            size = x.element_size()
+            bound = _bound(2 * N * D * size + D * size, 3 * N * D)
+            t = {"ms": event_ms(rn.rmsnorm, [(x, w)], 20),
+                 "plain_ms": event_ms(rn.rmsnorm_plain, [(x, w)], 5),
+                 "library_ms": event_ms(lambda x, w, D=D: F.rms_norm(x, (D,), w, 1e-6),
+                                        [(x, w)], 20)}
+            shape = [N, D]
+        else:
+            q, k, v = ops_
+            BH, S, D = q.shape
+            got = fa.flash_attention(q, k, v, causal=True)
+            plain = fa.flash_attention_plain(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            pick = torch.linspace(0, S - 1, FLASH_ORACLE_ROWS, device="cuda").long()
+            oracle = flash_rows_oracle(q, k, v, pick)
+            err_all = rel_l2_dev(got, plain)
+            gap = rel_l2_dev(plain[:, pick], oracle)
+            if dtype == torch.float32:
+                err, limit = err_all, 1e-5
+            else:
+                err, limit = rel_l2_dev(got[:, pick], plain[:, pick]), 0.25 * gap
+            check = {"rel_l2": err, "limit": limit, "ok": err <= limit,
+                     "rel_l2_all_rows": err_all, "plain_gap_to_oracle_rows": gap,
+                     "max_abs_err": (got.float() - plain.float()).abs().max().item()}
+            zero_ok = 1.0 <= limit
+            size = q.element_size()
+            pairs = S * (S + 1) // 2           # causal (query, key) pairs, S = Sk
+            flops = 4 * BH * D * pairs
+            bound = _bound(4 * BH * S * D * size, flops, flops if size == 2 else 0)
+            lib = [(q[None], k[None], v[None])]
+            try:
+                lib_ms = event_ms(lambda *a: F.scaled_dot_product_attention(*a, is_causal=True),
+                                  lib, 2)
+                backend = sdpa_backend(*lib[0])
+            except RuntimeError as exc:   # no SDPA backend takes this shape and dtype
+                lib_ms, backend = None, f"failed: {str(exc)[:120]}"
+            t = {"ms": event_ms(lambda *a: fa.flash_attention(*a, causal=True), [ops_], 2),
+                 "plain_ms": event_ms(lambda *a: fa.flash_attention_plain(*a, causal=True),
+                                      [ops_], 1),
+                 "library_ms": lib_ms, "library_backend": backend}
+            shape = [BH, S, S, D]
+            del got, plain, oracle
+        emit("lm_kernel_vs_plain", kernel=kind, shape=shape, config=str(tag),
+             dtype=str(dtype), **check, zeroed_output_passes=zero_ok)
+        if not check["ok"]:
+            fail(f"{kind} at {tag} {dtype} disagrees with its plain version: {check}")
+        if zero_ok:
+            fail(f"{kind} at {tag} {dtype}: the check would accept a zeroed output")
+        emit("kernel_time", kernel=kind, shape=shape, config=str(tag), mode=str(dtype),
+             timing="cuda events, back-to-back launches", **t, **bound)
+        rows[(kind, tag, dtype)] = {**t, **bound, "max_abs_err": check["max_abs_err"]}
+        torch.cuda.empty_cache()
+    del sets
+    torch.cuda.empty_cache()
+
+    meta = {"rms": ("rmsnorm_fwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:20",
+                    RMS_SHAPES[0][1], RMS_SHAPES[1][1]),
+            "flash": ("flash_attention_fwd", "flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:28", FLASH_SHAPES[0][0],
+                      FLASH_SHAPES[1][0])}
+    entries = []
+    for kind, (name, src, replaces, first, second) in meta.items():
+        t = rows[(kind, first, torch.bfloat16)]
+        entries.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": launches[kind],
+            "max_abs_err": max(r["max_abs_err"] for (k, _, _), r in rows.items() if k == kind),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "ms_f32_mode": rows[(kind, first, torch.float32)]["ms"],
+            "ms_second_shape_bf16": rows[(kind, second, torch.bfloat16)]["ms"],
+            "bound_ms_second_shape_bf16": rows[(kind, second, torch.bfloat16)]["bound_ms"]})
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -1550,7 +1755,7 @@ def main():
 
     t0 = time.perf_counter()
     card = device_phase()
-    build_phase(sc)
+    build_phase()
     max_err = {"fwd": kernel_phase(sc), **backward_kernel_phase(sc), **cp_kernel_phase(sc),
                **ls_kernel_phase(sc), **fused_kernel_phase(sc)}
     served, staged_serve = serve_phase(sc)
@@ -1579,7 +1784,7 @@ def main():
     del swe
     entries = (timing_phase(sc, max_err, launches) + cp_timing_phase(sc, max_err, launches)
                + ls_timing_phase(sc, max_err, launches)
-               + fused_timing_phase(sc, max_err, launches))
+               + fused_timing_phase(sc, max_err, launches) + lm_kernel_phase())
     emit("done", seconds=time.perf_counter() - t0)
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -39,11 +39,19 @@
 //    N = I against conj(w) transposed (bwd_x).  The weight's l-slice is
 //    strided by L in w, so a small staging kernel first writes w as f32 in
 //    (L, K, N) order into a workspace; each ls_mix block (64-order tile, l,
-//    b) then copies its contiguous l-slice (32 KB at 64 x 64) and its x (or
-//    g) tile into shared memory.  Threads run along m, which is contiguous in
-//    x and out, so loads and stores coalesce; a thread keeps 8 output
-//    channels of one order in registers, fed by one x load and two float4
-//    broadcasts of the weight per 32 FMAs.
+//    b, chunk of NC output channels) then copies its l-slice (32 KB at
+//    64 x 64) and its x (or g) tile into shared memory, KC input channels
+//    at a time.  Threads run along m, which is contiguous in x and out, so
+//    loads and stores coalesce; a thread keeps 8 output channels of one
+//    order in registers, fed by one x load and two float4 broadcasts of the
+//    weight per 32 FMAs.
+//    Channel tiles: where the whole slice [K][N pad 8] and the tile [K][64]
+//    fit in 227 KB (K = N up to 139) one chunk covers both axes.  Otherwise
+//    the host (`ls_plan` in kernels/spectral_contract.py) takes output chunks
+//    of NC <= 64 channels as a grid axis and input chunks of KC channels,
+//    a partial sum waiting in a [NC][64] tile of shared memory between input
+//    chunks, so every sum keeps the order of one chunk and a rerun is
+//    bit-identical.  No width is refused.
 //  * ls_bwd_w: one block per (l, 64 x 64 tile of (i, o)), walking every
 //    (b, m) term in a fixed order through 32-order chunks of x and g in
 //    shared memory; a thread owns a 4 x 4 register tile of (i, o), strided by
@@ -93,12 +101,13 @@ struct Fmt<FMT_F16> {
 
 __host__ __device__ inline int pad_ng(int n) { return (n + NG - 1) / NG * NG; }
 
-long long mix_smem_floats(int K, int N) {
-  // the weight's l-slice [K][N pad 8] and the x (or g) tile [K][TM], re/im
-  return 2LL * K * pad_ng(N) + 2LL * K * TM;
-}
+__host__ __device__ inline int n_tiles(int n, int t) { return n > 0 ? (n + t - 1) / t : 1; }
 
-int n_tiles(int n, int t) { return (n + t - 1) / t; }
+long long mix_smem_floats(int K, int KC, int NC) {
+  // the weight chunk [KC][NC] and the x (or g) chunk [KC][TM], re/im, and
+  // the partial sums [NC][TM] where more than one chunk covers K
+  return 2LL * KC * NC + 2LL * KC * TM + (n_tiles(K, KC) > 1 ? 2LL * NC * TM : 0);
+}
 
 // ---------------------------------------------------------------------------
 // Staging: ws[l][k][n] = w[i][o][l] as f32 (re, then im after L*I*O floats),
@@ -123,89 +132,107 @@ ls_stage_w_kernel(const typename Fmt<FMT>::T* __restrict__ wr,
 }
 
 // ---------------------------------------------------------------------------
-// ls_mix: block (order tile m0..m0+TM, degree l, batch row b).
+// ls_mix: block (order tile m0..m0+TM, degree l, batch row b x output chunk).
 //   out[b][n][l][m] = sum_k a[b][k][l][m] * W[k][n]      (BWD: * conj(W[k][n]))
+// over output channels n0..n0+NC (NC a multiple of NG), input channels in
+// chunks of KC (CHUNKED), or all K at once (one chunk: no partial sums).
 // ---------------------------------------------------------------------------
-template <int FMT, bool BWD>
+template <int FMT, bool BWD, bool CHUNKED>
 __global__ void __launch_bounds__(NT)
 ls_mix_kernel(const typename Fmt<FMT>::T* __restrict__ ar,
               const typename Fmt<FMT>::T* __restrict__ ai,
               const float* __restrict__ ws,
               typename Fmt<FMT>::T* __restrict__ outr,
               typename Fmt<FMT>::T* __restrict__ outi,
-              int K, int N, int L, int M) {
+              int K, int N, int L, int M, int KC, int NC) {
   using F = Fmt<FMT>;
   extern __shared__ __align__(16) float smem[];
-  const int NP = pad_ng(N);
-  float* swr = smem;            // W, [K][NP], zero past N
-  float* swi = swr + K * NP;
-  float* sar = swi + K * NP;    // a, [K][TM], zero past M
-  float* sai = sar + K * TM;
+  float* swr = smem;            // the W chunk, [KC][NC], zero past N
+  float* swi = swr + KC * NC;
+  float* sar = swi + KC * NC;   // the a chunk, [KC][TM], zero past M
+  float* sai = sar + KC * TM;
+  float* spr = sai + KC * TM;   // partial sums, [NC][TM], if K takes chunks
+  float* spi = spr + NC * TM;
 
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * TM;
-  const size_t l = blockIdx.y, b = blockIdx.z;
+  const int nnc = n_tiles(pad_ng(N), NC);
+  const size_t l = blockIdx.y, b = blockIdx.z / nnc;
+  const int n0 = (blockIdx.z % nnc) * NC, ncp = min(NC, pad_ng(N) - n0);
+  const int nkc = CHUNKED ? n_tiles(K, KC) : 1;
   const size_t kn = static_cast<size_t>(K) * N;
   const float* wlr = ws + l * kn;
   const float* wli = ws + static_cast<size_t>(L) * kn + l * kn;
 
-  for (int t = tid; t < K * NP; t += NT) {
-    const int k = t / NP, n = t % NP;
-    swr[t] = n < N ? wlr[k * N + n] : 0.f;
-    swi[t] = n < N ? wli[k * N + n] : 0.f;
-  }
-  for (int t = tid; t < K * TM; t += NT) {
-    const int k = t / TM, m = m0 + t % TM;
-    float vr = 0.f, vi = 0.f;
-    if (m < M) {
-      const size_t off = ((b * K + k) * L + l) * M + m;
-      vr = F::ld(ar[off]);
-      vi = F::ld(ai[off]);
+  for (int c = 0; c < nkc; ++c) {
+    const int k0 = c * KC, nk = CHUNKED ? min(KC, K - k0) : K;
+    if (c > 0) __syncthreads();
+    for (int t = tid; t < nk * NC; t += NT) {
+      const int k = k0 + t / NC, n = n0 + t % NC;
+      swr[t] = n < N ? wlr[static_cast<size_t>(k) * N + n] : 0.f;
+      swi[t] = n < N ? wli[static_cast<size_t>(k) * N + n] : 0.f;
     }
-    sar[t] = vr;
-    sai[t] = vi;
-  }
-  __syncthreads();
+    for (int t = tid; t < nk * TM; t += NT) {
+      const int k = k0 + t / TM, m = m0 + t % TM;
+      float vr = 0.f, vi = 0.f;
+      if (m < M) {
+        const size_t off = ((b * K + k) * L + l) * M + m;
+        vr = F::ld(ar[off]);
+        vi = F::ld(ai[off]);
+      }
+      sar[t] = vr;
+      sai[t] = vi;
+    }
+    __syncthreads();
 
-  for (int t = tid; t < (NP / NG) * TM; t += NT) {
-    const int n0 = NG * (t / TM), mm = t % TM, m = m0 + mm;
-    if (m >= M) continue;
-    float accr[NG], acci[NG];
-#pragma unroll
-    for (int j = 0; j < NG; ++j) {
-      accr[j] = 0.f;
-      acci[j] = 0.f;
-    }
-    for (int k = 0; k < K; ++k) {
-      const float xr = sar[k * TM + mm], xi = sai[k * TM + mm];
-      const float4 r0 = *reinterpret_cast<const float4*>(swr + k * NP + n0);
-      const float4 r1 = *reinterpret_cast<const float4*>(swr + k * NP + n0 + 4);
-      const float4 i0 = *reinterpret_cast<const float4*>(swi + k * NP + n0);
-      const float4 i1 = *reinterpret_cast<const float4*>(swi + k * NP + n0 + 4);
-      const float pr[NG] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
-      const float pi[NG] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
+    for (int t = tid; t < (ncp / NG) * TM; t += NT) {
+      const int j0 = NG * (t / TM), mm = t % TM, m = m0 + mm;
+      if (m >= M) continue;
+      float accr[NG], acci[NG];
 #pragma unroll
       for (int j = 0; j < NG; ++j) {
-        if (BWD) {   // a * conj(W)
-          accr[j] = fmaf(xr, pr[j], accr[j]);
-          accr[j] = fmaf(xi, pi[j], accr[j]);
-          acci[j] = fmaf(xi, pr[j], acci[j]);
-          acci[j] = fmaf(-xr, pi[j], acci[j]);
-        } else {     // a * W
-          accr[j] = fmaf(xr, pr[j], accr[j]);
-          accr[j] = fmaf(-xi, pi[j], accr[j]);
-          acci[j] = fmaf(xr, pi[j], acci[j]);
-          acci[j] = fmaf(xi, pr[j], acci[j]);
+        accr[j] = CHUNKED && c > 0 ? spr[(j0 + j) * TM + mm] : 0.f;
+        acci[j] = CHUNKED && c > 0 ? spi[(j0 + j) * TM + mm] : 0.f;
+      }
+      for (int k = 0; k < nk; ++k) {
+        const float xr = sar[k * TM + mm], xi = sai[k * TM + mm];
+        const float4 r0 = *reinterpret_cast<const float4*>(swr + k * NC + j0);
+        const float4 r1 = *reinterpret_cast<const float4*>(swr + k * NC + j0 + 4);
+        const float4 i0 = *reinterpret_cast<const float4*>(swi + k * NC + j0);
+        const float4 i1 = *reinterpret_cast<const float4*>(swi + k * NC + j0 + 4);
+        const float pr[NG] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+        const float pi[NG] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+          if (BWD) {   // a * conj(W)
+            accr[j] = fmaf(xr, pr[j], accr[j]);
+            accr[j] = fmaf(xi, pi[j], accr[j]);
+            acci[j] = fmaf(xi, pr[j], acci[j]);
+            acci[j] = fmaf(-xr, pi[j], acci[j]);
+          } else {     // a * W
+            accr[j] = fmaf(xr, pr[j], accr[j]);
+            accr[j] = fmaf(-xi, pi[j], accr[j]);
+            acci[j] = fmaf(xr, pi[j], acci[j]);
+            acci[j] = fmaf(xi, pr[j], acci[j]);
+          }
         }
       }
-    }
+      if (CHUNKED && c < nkc - 1) {
 #pragma unroll
-    for (int j = 0; j < NG; ++j) {
-      const int n = n0 + j;
-      if (n >= N) break;
-      const size_t off = ((b * N + n) * L + l) * M + m;
-      outr[off] = F::st(accr[j]);
-      outi[off] = F::st(acci[j]);
+        for (int j = 0; j < NG; ++j) {
+          spr[(j0 + j) * TM + mm] = accr[j];
+          spi[(j0 + j) * TM + mm] = acci[j];
+        }
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        const int n = n0 + j0 + j;
+        if (n >= N) break;
+        const size_t off = ((b * N + n) * L + l) * M + m;
+        outr[off] = F::st(accr[j]);
+        outi[off] = F::st(acci[j]);
+      }
     }
   }
 }
@@ -309,16 +336,20 @@ ls_bwd_w_kernel(const typename Fmt<FMT>::T* __restrict__ xr,
 template <int FMT, bool BWD>
 int launch_mix(const void* ar, const void* ai, const void* wr, const void* wi,
                void* outr, void* outi, float* ws, int B, int I, int O, int L, int M,
-               cudaStream_t stream) {
+               int KC, int NC, cudaStream_t stream) {
   using T = typename Fmt<FMT>::T;
   const int K = BWD ? O : I, N = BWD ? I : O;
-  const size_t smem = mix_smem_floats(K, N) * sizeof(float);
-  if (smem > SMEM_MAX) return -2;
+  const size_t smem = mix_smem_floats(K, KC, NC) * sizeof(float);
+  if (smem > SMEM_MAX || KC < 1 || NC < NG || NC % NG != 0) return -2;
   // opt in to more than 48 KB of dynamic shared memory once, at the first
   // launch (never inside a CUDA graph capture, which follows a warm-up)
-  static const cudaError_t opted = cudaFuncSetAttribute(
-      ls_mix_kernel<FMT, BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-  if (opted != cudaSuccess) return static_cast<int>(opted);
+  static const cudaError_t opted[2] = {
+      cudaFuncSetAttribute(ls_mix_kernel<FMT, BWD, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX),
+      cudaFuncSetAttribute(ls_mix_kernel<FMT, BWD, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX)};
+  if (opted[0] != cudaSuccess) return static_cast<int>(opted[0]);
+  if (opted[1] != cudaSuccess) return static_cast<int>(opted[1]);
   const size_t total = static_cast<size_t>(I) * O * L;
   if (total > 0) {   // no channels: the products are empty sums, zeros
     const int stage_blocks = static_cast<int>(std::min<size_t>((total + NT - 1) / NT, 4096));
@@ -327,10 +358,12 @@ int launch_mix(const void* ar, const void* ai, const void* wr, const void* wi,
     const int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;
   }
-  const dim3 grid(n_tiles(M, TM), L, B);
-  ls_mix_kernel<FMT, BWD><<<grid, NT, smem, stream>>>(
+  const dim3 grid(n_tiles(M, TM), L, B * n_tiles(pad_ng(N), NC));
+  auto* kernel = n_tiles(K, KC) > 1 ? ls_mix_kernel<FMT, BWD, true>
+                                    : ls_mix_kernel<FMT, BWD, false>;
+  kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(ar), static_cast<const T*>(ai), ws, static_cast<T*>(outr),
-      static_cast<T*>(outi), K, N, L, M);
+      static_cast<T*>(outi), K, N, L, M, KC, NC);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -349,16 +382,19 @@ int launch_bwd_w(const void* xr, const void* xi, const void* gr, const void* gi,
 template <bool BWD>
 int dispatch_mix(const void* ar, const void* ai, const void* wr, const void* wi,
                  void* outr, void* outi, void* workspace, int B, int I, int O, int L,
-                 int M, int fmt, void* stream) {
+                 int M, int KC, int NC, int fmt, void* stream) {
   float* ws = static_cast<float*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
     case FMT_F32:
-      return launch_mix<FMT_F32, BWD>(ar, ai, wr, wi, outr, outi, ws, B, I, O, L, M, s);
+      return launch_mix<FMT_F32, BWD>(ar, ai, wr, wi, outr, outi, ws, B, I, O, L, M, KC,
+                                      NC, s);
     case FMT_BF16:
-      return launch_mix<FMT_BF16, BWD>(ar, ai, wr, wi, outr, outi, ws, B, I, O, L, M, s);
+      return launch_mix<FMT_BF16, BWD>(ar, ai, wr, wi, outr, outi, ws, B, I, O, L, M, KC,
+                                       NC, s);
     case FMT_F16:
-      return launch_mix<FMT_F16, BWD>(ar, ai, wr, wi, outr, outi, ws, B, I, O, L, M, s);
+      return launch_mix<FMT_F16, BWD>(ar, ai, wr, wi, outr, outi, ws, B, I, O, L, M, KC,
+                                      NC, s);
   }
   return -1;
 }
@@ -367,14 +403,15 @@ int dispatch_mix(const void* ar, const void* ai, const void* wr, const void* wi,
 
 // C interface, loaded with ctypes.  The launchers launch on `stream`,
 // allocate nothing, and return cudaGetLastError(), -1 for an unknown format
-// code or -2 for widths whose working set exceeds a block's shared memory
-// (the Python wrapper checks both first).  ls_fwd and ls_bwd_x take an f32
-// workspace of spectral_contract_ls_workspace(I, O, L) floats.
+// code or -2 for a channel plan (KC input, NC output channels per chunk)
+// whose working set exceeds a block's shared memory (the Python wrapper
+// plans within it).  ls_fwd and ls_bwd_x take an f32 workspace of
+// spectral_contract_ls_workspace(I, O, L) floats.
 
-// bytes of shared memory an ls_fwd (K = I, N = O) or ls_bwd_x (K = O, N = I)
-// block needs
-extern "C" long long spectral_contract_ls_smem(int K, int N) {
-  return mix_smem_floats(K, N) * static_cast<long long>(sizeof(float));
+// bytes of shared memory an ls_fwd (K = I) or ls_bwd_x (K = O) block needs
+// under the plan (KC, NC)
+extern "C" long long spectral_contract_ls_smem(int K, int KC, int NC) {
+  return mix_smem_floats(K, KC, NC) * static_cast<long long>(sizeof(float));
 }
 
 extern "C" long long spectral_contract_ls_workspace(int I, int O, int L) {
@@ -384,17 +421,17 @@ extern "C" long long spectral_contract_ls_workspace(int I, int O, int L) {
 extern "C" int spectral_contract_ls_fwd(const void* xr, const void* xi, const void* wr,
                                         const void* wi, void* outr, void* outi,
                                         void* workspace, int B, int I, int O, int L, int M,
-                                        int fmt, void* stream) {
-  return dispatch_mix<false>(xr, xi, wr, wi, outr, outi, workspace, B, I, O, L, M, fmt,
-                             stream);
+                                        int KC, int NC, int fmt, void* stream) {
+  return dispatch_mix<false>(xr, xi, wr, wi, outr, outi, workspace, B, I, O, L, M, KC, NC,
+                             fmt, stream);
 }
 
 extern "C" int spectral_contract_ls_bwd_x(const void* gr, const void* gi, const void* wr,
                                           const void* wi, void* dxr, void* dxi,
                                           void* workspace, int B, int I, int O, int L,
-                                          int M, int fmt, void* stream) {
-  return dispatch_mix<true>(gr, gi, wr, wi, dxr, dxi, workspace, B, I, O, L, M, fmt,
-                            stream);
+                                          int M, int KC, int NC, int fmt, void* stream) {
+  return dispatch_mix<true>(gr, gi, wr, wi, dxr, dxi, workspace, B, I, O, L, M, KC, NC,
+                            fmt, stream);
 }
 
 extern "C" int spectral_contract_ls_bwd_w(const void* xr, const void* xi, const void* gr,

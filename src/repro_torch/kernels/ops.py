@@ -14,7 +14,9 @@ SFNO's order-shared contraction and ``LSharedContract``.
 contract -> irFFT pipeline through ``FusedSpectral``, on the weight that
 ``gather_corner_weights`` lays out; ``resolve_fuse_spectral`` and
 ``fused_spectral_viable`` decide, from the device, shapes and policy
-alone, when ``core.spectral`` takes it.
+alone, when ``core.spectral`` takes it.  ``flash_attention`` and
+``rmsnorm`` are the LM pool's substrate kernels behind the reference's
+entry points; no model calls them.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ import torch
 
 from repro_torch.precision import FULL, PrecisionPolicy
 
+from . import flash_attention as _flash
+from . import rmsnorm as _rmsnorm
 from .spectral_contract import (
     L2_BUDGET,
     SMEM_LIMIT,
@@ -277,3 +281,26 @@ def spectral_conv_fused(x: torch.Tensor, w_re: torch.Tensor, w_im: torch.Tensor,
     if fft_out.spectral_is_half:
         y = y.to(fft_out.compute_dtype)
     return y.to(in_dtype)
+
+
+# -- the LM pool's substrate kernels ------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """(B, H, S, D) attention; folds (B, H) into the kernel's batch axis.
+    k and v are (B, H, Sk, D)."""
+    B, H, S, D = q.shape
+    Sk = k.shape[2]
+    out = _flash.flash_attention(
+        q.reshape(B * H, S, D), k.reshape(B * H, Sk, D), v.reshape(B * H, Sk, D),
+        causal=causal, block_q=block_q, block_k=block_k)
+    return out.reshape(B, H, S, D)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
+            block_rows: int = 256) -> torch.Tensor:
+    """Rank-agnostic RMSNorm over the last axis."""
+    shape = x.shape
+    out = _rmsnorm.rmsnorm(x.reshape(-1, shape[-1]), w, eps=eps, block_rows=block_rows)
+    return out.reshape(shape)

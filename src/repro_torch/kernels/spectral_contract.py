@@ -58,9 +58,9 @@ of ``repro.kernels.spectral_contract``; their sources
 
 Dispatch follows the tensors' device: CPU tensors take the plain
 versions, CUDA tensors launch the kernels or raise.  Each source is
-compiled with ``nvcc`` for ``sm_90a`` at first use, into
-``build/repro_torch_kernels/`` at the repository root, and loaded with
-``ctypes``.  ``launches``, ``launches_bwd_x``, ``launches_bwd_w``,
+compiled with ``nvcc`` for ``sm_90a`` at first use by ``kernels.build``,
+into ``build/repro_torch_kernels/`` at the repository root, and loaded
+with ``ctypes``.  ``launches``, ``launches_bwd_x``, ``launches_bwd_w``,
 ``launches_cp_fwd``, ``launches_cp_bwd``, ``launches_ls_fwd``,
 ``launches_ls_bwd_x``, ``launches_ls_bwd_w``, ``launches_fused_fwd`` and
 ``launches_fused_bwd`` count the kernels' launches.
@@ -69,16 +69,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import subprocess
-from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
+
+from .build import BUILD_DIR, CSRC, NVCC_FLAGS, _bind, _call, build  # noqa: F401
 
 #: kernel launches since the counts were last set to 0
 launches = 0
@@ -92,16 +90,12 @@ launches_ls_bwd_w = 0
 launches_fused_fwd = 0
 launches_fused_bwd = 0
 
-CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "spectral_contract.cu"
 SOURCE_BWD = CSRC / "spectral_contract_bwd.cu"
 SOURCE_CP = CSRC / "spectral_contract_cp.cu"
 SOURCE_LS = CSRC / "spectral_contract_lshared.cu"
 SOURCE_FUSED = CSRC / "spectral_fused.cu"
 SOURCES = (SOURCE, SOURCE_BWD, SOURCE_CP, SOURCE_LS, SOURCE_FUSED)
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: format codes of the C interface
 _FMT = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -270,14 +264,6 @@ def contract_magnitude(xr, xi, wr, wi) -> torch.Tensor:
     The backward's magnitudes are the same contraction over O or B:
     ``Σ_o |g||w|`` and ``Σ_b |x||g|``."""
     return torch.einsum("bim,iom->bom", torch.hypot(xr, xi), torch.hypot(wr, wi))
-
-
-def _call(fn, name, device, *args):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} failed to launch: CUDA error {rc}")
 
 
 def _launch_fwd(xr, xi, wr, wi, cast_to, out_dtype):
@@ -495,16 +481,65 @@ class CPContract(torch.autograd.Function):
         return _launch_cp_bwd(*ops, gr.contiguous(), gi.contiguous())
 
 
-def _cp_smem(name: str, I: int, O: int, R: int) -> int:
-    """Shared memory a block of ``cp_fwd``/``cp_bwd`` needs at these
-    widths; raises where it exceeds what a block may have."""
-    need = int(getattr(_library_cp(), f"spectral_contract_cp_{name}_smem")(I, O, R, 0))
-    if need > SMEM_LIMIT:
+#: mode tiles of cp_fwd and cp_bwd, and cp_bwd's padded rank-tile row
+#: (``TMF``, ``TMB``, ``TP`` in ``csrc/spectral_contract_cp.cu``)
+_CP_TMF, _CP_TMB, _CP_TP = 32, 16, 17
+_SMEM_FLOATS = SMEM_LIMIT // 4
+
+
+def _pad(n: int, k: int) -> int:
+    return -(-n // k) * k
+
+
+def cp_fwd_plan(I: int, O: int, R: int) -> Tuple[int, int, int]:
+    """``cp_fwd``'s channel chunks: ``(IC, OC, smem bytes)``.  The t/u
+    tile [R][32] stays resident; the x and U_i chunk of IC input channels
+    and the U_oᵀ chunk of OC output channels (a multiple of 4) take the
+    rest of a block's 227 KB, one chunk each wherever the whole channel
+    axes fit.  Raises ``ValueError`` for a rank whose tiles leave no room
+    for one channel (R > 784)."""
+    RP, OP = _pad(R, 4), _pad(O, 4)
+    resident = 2 * RP * _CP_TMF
+    per_i = 2 * (_CP_TMF + RP)
+    avail = _SMEM_FLOATS - resident
+    if I * per_i + 2 * R * OP <= avail:
+        IC, OC = max(I, 1), max(OP, 4)
+    else:
+        OC = min(OP, max(4, avail // 2 // max(2 * R, 1) // 4 * 4))
+        IC = min(I, (avail - 2 * R * OC) // per_i)
+    need = 4 * (resident + IC * per_i + 2 * R * OC)
+    if IC < 1 or OC < 4 or need > SMEM_LIMIT:
         raise ValueError(
-            f"spectral_contract_cp: cp_{name} holds its working set in shared "
-            f"memory, and I={I}, O={O}, R={R} need {need} bytes, more than a "
-            f"block's {SMEM_LIMIT}")
-    return need
+            f"spectral_contract_cp: cp_fwd keeps the rank tiles of R={R} resident in "
+            f"shared memory, and with one channel beside them a block needs more than "
+            f"its {SMEM_LIMIT} bytes (R <= 784 fits)")
+    return IC, OC, need
+
+
+def cp_bwd_plan(I: int, O: int, R: int) -> Tuple[int, int, bool, int]:
+    """``cp_bwd``'s channel chunks: ``(IC, OC, acc_smem, smem bytes)``.
+    The u, dt and dW tiles ([R][16]) stay resident; one chunk covers each
+    channel axis, and dU_i/dU_o stay in shared memory, wherever they fit;
+    else dU_i/dU_o go to the block's slice of the workspace, and then the
+    x/U_i and g/U_o chunks share what is left.  Raises ``ValueError`` for
+    a rank whose tiles leave no room for one channel of each (R > 558)."""
+    resident = 2 * (2 * R * _CP_TP + R * _CP_TMB)
+    per = 2 * (_CP_TMB + R)            # one channel of x and U_i (or g and U_o)
+    acc = 2 * (I + O) * R
+    if resident + (I + O) * per + acc <= _SMEM_FLOATS:
+        IC, OC, acc_smem = max(I, 1), max(O, 1), True
+    else:
+        acc_smem = False
+        c = (_SMEM_FLOATS - resident) // per
+        IC = min(I, max(c // 2, c - O)) if I else 1
+        OC = min(O, c - IC) if O else 1
+    need = 4 * (resident + (IC + OC) * per + (acc if acc_smem else 0))
+    if IC < 1 or OC < 1 or need > SMEM_LIMIT:
+        raise ValueError(
+            f"spectral_contract_cp: cp_bwd keeps the rank tiles of R={R} resident in "
+            f"shared memory, and with one channel of each side beside them a block "
+            f"needs more than its {SMEM_LIMIT} bytes (R <= 558 fits)")
+    return IC, OC, acc_smem, need
 
 
 def _launch_cp_fwd(xr, xi, uir, uii, uor, uoi, wr, wi):
@@ -515,10 +550,10 @@ def _launch_cp_fwd(xr, xi, uir, uii, uor, uoi, wr, wi):
     outi = torch.empty_like(outr)
     if outr.numel() == 0:
         return outr, outi
-    _cp_smem("fwd", I, O, R)
+    IC, OC, _ = cp_fwd_plan(I, O, R)
     ptrs = [t.data_ptr() for t in (xr, xi, uir, uii, uor, uoi, wr, wi, outr, outi)]
     _call(_library_cp().spectral_contract_cp_fwd, "spectral_contract_cp_fwd",
-          xr.device, *ptrs, B, I, O, R, M, _FMT[xr.dtype])
+          xr.device, *ptrs, B, I, O, R, M, IC, OC, _FMT[xr.dtype])
     launches_cp_fwd += 1
     return outr, outi
 
@@ -531,13 +566,13 @@ def _launch_cp_bwd(xr, xi, uir, uii, uor, uoi, wr, wi, gr, gi):
     grads = [torch.empty_like(t) for t in (xr, xi, uir, uii, uor, uoi, wr, wi)]
     if xr.numel() == 0 or gr.numel() == 0:
         return tuple(g.zero_() for g in grads)
-    _cp_smem("bwd", I, O, R)
+    IC, OC, acc_smem, _ = cp_bwd_plan(I, O, R)
     lib = _library_cp()
     work = torch.empty(int(lib.spectral_contract_cp_bwd_workspace(I, O, R, M)),
                        dtype=torch.float32, device=xr.device)
     ptrs = [t.data_ptr() for t in (xr, xi, uir, uii, uor, uoi, wr, wi, gr, gi, *grads, work)]
     _call(lib.spectral_contract_cp_bwd, "spectral_contract_cp_bwd", xr.device,
-          *ptrs, B, I, O, R, M, _FMT[xr.dtype])
+          *ptrs, B, I, O, R, M, IC, OC, int(acc_smem), _FMT[xr.dtype])
     launches_cp_bwd += 1
     return tuple(grads)
 
@@ -678,18 +713,32 @@ class LSharedContract(torch.autograd.Function):
         return dxr, dxi, dwr, dwi
 
 
+#: orders per ``ls_mix`` block and output channels per thread (``TM``,
+#: ``NG`` in ``csrc/spectral_contract_lshared.cu``)
+_LS_TM, _LS_NG = 64, 8
+
+
+def ls_plan(K: int, N: int) -> Tuple[int, int, int]:
+    """``ls_mix``'s channel chunks for ``ls_fwd`` (K = I, N = O) or
+    ``ls_bwd_x`` (K = O, N = I): ``(KC, NC, smem bytes)``.  One chunk
+    covers both axes wherever the weight's degree slice [K][N pad 8] and
+    the [K][64] tile fit in a block's 227 KB; otherwise output chunks of
+    NC <= 64 channels (a grid axis) and input chunks of KC channels, with
+    a [NC][64] tile of partial sums.  Every width fits."""
+    NP = max(_pad(N, _LS_NG), _LS_NG)
+    if 2 * K * (NP + _LS_TM) <= _SMEM_FLOATS:
+        KC, NC = max(K, 1), NP
+    else:
+        NC = min(NP, 64)
+        KC = min(K, (_SMEM_FLOATS - 2 * NC * _LS_TM) // (2 * (NC + _LS_TM)))
+    partial = 2 * NC * _LS_TM if -(-K // KC) > 1 else 0
+    return KC, NC, 4 * (2 * KC * (NC + _LS_TM) + partial)
+
+
 def _ls_workspace(K: int, N: int, L: int, device) -> torch.Tensor:
     """The f32 workspace of ``ls_fwd`` (K = I, N = O) or ``ls_bwd_x``
-    (K = O, N = I): the weight restaged in (L, K, N) order; raises where a
-    block's working set exceeds its shared memory."""
-    lib = _library_ls()
-    need = int(lib.spectral_contract_ls_smem(K, N))
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"spectral_contract_lshared: a block holds the weight's degree slice in "
-            f"shared memory, and {K} x {N} channels need {need} bytes, more than a "
-            f"block's {SMEM_LIMIT}")
-    return torch.empty(int(lib.spectral_contract_ls_workspace(K, N, L)),
+    (K = O, N = I): the weight restaged in (L, K, N) order."""
+    return torch.empty(int(_library_ls().spectral_contract_ls_workspace(K, N, L)),
                        dtype=torch.float32, device=device)
 
 
@@ -702,9 +751,10 @@ def _launch_ls_fwd(xr, xi, wr, wi):
     if outr.numel() == 0:
         return outr, outi
     work = _ls_workspace(I, O, L, xr.device)
+    KC, NC, _ = ls_plan(I, O)
     _call(_library_ls().spectral_contract_ls_fwd, "spectral_contract_ls_fwd", xr.device,
           *(t.data_ptr() for t in (xr, xi, wr, wi, outr, outi, work)),
-          B, I, O, L, M, _FMT[xr.dtype])
+          B, I, O, L, M, KC, NC, _FMT[xr.dtype])
     launches_ls_fwd += 1
     return outr, outi
 
@@ -718,9 +768,10 @@ def _launch_ls_bwd_x(gr, gi, wr, wi):
     if dxr.numel() == 0:
         return dxr, dxi
     work = _ls_workspace(O, I, L, wr.device)
+    KC, NC, _ = ls_plan(O, I)
     _call(_library_ls().spectral_contract_ls_bwd_x, "spectral_contract_ls_bwd_x",
           wr.device, *(t.data_ptr() for t in (gr, gi, wr, wi, dxr, dxi, work)),
-          B, I, O, L, M, _FMT[wr.dtype])
+          B, I, O, L, M, KC, NC, _FMT[wr.dtype])
     launches_ls_bwd_x += 1
     return dxr, dxi
 
@@ -1138,46 +1189,6 @@ def _launch_fused_bwd(x, wgr, wgi, g, modes, cast_to, sim_fmt):
     return dx, dwr, dwi
 
 
-def build(source: Path = SOURCE) -> Tuple[Path, str]:
-    """Compile ``source`` unless its library is already built.  Returns
-    the library's path and the compiler's report (``-Xptxas -v``:
-    registers, shared memory, spills)."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    stem = f"{source.stem}_{digest.hexdigest()[:12]}"
-    lib, log = BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.log"
-    if lib.exists() and log.exists():
-        return lib, log.read_text()
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{stem}.{os.getpid()}.tmp.so"
-    cmd = [str(Path(CUDA_HOME) / "bin" / "nvcc"), *NVCC_FLAGS, "-o", str(tmp),
-           str(source)]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    report = res.stdout + res.stderr
-    # rename into place last: a concurrent builder sees a whole library or none
-    log.write_text(report)
-    os.replace(tmp, lib)
-    return lib, report
-
-
-def _bind(source: Path, **signatures: Tuple[int, int]) -> ctypes.CDLL:
-    """Load ``source``'s library; each launcher ``name=(pointers, ints)``
-    takes that many pointers, then ints, then the stream."""
-    path, _ = build(source)
-    lib = ctypes.CDLL(str(path))
-    for name, (n_ptr, n_int) in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
     return _bind(SOURCE, spectral_contract_dense_fwd=(6, 6))
@@ -1191,21 +1202,22 @@ def _library_bwd() -> ctypes.CDLL:
 
 @functools.cache
 def _library_cp() -> ctypes.CDLL:
-    lib = _bind(SOURCE_CP, spectral_contract_cp_fwd=(10, 6),
-                spectral_contract_cp_bwd=(19, 6))
-    for name in ("spectral_contract_cp_fwd_smem", "spectral_contract_cp_bwd_smem",
-                 "spectral_contract_cp_bwd_workspace"):
+    lib = _bind(SOURCE_CP, spectral_contract_cp_fwd=(10, 8),
+                spectral_contract_cp_bwd=(19, 9))
+    for name, n_int in (("spectral_contract_cp_fwd_smem", 5),
+                        ("spectral_contract_cp_bwd_smem", 6),
+                        ("spectral_contract_cp_bwd_workspace", 4)):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_int] * 4
+        fn.argtypes = [ctypes.c_int] * n_int
         fn.restype = ctypes.c_longlong
     return lib
 
 
 @functools.cache
 def _library_ls() -> ctypes.CDLL:
-    lib = _bind(SOURCE_LS, spectral_contract_ls_fwd=(7, 6),
-                spectral_contract_ls_bwd_x=(7, 6), spectral_contract_ls_bwd_w=(6, 6))
-    lib.spectral_contract_ls_smem.argtypes = [ctypes.c_int] * 2
+    lib = _bind(SOURCE_LS, spectral_contract_ls_fwd=(7, 8),
+                spectral_contract_ls_bwd_x=(7, 8), spectral_contract_ls_bwd_w=(6, 6))
+    lib.spectral_contract_ls_smem.argtypes = [ctypes.c_int] * 3
     lib.spectral_contract_ls_smem.restype = ctypes.c_longlong
     lib.spectral_contract_ls_workspace.argtypes = [ctypes.c_int] * 3
     lib.spectral_contract_ls_workspace.restype = ctypes.c_longlong

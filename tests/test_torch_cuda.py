@@ -2,8 +2,9 @@
 contraction kernels (the dense forward and its two backward kernels, the
 CP kernels ``cp_fwd`` and ``cp_bwd``, the order-shared kernels ``ls_fwd``,
 ``ls_bwd_x`` and ``ls_bwd_w``, the fused layer's ``fused_fwd`` and
-``fused_bwd``) against their plain PyTorch versions on the card, the
-wrappers' checks, the autograd Functions on CUDA against the CPU, the FNO
+``fused_bwd``) and the LM pool's RMSNorm and flash attention kernels
+against their plain PyTorch versions on the card, the wrappers'
+checks, the autograd Functions on CUDA against the CPU, the FNO
 (staged, pinned with ``fuse_spectral=False``, and fused, its default on
 the card), TFNO and SFNO serving and training paths on CUDA against the
 CPU, the SHT's synthesis on CUDA against the CPU, and the Navier-Stokes
@@ -24,7 +25,10 @@ import torch
 from repro_torch.configs.fno_paper import FNO_DARCY_SMOKE
 from repro_torch.core.precision import FORMAT_EPS, dtype_name
 from repro_torch.core.theory import contract_budget, store_budget
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import spectral_contract as sc
 from repro_torch.models import fno_infer, init_fno
 from repro_torch.precision import get_policy
@@ -574,6 +578,46 @@ def test_cp_kernels_match_plain_within_budget(cuda, shape, dtype):
         assert _cp_budget_ok(got, want, mags[name], eps), name
 
 
+def _check_cp_kernels(ops_, dtype):
+    """cp_fwd and cp_bwd once each against their plain versions within
+    ``store_budget``, which a zeroed output must exceed."""
+    before = (sc.launches_cp_fwd, sc.launches_cp_bwd)
+    got = (*sc._launch_cp_fwd(*ops_[:8]), *sc._launch_cp_bwd(*ops_))
+    torch.cuda.synchronize()
+    assert (sc.launches_cp_fwd, sc.launches_cp_bwd) == (before[0] + 1, before[1] + 1)
+    want = (*sc.spectral_contract_cp_plain(*ops_[:8]), *sc.spectral_contract_cp_bwd_plain(*ops_))
+    mags = sc.cp_magnitudes(*ops_)
+    eps = FORMAT_EPS[dtype_name(dtype)]
+    names = ("out", "out", "dx", "dx", "dU_i", "dU_i", "dU_o", "dU_o", "dW", "dW")
+    for g, w, name in zip(got, want, names, strict=True):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert _cp_budget_ok(g, w, mags[name], eps), name
+        assert not _cp_budget_ok(torch.zeros_like(w), w, mags[name], eps), name
+
+
+@pytest.mark.parametrize("width", [76, 105, 160])
+@pytest.mark.parametrize("dtype", CP_DTYPES)
+def test_cp_kernels_match_plain_past_the_old_width_limits(cuda, width, dtype):
+    """Just past where cp_bwd (76) and cp_fwd (105) refused before the
+    channel tiling, and at 160: I = O = R = width, ragged M."""
+    _check_cp_kernels(_cp_operands(3, width, width, width, 300, dtype, cuda, seed=width),
+                      dtype)
+
+
+def test_cp_channel_plans_match_the_kernels_smem(cuda):
+    lib = sc._library_cp()
+    for width in (16, 64, 76, 105, 160, 256):
+        IC, OC, need = sc.cp_fwd_plan(width, width, width)
+        assert lib.spectral_contract_cp_fwd_smem(width, width, width, IC, OC) == need
+        IC, OC, acc_smem, need = sc.cp_bwd_plan(width, width, width)
+        assert lib.spectral_contract_cp_bwd_smem(width, width, width, IC, OC,
+                                                 int(acc_smem)) == need
+    lib = sc._library_ls()
+    for K, N in ((64, 64), (139, 139), (140, 140), (200, 200), (1000, 8)):
+        KC, NC, need = sc.ls_plan(K, N)
+        assert lib.spectral_contract_ls_smem(K, KC, NC) == need
+
+
 @pytest.mark.parametrize("dtype", CP_DTYPES)
 def test_cp_kernels_rerun_bit_identically(cuda, dtype):
     ops_ = _cp_operands(8, 64, 64, 64, 1764, dtype, cuda, seed=3)
@@ -612,12 +656,14 @@ def test_cp_wrapper_rejects_what_the_kernels_do_not_take(cuda):
         sc.CPContract.apply(ops_[0].cpu(), *ops_[1:])
     with pytest.raises(TypeError):
         sc.CPContract.apply(*(t.double() for t in ops_))
-    # cp_bwd holds dU_i and dU_o of its tile in shared memory: a working
-    # set beyond a block's is refused before launch
-    big = _cp_operands(1, 160, 160, 160, 4, torch.float32, cuda)
+    # the kernels tile the channel axes: I = O = R = 160, beyond what a
+    # block held before, launches and agrees with the plain versions
+    wide = _cp_operands(1, 160, 160, 160, 4, torch.float32, cuda)
+    _check_cp_kernels(wide, torch.float32)
+    # what remains is a limit on the rank, refused before launch
     before = sc.launches_cp_bwd
-    with pytest.raises(ValueError, match="shared"):
-        sc._launch_cp_bwd(*big)
+    with pytest.raises(ValueError, match="R <= 558"):
+        sc._launch_cp_bwd(*_cp_operands(1, 2, 2, 600, 4, torch.float32, cuda))
     assert sc.launches_cp_bwd == before
 
 
@@ -752,6 +798,33 @@ def test_lshared_kernels_match_plain_within_budget(cuda, shape, dtype):
             assert _cp_budget_ok(g, w, mags[name], eps), name
 
 
+def _check_ls_kernels(ops_, dtype):
+    """ls_fwd, ls_bwd_x and ls_bwd_w once each against their plain versions
+    within ``store_budget``, which a zeroed result must exceed."""
+    xr, xi, wr, wi, gr, gi = ops_
+    got = {"out": sc._launch_ls_fwd(xr, xi, wr, wi), "dx": sc._launch_ls_bwd_x(gr, gi, wr, wi),
+           "dw": sc._launch_ls_bwd_w(xr, xi, gr, gi)}
+    torch.cuda.synchronize()
+    want = {"out": sc.spectral_contract_lshared_plain(xr, xi, wr, wi),
+            "dx": sc.spectral_contract_lshared_bwd_x_plain(gr, gi, wr, wi),
+            "dw": sc.spectral_contract_lshared_bwd_w_plain(xr, xi, gr, gi)}
+    mags = sc.lshared_magnitudes(xr, xi, wr, wi, gr, gi)
+    eps = FORMAT_EPS[dtype_name(dtype)]
+    for name, pair in got.items():
+        for g, w in zip(pair, want[name], strict=True):
+            assert g.dtype == dtype and g.shape == w.shape, name
+            assert _cp_budget_ok(g, w, mags[name], eps), name
+            assert not _cp_budget_ok(torch.zeros_like(w), w, mags[name], eps), name
+
+
+@pytest.mark.parametrize("I,O", [(140, 140), (200, 200), (300, 72), (72, 300)])
+@pytest.mark.parametrize("dtype", CP_DTYPES)
+def test_lshared_kernels_match_plain_past_the_old_width_limit(cuda, I, O, dtype):
+    """From I = O = 140, where ls_fwd and ls_bwd_x refused before the
+    channel tiling, and with one side wide: ragged L and M."""
+    _check_ls_kernels(_ls_operands(2, I, O, 5, 70, dtype, cuda, seed=I + O), dtype)
+
+
 @pytest.mark.parametrize("dtype", CP_DTYPES)
 def test_lshared_kernels_rerun_bit_identically(cuda, dtype):
     xr, xi, wr, wi, gr, gi = _ls_operands(8, 64, 64, 128, 128, dtype, cuda, seed=3)
@@ -791,13 +864,9 @@ def test_lshared_wrapper_rejects_what_the_kernels_do_not_take(cuda):
         sc.LSharedContract.apply(xr.half(), xi, wr, wi)
     with pytest.raises(TypeError):
         sc.LSharedContract.apply(*(t.double() for t in (xr, xi, wr, wi)))
-    # ls_fwd holds the weight's degree slice in shared memory: widths
-    # beyond a block's are refused before launch
-    big = _ls_operands(1, 200, 200, 2, 4, torch.float32, cuda)
-    before = sc.launches_ls_fwd
-    with pytest.raises(ValueError, match="shared"):
-        sc._launch_ls_fwd(*big[:4])
-    assert sc.launches_ls_fwd == before
+    # ls_mix tiles the channel axes: I = O = 200, beyond the weight slice a
+    # block held before, launches and agrees with the plain versions
+    _check_ls_kernels(_ls_operands(1, 200, 200, 2, 4, torch.float32, cuda), torch.float32)
 
 
 @pytest.mark.parametrize("nlon,mmax", [(64, 16), (32, 17)])
@@ -923,3 +992,120 @@ def test_swe_solver_cuda_matches_cpu(cuda):
     got = solve_swe_linear(phi0.to(cuda), 32, 64, steps=40)
     for g, w in zip(got, want, strict=True):
         assert _rel_l2(g.cpu().numpy(), w.numpy()) <= 1e-5
+
+
+# -- the LM pool's RMSNorm and flash attention ------------------------------------------
+def _ulp(t):
+    """The spacing of ``t``'s dtype above |t|, as f32."""
+    a = t.abs()
+    return (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).float()
+
+
+def _rmsnorm_ok(got, want):
+    """f32: 1e-6 relative per element; half: >= 99.9 % bit-equal and every
+    element within one ulp of the dtype (the sums' order differs)."""
+    g, w = got.float(), want.float()
+    if want.dtype == torch.float32:
+        return bool(((g - w).abs() <= 1e-6 * w.abs() + 1e-30).all())
+    return (g == w).float().mean().item() >= 0.999 and bool(((g - w).abs() <= _ulp(want)).all())
+
+
+@pytest.mark.parametrize("N,D", [(1, 16), (8, 100), (300, 960), (300, 6144), (257, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_rmsnorm_kernel_matches_plain(cuda, N, D, dtype):
+    g = torch.Generator().manual_seed(N + D)
+    x = torch.randn(N, D, generator=g).to(dtype).to(cuda)
+    w = (torch.rand(D, generator=g) + 0.5).to(dtype).to(cuda)
+    before = rn.launches_rmsnorm
+    got = rn.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rn.launches_rmsnorm == before + 1
+    want = rn.rmsnorm_plain(x, w)
+    assert got.dtype == dtype and got.shape == (N, D)
+    assert _rmsnorm_ok(got, want)
+    assert not _rmsnorm_ok(torch.zeros_like(want), want)
+    assert torch.equal(got, rn.rmsnorm(x, w))
+
+
+@pytest.mark.parametrize("xdtype,wdtype", [(torch.bfloat16, torch.float32),
+                                           (torch.float32, torch.float16)])
+def test_rmsnorm_kernel_takes_a_weight_of_another_dtype(cuda, xdtype, wdtype):
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(64, 960, generator=g).to(xdtype).to(cuda)
+    w = (torch.rand(960, generator=g) + 0.5).to(wdtype).to(cuda)
+    got = ops.rmsnorm(x.reshape(4, 16, 960), w)
+    assert got.dtype == xdtype and _rmsnorm_ok(got.reshape(64, 960), rn.rmsnorm_plain(x, w))
+
+
+def _flash_operands(BH, S, Sk, D, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(BH, n, D, generator=g).to(dtype).to(device) for n in (S, Sk, Sk)]
+
+
+def _flash_ok(got, plain, oracle):
+    """f32: 1e-5 relative L2 to the plain version; half: a quarter of the
+    plain version's gap to the oracle.  Returns (ok, error, limit)."""
+    err = _rel_l2(got.float().cpu(), plain.float().cpu())
+    limit = 1e-5 if plain.dtype == torch.float32 else \
+        0.25 * _rel_l2(plain.float().cpu(), oracle.float().cpu())
+    return err <= limit, err, limit
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,Sk", [(256, 256), (300, 333), (333, 200)])
+def test_flash_kernel_matches_plain(cuda, D, dtype, causal, S, Sk):
+    """The kernel against the plain version at the default kv block of
+    128, aligned and unaligned lengths, S != Sk; a rerun is bit-identical
+    and a zeroed output falls outside the limit."""
+    q, k, v = _flash_operands(3, S, Sk, D, dtype, cuda, seed=S + Sk + D)
+    before = fa.launches_flash
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches_flash == before + 1
+    assert got.dtype == dtype and got.shape == (3, S, D)
+    plain = fa.flash_attention_plain(q, k, v, causal=causal)
+    oracle = kref.flash_attention_ref(q, k, v, causal=causal)
+    ok, err, limit = _flash_ok(got, plain, oracle)
+    assert ok, (err, limit)
+    assert not _flash_ok(torch.zeros_like(plain), plain, oracle)[0]
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("block_k", [32, 64, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernel_follows_the_kv_block(cuda, block_k, dtype):
+    """p is rounded against its kv block's max: the kernel at block_k
+    agrees with the plain version at the same block_k."""
+    q, k, v = _flash_operands(2, 200, 200, 64, dtype, cuda, seed=block_k)
+    got = ops.flash_attention(q[None], k[None], v[None], causal=True, block_k=block_k)[0]
+    plain = fa.flash_attention_plain(q, k, v, causal=True, block_k=block_k)
+    ok, err, limit = _flash_ok(got, plain, kref.flash_attention_ref(q, k, v, causal=True))
+    assert ok, (err, limit)
+
+
+def test_lm_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, k, v = _flash_operands(2, 64, 64, 64, torch.float32, cuda)
+    x = torch.randn(4, 32, device=cuda)
+    w = torch.ones(32, device=cuda)
+    before = (fa.launches_flash, rn.launches_rmsnorm)
+    with pytest.raises(TypeError, match="one dtype"):
+        fa.flash_attention(q, k.half(), v)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="operands on"):
+        fa.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(*_flash_operands(2, 64, 64, 48, torch.float32, cuda))
+    with pytest.raises(ValueError, match="block_k"):
+        fa.flash_attention(q, k, v, block_k=256)
+    with pytest.raises(TypeError):
+        rn.rmsnorm(x.double(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        rn.rmsnorm(torch.randn(32, 4, device=cuda).T, w)
+    with pytest.raises(ValueError, match="operands on"):
+        rn.rmsnorm(x, w.cpu())
+    assert (fa.launches_flash, rn.launches_rmsnorm) == before

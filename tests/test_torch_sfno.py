@@ -593,3 +593,18 @@ def test_paper_schedule_trains_an_sfno():
     hist = tt.run(lambda s: batches[s])
     assert [h["policy"] for h in hist] == ["mixed_fno_bf16", "amp_bf16", "amp_bf16", "full"]
     assert all(np.isfinite(h["loss"]) for h in hist) and tt.stats["skipped_steps"] == 0
+
+
+# -- the order-shared kernels' channel plan ----------------------------------------------
+@pytest.mark.parametrize("K,N", [(1, 1), (64, 64), (139, 139), (140, 140), (192, 192),
+                                 (200, 200), (1000, 8), (8, 5000), (3000, 3000)])
+def test_ls_channel_plan_fits_a_block_at_every_width(K, N):
+    """``ls_fwd``/``ls_bwd_x`` tile the channel axes: every width fits a
+    block's shared memory, with one chunk over both axes wherever the
+    weight's degree slice and the order tile fit (the path's 64 x 64, and
+    up to 139 x 139)."""
+    KC, NC, need = sc.ls_plan(K, N)
+    assert need <= sc.SMEM_LIMIT and 1 <= KC <= K and NC % 8 == 0
+    one_chunk = 2 * K * (-(-N // 8) * 8 + 64) <= sc.SMEM_LIMIT // 4
+    assert ((KC, NC) == (K, -(-N // 8) * 8)) == one_chunk
+    assert one_chunk or NC <= 64
