@@ -1395,9 +1395,9 @@ def ls_timing_phase(sc, max_err, launches):
     """ls_fwd, ls_bwd_x and ls_bwd_w at the SFNO path's shape in bf16 mode
     (mixed_fno_bf16) and f32 mode (amp, full), beside their bounds (each
     reads two operands once and writes one result: ~69 MB in bf16; 4.29
-    GFLOP, half x half in bf16 mode), their plain versions and one
-    complex64 ``torch.einsum`` each.  Returns the kernels line's entries
-    (bf16 mode)."""
+    GFLOP, half x half in bf16 mode), the bytes' achieved rate, their plain
+    versions and one complex64 ``torch.einsum`` each.  Returns the kernels
+    line's entries (bf16 mode)."""
     B, I, O, L, M = LS_PATH_SHAPE
     flops = 8 * B * I * O * L * M
     rows = {"ls_fwd": {}, "ls_bwd_x": {}, "ls_bwd_w": {}}
@@ -1421,8 +1421,9 @@ def ls_timing_phase(sc, max_err, launches):
                          x_b + g_b + w_b),
         }
         for name, (kernel, plain, nbytes) in runs.items():
-            rows[name][str(dtype)] = {"ms": graph_ms(kernel, sets),
-                                      "plain_ms": graph_ms(plain, sets),
+            ms = graph_ms(kernel, sets)
+            rows[name][str(dtype)] = {"ms": ms, "plain_ms": graph_ms(plain, sets),
+                                      "achieved_gb_per_s": nbytes / ms / 1e6,
                                       **_bound(nbytes, flops, flops if size == 2 else 0)}
         del sets
     csets = [[torch.complex(o[2 * k], o[2 * k + 1]) for k in range(3)]
@@ -1639,8 +1640,9 @@ def lm_kernel_phase():
     output checked to fail, and the times: kernel and plain version with
     CUDA events, the library call (``F.rms_norm``,
     ``F.scaled_dot_product_attention(is_causal=True)``, top-left aligned
-    like the reference's mask) beside them.  Returns the kernels line's
-    entries (bf16 at the first shape)."""
+    like the reference's mask) beside them, and flash attention's achieved
+    TFLOP/s.  Returns the kernels line's entries (bf16 at the first
+    shape)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -1708,7 +1710,8 @@ def lm_kernel_phase():
                 backend = sdpa_backend(*lib[0])
             except RuntimeError as exc:   # no SDPA backend takes this shape and dtype
                 lib_ms, backend = None, f"failed: {str(exc)[:120]}"
-            t = {"ms": event_ms(lambda *a: fa.flash_attention(*a, causal=True), [ops_], 2),
+            ms = event_ms(lambda *a: fa.flash_attention(*a, causal=True), [ops_], 2)
+            t = {"ms": ms, "achieved_tflop_per_s": flops / ms / 1e9,
                  "plain_ms": event_ms(lambda *a: fa.flash_attention_plain(*a, causal=True),
                                       [ops_], 1),
                  "library_ms": lib_ms, "library_backend": backend}

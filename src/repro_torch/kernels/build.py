@@ -33,7 +33,9 @@ def build(source: Path) -> Tuple[Path, str]:
     registers, shared memory, spills)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the headers under csrc/ are part of every source's build
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     stem = f"{source.stem}_{digest.hexdigest()[:12]}"
     lib, log = BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.log"
     if lib.exists() and log.exists():

@@ -112,6 +112,9 @@ def _check(q, k, v, block_q, block_k) -> torch.device:
         if block_k % 8 or block_k > MAX_BLOCK_K:
             raise ValueError(f"flash_attention: the kernel takes block_k a multiple of 8 "
                              f"up to {MAX_BLOCK_K}, got {block_k}")
+        if q.dtype != torch.float32 and any(t.data_ptr() % 16 for t in ops):
+            raise ValueError("flash_attention: the half-mode kernel takes 16-byte aligned "
+                             "operands")
         if q.shape[0] > 65535:
             raise ValueError(f"flash_attention: at most 65535 batch-heads, got {q.shape[0]}")
     return device

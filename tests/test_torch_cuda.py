@@ -773,13 +773,16 @@ def _ls_operands(B, I, O, L, M, dtype, device, seed=0):
 
 
 @pytest.mark.parametrize("shape", [(8, 64, 64, 128, 128), (3, 5, 7, 37, 29),
-                                   (1, 1, 1, 1, 1), (9, 17, 5, 33, 70), (2, 80, 70, 5, 40)])
+                                   (1, 1, 1, 1, 1), (9, 17, 5, 33, 70), (2, 80, 70, 5, 40),
+                                   (16, 20, 36, 9, 70)])
 @pytest.mark.parametrize("dtype", CP_DTYPES)
 def test_lshared_kernels_match_plain_within_budget(cuda, shape, dtype):
     """ls_fwd, ls_bwd_x and ls_bwd_w against their plain versions, every
     operand at ``dtype``: each result within one rounding at ``dtype``
     plus the f32 order of its magnitude contraction (``store_budget``);
-    B > 8, ragged L and M and more than one 64-channel tile included."""
+    B > 8, ragged L and M and more than one 64-channel tile included
+    (B = 16 at M = 70: ls_bwd_w's (b, m) chunks, split over two warp
+    groups, end on a ragged one)."""
     xr, xi, wr, wi, gr, gi = _ls_operands(*shape, dtype, cuda)
     before = (sc.launches_ls_fwd, sc.launches_ls_bwd_x, sc.launches_ls_bwd_w)
     got = {"out": sc._launch_ls_fwd(xr, xi, wr, wi), "dx": sc._launch_ls_bwd_x(gr, gi, wr, wi),
@@ -1054,11 +1057,14 @@ def _flash_ok(got, plain, oracle):
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("S,Sk", [(256, 256), (300, 333), (333, 200)])
+@pytest.mark.parametrize("S,Sk", [(256, 256), (300, 333), (333, 200), (1, 130), (17, 17),
+                                  (100, 700)])
 def test_flash_kernel_matches_plain(cuda, D, dtype, causal, S, Sk):
     """The kernel against the plain version at the default kv block of
-    128, aligned and unaligned lengths, S != Sk; a rerun is bit-identical
-    and a zeroed output falls outside the limit."""
+    128, aligned and unaligned lengths, S != Sk (under ``causal``, Sk > S
+    leaves whole kv blocks masked), one and 17 queries (a block's warps
+    past S); a rerun is bit-identical and a zeroed output falls outside
+    the limit."""
     q, k, v = _flash_operands(3, S, Sk, D, dtype, cuda, seed=S + Sk + D)
     before = fa.launches_flash
     got = fa.flash_attention(q, k, v, causal=causal)
@@ -1073,16 +1079,44 @@ def test_flash_kernel_matches_plain(cuda, D, dtype, causal, S, Sk):
     assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal))
 
 
-@pytest.mark.parametrize("block_k", [32, 64, 8])
+@pytest.mark.parametrize("block_k", [32, 64, 8, 24, 40, 120])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_kernel_follows_the_kv_block(cuda, block_k, dtype):
     """p is rounded against its kv block's max: the kernel at block_k
-    agrees with the plain version at the same block_k."""
+    agrees with the plain version at the same block_k, also where the
+    block is not a multiple of 16 and its last p.v step is padded."""
     q, k, v = _flash_operands(2, 200, 200, 64, dtype, cuda, seed=block_k)
     got = ops.flash_attention(q[None], k[None], v[None], causal=True, block_k=block_k)[0]
     plain = fa.flash_attention_plain(q, k, v, causal=True, block_k=block_k)
     ok, err, limit = _flash_ok(got, plain, kref.flash_attention_ref(q, k, v, causal=True))
     assert ok, (err, limit)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_half_kernel_at_head_dim_128_over_many_kv_blocks(cuda, dtype):
+    """D = 128 (8 warps a block) at S = Sk = 2048: 16 kv blocks, causal
+    skips of whole blocks and of warps; within the yardstick, which a
+    zeroed output fails, and a rerun is bit-identical."""
+    q, k, v = _flash_operands(2, 2048, 2048, 128, dtype, cuda, seed=128)
+    got = fa.flash_attention(q, k, v, causal=True)
+    plain = fa.flash_attention_plain(q, k, v, causal=True)
+    oracle = kref.flash_attention_ref(q, k, v, causal=True)
+    ok, err, limit = _flash_ok(got, plain, oracle)
+    assert ok, (err, limit)
+    assert not _flash_ok(torch.zeros_like(plain), plain, oracle)[0]
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=True))
+
+
+def test_flash_wrapper_rejects_misaligned_operands(cuda):
+    """The half-mode kernel copies K and V 16 bytes at a time: an operand
+    that does not start on 16 bytes is refused before launch."""
+    q, k, v = _flash_operands(2, 64, 64, 64, torch.bfloat16, cuda)
+    shifted = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)[1:].view_as(k)
+    shifted.copy_(k)
+    before = fa.launches_flash
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(q, shifted, v)
+    assert fa.launches_flash == before
 
 
 def test_lm_wrappers_reject_what_the_kernels_do_not_take(cuda):

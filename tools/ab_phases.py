@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Time phases of ``chip_smoke.py`` from two checkouts in turns on one GPU.
+
+    python3 tools/ab_phases.py OTHER_DIR [--phases flash,ls,sfno_train]
+
+OTHER_DIR is another checkout of this repository, labelled "parent" (for
+example the parent commit, ``git archive``d into a directory that
+``.gitignore`` lists); this checkout is labelled "change".  The phases run
+four times, parent, change, change, parent, each turn in a child process
+whose imports come from one checkout alone (its ``chip_smoke.py`` and its
+``src/``), so the two builds of the kernels never share a process.  Every
+JSON line a child prints is printed again with ``"turn"`` and
+``"checkout"`` added; other lines (ptxas reports) are dropped.
+
+Phases, each a function of the checkout's own ``chip_smoke.py``:
+
+- ``flash``: ``lm_kernel_phase``, RMSNorm and flash attention at the LM
+  pool's shapes, checked against their plain versions and timed;
+- ``ls``: ``ls_timing_phase``, ``ls_fwd``, ``ls_bwd_x`` and ``ls_bwd_w``
+  at the SFNO path's shape;
+- ``sfno_train``: ``swe_data``, then ``sfno_train_phase``, the SFNO's 12
+  training steps with their checks and profiles.
+
+Exits non-zero if a child fails.  Needs one card.
+"""
+import argparse
+import json
+import subprocess
+import sys
+from collections import defaultdict
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+PHASES = ("flash", "ls", "sfno_train")
+
+
+def turn(checkout: Path, phases):
+    """Run ``phases`` from ``checkout``'s chip_smoke.py in this process."""
+    sys.path[:0] = [str(checkout / "src"), str(checkout)]
+    import chip_smoke as cs
+    from repro_torch.kernels import spectral_contract as sc
+
+    cs.device_phase()
+    cs.build_phase()
+    for phase in phases:
+        if phase == "flash":
+            cs.lm_kernel_phase()
+        elif phase == "ls":
+            cs.ls_timing_phase(sc, defaultdict(float), defaultdict(int))
+        else:
+            cs.sfno_train_phase(sc, cs.swe_data())
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", type=Path, help="the other checkout (labelled parent)")
+    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    phases = args.phases.split(",")
+    if any(p not in PHASES for p in phases):
+        ap.error(f"phases are {PHASES}, got {phases}")
+    if args.turn:          # a child: `other` is the checkout to run
+        turn(args.other.resolve(), phases)
+        return 0
+    checkouts = {"parent": args.other.resolve(), "change": HERE}
+    for k, label in enumerate(("parent", "change", "change", "parent")):
+        child = subprocess.run(
+            [sys.executable, __file__, str(checkouts[label]), "--phases", args.phases,
+             "--turn"], capture_output=True, text=True, check=False)
+        for line in child.stdout.splitlines():
+            if line.startswith("{"):
+                print(json.dumps({"turn": k, "checkout": label, **json.loads(line)}),
+                      flush=True)
+        if child.returncode != 0:
+            print(child.stderr[-4000:], file=sys.stderr)
+            print(f"ab_phases: turn {k} ({label}) failed with {child.returncode}",
+                  file=sys.stderr)
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
