@@ -112,9 +112,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    f32 1e-6 relative per element, half >= 99.9 % bit-equal and within one
    ulp; flash attention: f32 1e-5 relative L2, half within 1/4 of the
    plain version's gap to the causal oracle on 256 query rows), a zeroed
-   output checked to fail, and each timed with CUDA events beside its
-   bound, its plain version and ``F.rms_norm`` or ``F.scaled_dot_product_
-   attention(is_causal=True)`` (the backend it took printed).
+   output checked to fail (RMSNorm also rerun bit for bit), and each timed
+   beside its bound, its plain version and ``F.rms_norm`` or ``F.scaled_
+   dot_product_attention(is_causal=True)`` (the backend it took printed):
+   RMSNorm and ``F.rms_norm`` as a CUDA graph (``ms``, ``library_ms``) and
+   as back-to-back eager calls between CUDA events (``eager_ms``,
+   ``library_eager_ms``: the wrapper's host path included), flash
+   attention with CUDA events.
 
 The line before the last is ``{"kernels": [...]}`` (twelve kernels); the
 last is ``{"ok": true, "device": {...}}``.
@@ -563,7 +567,7 @@ def check_outputs(reqs, cfg):
 
 #: the kernels' names, as the profiler reports them
 KERNEL_NAMES = ("dense_fwd_kernel", "dense_bwd_x_kernel", "dense_bwd_w_kernel",
-                "cp_fwd_kernel", "cp_bwd_kernel", "ls_stage_w_kernel", "ls_mix_kernel",
+                "cp_fwd_kernel", "cp_bwd_kernel", "ls_mix_kernel",
                 "ls_bwd_w_kernel", "fused_fwd_kernel", "fused_bwd_kernel")
 
 
@@ -1393,7 +1397,8 @@ def cp_timing_phase(sc, max_err, launches):
 
 def ls_timing_phase(sc, max_err, launches):
     """ls_fwd, ls_bwd_x and ls_bwd_w at the SFNO path's shape in bf16 mode
-    (mixed_fno_bf16) and f32 mode (amp, full), beside their bounds (each
+    (mixed_fno_bf16), fp16 mode (mixed_fno_fp16) and f32 mode (amp, full),
+    beside their bounds (each
     reads two operands once and writes one result: ~69 MB in bf16; 4.29
     GFLOP, half x half in bf16 mode), the bytes' achieved rate, their plain
     versions and one complex64 ``torch.einsum`` each.  Returns the kernels
@@ -1401,7 +1406,7 @@ def ls_timing_phase(sc, max_err, launches):
     B, I, O, L, M = LS_PATH_SHAPE
     flops = 8 * B * I * O * L * M
     rows = {"ls_fwd": {}, "ls_bwd_x": {}, "ls_bwd_w": {}}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         # 4 operand sets (276 MB in bf16): consecutive calls find their
         # operands outside the 50 MB L2
         sets = [ls_operands(LS_PATH_SHAPE, dtype, 400 + k) for k in range(4)]
@@ -1453,6 +1458,7 @@ def ls_timing_phase(sc, max_err, launches):
             "replaces": replaces, "launches": launches[key], "max_abs_err": max_err[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": library[key],
+            "ms_fp16_mode": modes[str(torch.float16)]["ms"],
             "ms_f32_mode": modes[str(torch.float32)]["ms"]})
     return entries
 
@@ -1636,11 +1642,13 @@ def lm_kernel_phase():
     kernel against its plain version on the same inputs (RMSNorm: f32
     1e-6 relative per element, half >= 99.9 % bit-equal and within one
     ulp; flash attention: f32 1e-5 relative L2, half within 1/4 of the
-    plain version's gap to the causal oracle on 256 query rows), a zeroed
-    output checked to fail, and the times: kernel and plain version with
-    CUDA events, the library call (``F.rms_norm``,
+    plain version's gap to the causal oracle on 256 query rows; RMSNorm
+    also rerun bit for bit), a zeroed output checked to fail, and the
+    times: the kernel and the library call (``F.rms_norm``,
     ``F.scaled_dot_product_attention(is_causal=True)``, top-left aligned
-    like the reference's mask) beside them, and flash attention's achieved
+    like the reference's mask) beside each other, RMSNorm's as a CUDA
+    graph and as eager calls, flash attention's with CUDA events, the
+    plain versions with CUDA events, and flash attention's achieved
     TFLOP/s.  Returns the kernels line's entries (bf16 at the first
     shape)."""
     import torch.nn.functional as F
@@ -1672,14 +1680,25 @@ def lm_kernel_phase():
             x, w = ops_
             N, D = x.shape
             got, want = rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w)
-            check = rms_check(got, want)
+            check = {**rms_check(got, want),
+                     "plan": rn.rmsnorm_plan(D, x.dtype, w.dtype)._asdict()}
+            rerun = bool(torch.equal(got, rn.rmsnorm(x, w)))
+            check.update(rerun_bit_identical=rerun, ok=check["ok"] and rerun)
             zero_ok = rms_check(torch.zeros_like(want), want)["ok"]
             size = x.element_size()
             bound = _bound(2 * N * D * size + D * size, 3 * N * D)
-            t = {"ms": event_ms(rn.rmsnorm, [(x, w)], 20),
+
+            def library(x, w, D=D):
+                return F.rms_norm(x, (D,), w, 1e-6)
+
+            # a CUDA graph leaves the wrapper's host path out; back-to-back
+            # eager calls keep it in
+            t = {"ms": graph_ms(rn.rmsnorm, [(x, w)], 20),
+                 "eager_ms": event_ms(rn.rmsnorm, [(x, w)], 20),
                  "plain_ms": event_ms(rn.rmsnorm_plain, [(x, w)], 5),
-                 "library_ms": event_ms(lambda x, w, D=D: F.rms_norm(x, (D,), w, 1e-6),
-                                        [(x, w)], 20)}
+                 "library_ms": graph_ms(library, [(x, w)], 20),
+                 "library_eager_ms": event_ms(library, [(x, w)], 20)}
+            timing = "cuda graph of 20 launches; eager: cuda events, back-to-back calls"
             shape = [N, D]
         else:
             q, k, v = ops_
@@ -1715,6 +1734,7 @@ def lm_kernel_phase():
                  "plain_ms": event_ms(lambda *a: fa.flash_attention_plain(*a, causal=True),
                                       [ops_], 1),
                  "library_ms": lib_ms, "library_backend": backend}
+            timing = "cuda events, back-to-back launches"
             shape = [BH, S, S, D]
             del got, plain, oracle
         emit("lm_kernel_vs_plain", kernel=kind, shape=shape, config=str(tag),
@@ -1724,7 +1744,7 @@ def lm_kernel_phase():
         if zero_ok:
             fail(f"{kind} at {tag} {dtype}: the check would accept a zeroed output")
         emit("kernel_time", kernel=kind, shape=shape, config=str(tag), mode=str(dtype),
-             timing="cuda events, back-to-back launches", **t, **bound)
+             timing=timing, **t, **bound)
         rows[(kind, tag, dtype)] = {**t, **bound, "max_abs_err": check["max_abs_err"]}
         torch.cuda.empty_cache()
     del sets
@@ -1746,6 +1766,7 @@ def lm_kernel_phase():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "ms_f32_mode": rows[(kind, first, torch.float32)]["ms"],
             "ms_second_shape_bf16": rows[(kind, second, torch.bfloat16)]["ms"],
+            **({"eager_ms": t["eager_ms"]} if "eager_ms" in t else {}),
             "bound_ms_second_shape_bf16": rows[(kind, second, torch.bfloat16)]["bound_ms"]})
     return entries
 

@@ -32,26 +32,36 @@
 // TFLOP/s against 41 us of bytes, bound by operations.
 //
 // What the designs do about it.
-//  * ls_fwd and ls_bwd_x are one kernel, ls_mix, simply: f32 FMAs on the
-//    CUDA cores (so a half mode runs at the f32 rate, several times its
-//    bound), the operands staged in shared memory as f32.  A batched complex
-//    GEMM per degree, (B*M x K) times (K x N), K = I and N = O (forward) or
-//    K = O and N = I against conj(w) transposed (bwd_x).  The weight's
-//    l-slice is strided by L in w, so a small staging kernel first writes w
-//    as f32 in (L, K, N) order into a workspace; each ls_mix block (64-order
-//    tile, l, b, chunk of NC output channels) then copies its l-slice (32 KB
-//    at 64 x 64) and its x (or g) tile into shared memory, KC input channels
-//    at a time.  Threads run along m, which is contiguous in x and out, so
-//    loads and stores coalesce; a thread keeps 8 output channels of one
-//    order in registers, fed by one x load and two float4 broadcasts of the
-//    weight per 32 FMAs.
-//    Channel tiles: where the whole slice [K][N pad 8] and the tile [K][64]
-//    fit in 227 KB (K = N up to 139) one chunk covers both axes.  Otherwise
-//    the host (`ls_plan` in kernels/spectral_contract.py) takes output chunks
-//    of NC <= 64 channels as a grid axis and input chunks of KC channels,
-//    a partial sum waiting in a [NC][64] tile of shared memory between input
-//    chunks, so every sum keeps the order of one chunk and a rerun is
-//    bit-identical.  No width is refused.
+//  * ls_fwd and ls_bwd_x are one kernel, ls_mix: per degree l a batched
+//    complex GEMM out(N x M) = W(N x K) . a(K x M) over each batch row,
+//    K = I, N = O and W = w[:, :, l]^T (forward), or K = O, N = I and
+//    W = conj(w[:, :, l]) (bwd_x), a = x or g.  A block of 8 warps takes
+//    one degree and a tile of NC = 64 output channels (and, where the grid
+//    would leave SMs idle, a share of the batch rows: `splits`), keeps the
+//    weight's degree slice resident in shared memory, read once, and
+//    streams the (batch row, 128-order chunk, input-channel chunk) tiles
+//    of a past it through a ring of 2 stages filled by 16-byte cp.async
+//    (elementwise where M or an operand is off 16 bytes), so W is read once
+//    per degree and a and out once each.  w[:, :, l] is strided by L in w:
+//    the block gathers its slice straight from w (from L2: w is 2 MB at the
+//    path in bf16), no staging pass.
+//    Half modes: mma.sync m16n8k16 with f32 accumulators, W as A (stored
+//    [n][k], ldmatrix) and a as B (stored [k][m], ldmatrix.trans), each
+//    warp a 32 x 32 (channel x order) tile of the 64 x 128 output chunk,
+//    the imaginary part's sign flipped on the fragment (exact); outputs go
+//    through shared memory to 16-byte rows along m.  f32 mode: the CUDA
+//    cores (store_budget assumes exact products, which TF32 would not
+//    give), each thread a 4 x 8 complex register tile (4 channels, 8
+//    orders) fed by float4 reads of a and broadcast float4 reads of W
+//    ([k][n]): 6 shared loads per 128 FMAs; outputs stored as float4.
+//    Wider inputs than one chunk (KC = 64 halves, 32 f32) add the chunks
+//    into the same accumulators in order; the W slice stays resident up to
+//    K = 448 (halves) / 320 (f32), past that each stage carries its chunk
+//    of W too (gathered with plain loads).  Every sum runs over k in
+//    ascending order in one accumulator, whatever the width or the split,
+//    so a rerun is bit-identical.  The host (`ls_plan` in
+//    kernels/spectral_contract.py) picks the resident or streamed W and
+//    the split before the launch; every width fits.
 //  * ls_bwd_w, for each degree two real GEMMs over K = 2*B*M terms,
 //        dw_r = [xr | xi] . [gr | gi]^T      dw_i = [xr | xi] . [gi | -gr]^T
 //    (negating a half is exact), is bound by streaming x and g.  One block
@@ -72,8 +82,8 @@
 //    4 x 8 complex register tile a thread fed by float2 reads, 24 shared
 //    loads per 256 FMAs.  No atomics: a rerun is bit-identical.
 //
-// Registers of ls_bwd_w (`-Xptxas -v`, sm_90a), no spills: 146 in half
-// modes, 168 in f32 mode.
+// Registers (`-Xptxas -v`, sm_90a), no spills: ls_mix 162-166 in half
+// modes, 152-154 in f32 mode; ls_bwd_w 146 in half modes, 168 in f32 mode.
 
 #include <algorithm>
 #include <cstdint>
@@ -89,8 +99,6 @@ namespace {
 using namespace mma_sync;
 
 constexpr int NT = 256;          // threads per block
-constexpr int TM = 64;           // orders per ls_mix block
-constexpr int NG = 8;            // output channels per ls_mix thread
 constexpr int TW = 64;           // (i, o) tile edge of an ls_bwd_w block
 constexpr int SMEM_MAX = 232448;  // 227 KB, the most a block may opt in to
 
@@ -120,142 +128,317 @@ struct Fmt<FMT_F16> {
   __device__ static T st(float v) { return __float2half_rn(v); }
 };
 
-__host__ __device__ inline int pad_ng(int n) { return (n + NG - 1) / NG * NG; }
 
 __host__ __device__ inline int n_tiles(int n, int t) { return n > 0 ? (n + t - 1) / t : 1; }
 
-long long mix_smem_floats(int K, int KC, int NC) {
-  // the weight chunk [KC][NC] and the x (or g) chunk [KC][TM], re/im, and
-  // the partial sums [NC][TM] where more than one chunk covers K
-  return 2LL * KC * NC + 2LL * KC * TM + (n_tiles(K, KC) > 1 ? 2LL * NC * TM : 0);
-}
+// ---------------------------------------------------------------------------
+// ls_mix: block (degree l, tile of NC output channels, split s) of 8 warps.
+//   out[b][n][l][m] = sum_k a[b][k][l][m] * W[n][k]
+//   W[n][k] = w[k][n][l] (forward), conj(w[n][k][l]) (BWD)
+// The block's outputs (batch row b, chunk of MC orders) are its share of
+// B * ceil(M / MC); each is summed over ceil(K / KC) stages, one input
+// chunk of KC channels a stage.  A stage holds the a tile [KC][MC + pad]
+// (re, im) and, where W is not resident, the stage's chunk of W.
+// ---------------------------------------------------------------------------
+template <typename T>
+struct MixTile {
+  static constexpr bool HALF = sizeof(T) == 2;
+  static constexpr int STAGES = 2;               // 3 and 4 ran 1-3 % slower
+  static constexpr int KC = HALF ? 64 : 32;       // input channels a stage
+  static constexpr int MC = 128;                  // orders a stage
+  static constexpr int NC = 64;                   // output channels a block
+  static constexpr int EPC = 16 / static_cast<int>(sizeof(T));   // elements of 16 bytes
+  static constexpr int AP = MC + EPC;             // a row's pitch: padded by 16 bytes
+  static constexpr int A_PLANE = KC * AP;
+  // a stage's chunk of W: halves [NC][KC + 8] (k contiguous, for ldmatrix),
+  // f32 [KC][NC] (n contiguous, for float4 reads)
+  static constexpr int WSP = HALF ? KC + 8 : NC;
+  static constexpr int W_PLANE_S = HALF ? NC * WSP : KC * NC;
+  static constexpr int OP = MC + 8;               // half: the output tile's pitch
+  static constexpr int NACC = 64;                 // f32 accumulators a thread
 
-// ---------------------------------------------------------------------------
-// Staging: ws[l][k][n] = w[i][o][l] as f32 (re, then im after L*I*O floats),
-// with (k, n) = (i, o) for ls_fwd and (o, i) for ls_bwd_x.  Threads walk w in
-// its own order, so the reads coalesce.
-// ---------------------------------------------------------------------------
-template <int FMT, bool BWD>
-__global__ void __launch_bounds__(NT)
-ls_stage_w_kernel(const typename Fmt<FMT>::T* __restrict__ wr,
-                  const typename Fmt<FMT>::T* __restrict__ wi,
-                  float* __restrict__ ws, int I, int O, int L) {
-  using F = Fmt<FMT>;
-  const size_t total = static_cast<size_t>(I) * O * L;
-  for (size_t e = static_cast<size_t>(blockIdx.x) * NT + threadIdx.x; e < total;
-       e += static_cast<size_t>(gridDim.x) * NT) {
-    const size_t l = e % L, io = e / L;
-    const size_t o = io % O, i = io / O;
-    const size_t dst = BWD ? (l * O + o) * I + i : (l * I + i) * O + o;
-    ws[dst] = F::ld(wr[e]);
-    ws[total + dst] = F::ld(wi[e]);
+  // pitch of the resident W for kpad input channels, and one plane's elements
+  __host__ __device__ static int wres_pitch(int kpad) { return HALF ? kpad + 8 : NC; }
+  __host__ __device__ static long long wres_plane(int kpad) {
+    return HALF ? 1LL * NC * (kpad + 8) : 1LL * kpad * NC;
   }
-}
+  static long long smem(int K, bool wres) {
+    const int kpad = n_tiles(K, KC) * KC;
+    const long long stage = 2LL * A_PLANE + (wres ? 0 : 2LL * W_PLANE_S);
+    const long long w = wres ? 2 * wres_plane(kpad) : 0;
+    const long long out = HALF ? 2LL * NC * OP : 0;
+    return (STAGES * stage + w + out) * static_cast<long long>(sizeof(T));
+  }
+};
 
-// ---------------------------------------------------------------------------
-// ls_mix: block (order tile m0..m0+TM, degree l, batch row b x output chunk).
-//   out[b][n][l][m] = sum_k a[b][k][l][m] * W[k][n]      (BWD: * conj(W[k][n]))
-// over output channels n0..n0+NC (NC a multiple of NG), input channels in
-// chunks of KC (CHUNKED), or all K at once (one chunk: no partial sums).
-// ---------------------------------------------------------------------------
-template <int FMT, bool BWD, bool CHUNKED>
-__global__ void __launch_bounds__(NT)
+template <int FMT, bool BWD>
+__global__ void __launch_bounds__(NT, 1)   // one block an SM: its ring and W fill shared memory
 ls_mix_kernel(const typename Fmt<FMT>::T* __restrict__ ar,
               const typename Fmt<FMT>::T* __restrict__ ai,
-              const float* __restrict__ ws,
+              const typename Fmt<FMT>::T* __restrict__ wr,
+              const typename Fmt<FMT>::T* __restrict__ wi,
               typename Fmt<FMT>::T* __restrict__ outr,
               typename Fmt<FMT>::T* __restrict__ outi,
-              int K, int N, int L, int M, int KC, int NC) {
+              int B, int K, int N, int L, int M, int wres, int vec, int splits) {
   using F = Fmt<FMT>;
-  extern __shared__ __align__(16) float smem[];
-  float* swr = smem;            // the W chunk, [KC][NC], zero past N
-  float* swi = swr + KC * NC;
-  float* sar = swi + KC * NC;   // the a chunk, [KC][TM], zero past M
-  float* sai = sar + KC * TM;
-  float* spr = sai + KC * TM;   // partial sums, [NC][TM], if K takes chunks
-  float* spi = spr + NC * TM;
+  using T = typename F::T;
+  using R = MixTile<T>;
+  constexpr bool HALF = R::HALF;
+  constexpr int KC = R::KC, MC = R::MC, NC = R::NC, AP = R::AP, EPC = R::EPC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
 
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * TM;
-  const int nnc = n_tiles(pad_ng(N), NC);
-  const size_t l = blockIdx.y, b = blockIdx.z / nnc;
-  const int n0 = (blockIdx.z % nnc) * NC, ncp = min(NC, pad_ng(N) - n0);
-  const int nkc = CHUNKED ? n_tiles(K, KC) : 1;
-  const size_t kn = static_cast<size_t>(K) * N;
-  const float* wlr = ws + l * kn;
-  const float* wli = ws + static_cast<size_t>(L) * kn + l * kn;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t l = blockIdx.x;
+  const int n0 = blockIdx.y * NC, nn = min(NC, N - n0);
+  const int nkc = n_tiles(K, KC), kpad = nkc * KC;
+  const int nmc = n_tiles(M, MC), outputs = B * nmc;
+  const int per = n_tiles(outputs, splits);
+  const int o_begin = blockIdx.z * per, o_end = min(outputs, o_begin + per);
+  const int nitems = max(0, o_end - o_begin) * nkc;
 
-  for (int c = 0; c < nkc; ++c) {
-    const int k0 = c * KC, nk = CHUNKED ? min(KC, K - k0) : K;
-    if (c > 0) __syncthreads();
-    for (int t = tid; t < nk * NC; t += NT) {
-      const int k = k0 + t / NC, n = n0 + t % NC;
-      swr[t] = n < N ? wlr[static_cast<size_t>(k) * N + n] : 0.f;
-      swi[t] = n < N ? wli[static_cast<size_t>(k) * N + n] : 0.f;
+  const int stage_elems = 2 * R::A_PLANE + (wres ? 0 : 2 * R::W_PLANE_S);
+  T* const ring = sm;
+  T* const res_r = sm + R::STAGES * stage_elems;
+  T* const res_i = res_r + R::wres_plane(kpad);
+  T* const out_r = res_r + (wres ? 2 * R::wres_plane(kpad) : 0);   // halves: the output tile
+  T* const out_i = out_r + NC * R::OP;
+
+  // W's channels k0 .. k0 + nk into (dr, di), zero past K and N: halves
+  // [n][k] at `pitch`, f32 [k][n]
+  auto gather_w = [&](T* dr, T* di, int pitch, int k0, int nk) {
+#pragma unroll 4
+    for (int e = tid; e < NC * nk; e += NT) {
+      // threads along the axis that is strided by L alone in w
+      const int n = BWD ? e / nk : e % NC, k = BWD ? e % nk : e / NC;
+      const bool ok = n < nn && k0 + k < K;
+      const size_t src = BWD ? (static_cast<size_t>(n0 + n) * K + k0 + k) * L + l
+                             : (static_cast<size_t>(k0 + k) * N + n0 + n) * L + l;
+      const T vr = ok ? wr[src] : F::st(0.f), vi = ok ? wi[src] : F::st(0.f);
+      const int dst = HALF ? n * pitch + k : k * NC + n;
+      dr[dst] = vr;
+      di[dst] = vi;
     }
-    for (int t = tid; t < nk * TM; t += NT) {
-      const int k = k0 + t / TM, m = m0 + t % TM;
-      float vr = 0.f, vi = 0.f;
-      if (m < M) {
-        const size_t off = ((b * K + k) * L + l) * M + m;
-        vr = F::ld(ar[off]);
-        vi = F::ld(ai[off]);
-      }
-      sar[t] = vr;
-      sai[t] = vi;
-    }
-    __syncthreads();
+  };
 
-    for (int t = tid; t < (ncp / NG) * TM; t += NT) {
-      const int j0 = NG * (t / TM), mm = t % TM, m = m0 + mm;
-      if (m >= M) continue;
-      float accr[NG], acci[NG];
-#pragma unroll
-      for (int j = 0; j < NG; ++j) {
-        accr[j] = CHUNKED && c > 0 ? spr[(j0 + j) * TM + mm] : 0.f;
-        acci[j] = CHUNKED && c > 0 ? spi[(j0 + j) * TM + mm] : 0.f;
+  // stage q: the a tile of item q into ring slot q % STAGES (and its W chunk)
+  auto stage = [&](int q) {
+    if (q < nitems) {
+      const int o = o_begin + q / nkc, k0 = (q % nkc) * KC;
+      const size_t b = o / nmc;
+      const int m0 = (o % nmc) * MC;
+      T* st = ring + (q % R::STAGES) * stage_elems;
+      if (vec) {
+        constexpr int UPR = MC / EPC;   // 16-byte units a row
+        for (int e = tid; e < 2 * KC * UPR; e += NT) {
+          const int p = e / (KC * UPR), r = (e / UPR) % KC, c = (e % UPR) * EPC;
+          const bool ok = k0 + r < K && m0 + c < M;
+          const size_t off = ok ? ((b * K + k0 + r) * L + l) * M + m0 + c : 0;
+          cp_async16(smem_addr(st + p * R::A_PLANE + r * AP + c), (p ? ai : ar) + off,
+                     ok ? 16 : 0);
+        }
+      } else {
+        for (int e = tid; e < 2 * KC * MC; e += NT) {
+          const int p = e / (KC * MC), r = (e / MC) % KC, c = e % MC;
+          const bool ok = k0 + r < K && m0 + c < M;
+          const size_t off = ok ? ((b * K + k0 + r) * L + l) * M + m0 + c : 0;
+          st[p * R::A_PLANE + r * AP + c] = ok ? (p ? ai : ar)[off] : F::st(0.f);
+        }
       }
-      for (int k = 0; k < nk; ++k) {
-        const float xr = sar[k * TM + mm], xi = sai[k * TM + mm];
-        const float4 r0 = *reinterpret_cast<const float4*>(swr + k * NC + j0);
-        const float4 r1 = *reinterpret_cast<const float4*>(swr + k * NC + j0 + 4);
-        const float4 i0 = *reinterpret_cast<const float4*>(swi + k * NC + j0);
-        const float4 i1 = *reinterpret_cast<const float4*>(swi + k * NC + j0 + 4);
-        const float pr[NG] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
-        const float pi[NG] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
+      if (!wres) {
+        T* sw = st + 2 * R::A_PLANE;
+        gather_w(sw, sw + R::W_PLANE_S, R::WSP, k0, KC);
+      }
+    }
+    cp_async_commit();
+  };
+
 #pragma unroll
-        for (int j = 0; j < NG; ++j) {
-          if (BWD) {   // a * conj(W)
-            accr[j] = fmaf(xr, pr[j], accr[j]);
-            accr[j] = fmaf(xi, pi[j], accr[j]);
-            acci[j] = fmaf(xi, pr[j], acci[j]);
-            acci[j] = fmaf(-xr, pi[j], acci[j]);
-          } else {     // a * W
-            accr[j] = fmaf(xr, pr[j], accr[j]);
-            accr[j] = fmaf(-xi, pi[j], accr[j]);
-            acci[j] = fmaf(xr, pi[j], acci[j]);
-            acci[j] = fmaf(xi, pr[j], acci[j]);
+  for (int q = 0; q < R::STAGES - 1; ++q) stage(q);
+  if (wres) gather_w(res_r, res_i, R::wres_pitch(kpad), 0, kpad);   // seen after the first barrier
+
+  float acc[R::NACC];
+#pragma unroll
+  for (int t = 0; t < R::NACC; ++t) acc[t] = 0.f;
+  // half: the warp's 32 x 32 tile (channels 32 wn.., orders 32 wm..) and the
+  // fragments' row g and column pair t4; f32: the thread's channels 4 tn..
+  // and orders 4 tm.. and 64 + 4 tm..
+  const int wn = warp >> 2, wm = warp & 3, g = lane >> 2, t4 = lane & 3;
+  const int tn = tid >> 4, tm = tid & 15;
+
+  for (int q = 0; q < nitems; ++q) {
+    cp_async_wait<R::STAGES - 2>();   // item q has landed
+    __syncthreads();                  // and every warp is done with item q - 1
+    stage(q + R::STAGES - 1);
+    const int o = o_begin + q / nkc, kc = q % nkc, k0 = kc * KC;
+    const size_t b = o / nmc;
+    const int m0 = (o % nmc) * MC;
+    const int nk = min(KC, K - k0);   // input channels of this stage (rows past are zero)
+    const T* st = ring + (q % R::STAGES) * stage_elems;
+    const T* sar = st;
+    const T* sai = st + R::A_PLANE;
+    const T* swr = wres ? res_r : st + 2 * R::A_PLANE;
+    const T* swi = wres ? res_i : st + 2 * R::A_PLANE + R::W_PLANE_S;
+    const int wpitch = wres ? R::wres_pitch(kpad) : R::WSP;
+    const int wk0 = wres ? k0 : 0;    // W's column (halves) or row (f32) of the stage's first k
+
+    if constexpr (HALF) {
+      if (32 * wn < nn && 32 * wm < M - m0) {
+        for (int ks = 0; ks < nk; ks += 16) {
+          uint32_t war[2][4], wai[2][4], wan[2][4], br[4][2], bi[4][2];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            // matrices: channels +0 / +8 at k ks, then at k ks + 8
+            const int off = (32 * wn + 16 * mi + (lane & 7) + 8 * ((lane >> 3) & 1)) * wpitch +
+                            wk0 + ks + 8 * (lane >> 4);
+            ldsm_x4(war[mi], smem_addr(swr + off));
+            ldsm_x4(wai[mi], smem_addr(swi + off));
+#pragma unroll
+            for (int r = 0; r < 4; ++r) wan[mi][r] = neg2(wai[mi][r]);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; j += 2) {
+            // matrices: k ks / ks + 8 at orders of tile j, then of tile j + 1
+            const int off = (ks + (lane & 7) + 8 * ((lane >> 3) & 1)) * AP + 32 * wm +
+                            8 * (j + (lane >> 4));
+            uint32_t t[4];
+            ldsm_x4_trans(t, smem_addr(sar + off));
+            br[j][0] = t[0];
+            br[j][1] = t[1];
+            br[j + 1][0] = t[2];
+            br[j + 1][1] = t[3];
+            ldsm_x4_trans(t, smem_addr(sai + off));
+            bi[j][0] = t[0];
+            bi[j][1] = t[1];
+            bi[j + 1][0] = t[2];
+            bi[j + 1][1] = t[3];
+          }
+          // one product kind at a time, so consecutive mma's update other tiles
+          auto mma_all = [&](int part, const uint32_t (&a)[2][4], const uint32_t (&bb)[4][2]) {
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                float* c = acc + ((part * 2 + mi) * 4 + j) * 4;
+                float d[4] = {c[0], c[1], c[2], c[3]};
+                mma16816<T>(d, a[mi], bb[j][0], bb[j][1]);
+                c[0] = d[0];
+                c[1] = d[1];
+                c[2] = d[2];
+                c[3] = d[3];
+              }
+            }
+          };
+          if (BWD) {   // a * conj(W): re += Wr ar + Wi ai, im += Wr ai - Wi ar
+            mma_all(0, war, br);
+            mma_all(0, wai, bi);
+            mma_all(1, war, bi);
+            mma_all(1, wan, br);
+          } else {     // a * W: re += Wr ar - Wi ai, im += Wi ar + Wr ai
+            mma_all(0, war, br);
+            mma_all(0, wan, bi);
+            mma_all(1, wai, br);
+            mma_all(1, war, bi);
           }
         }
       }
-      if (CHUNKED && c < nkc - 1) {
+    } else {
+      if (8 * warp < nn) {
+#pragma unroll 2
+        for (int k = 0; k < nk; ++k) {
+          const float4 xr0 = *reinterpret_cast<const float4*>(sar + k * AP + 4 * tm);
+          const float4 xr1 = *reinterpret_cast<const float4*>(sar + k * AP + 64 + 4 * tm);
+          const float4 xi0 = *reinterpret_cast<const float4*>(sai + k * AP + 4 * tm);
+          const float4 xi1 = *reinterpret_cast<const float4*>(sai + k * AP + 64 + 4 * tm);
+          const float4 pr = *reinterpret_cast<const float4*>(swr + (wk0 + k) * NC + 4 * tn);
+          const float4 pi = *reinterpret_cast<const float4*>(swi + (wk0 + k) * NC + 4 * tn);
+          const float xr[8] = {xr0.x, xr0.y, xr0.z, xr0.w, xr1.x, xr1.y, xr1.z, xr1.w};
+          const float xi[8] = {xi0.x, xi0.y, xi0.z, xi0.w, xi1.x, xi1.y, xi1.z, xi1.w};
+          const float vr[4] = {pr.x, pr.y, pr.z, pr.w};
+          const float vi[4] = {pi.x, pi.y, pi.z, pi.w};
 #pragma unroll
-        for (int j = 0; j < NG; ++j) {
-          spr[(j0 + j) * TM + mm] = accr[j];
-          spi[(j0 + j) * TM + mm] = acci[j];
+          for (int r = 0; r < 4; ++r) {
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              float& sr = acc[r * 8 + c];
+              float& si = acc[32 + r * 8 + c];
+              if (BWD) {   // a * conj(W)
+                sr = fmaf(xr[c], vr[r], sr);
+                sr = fmaf(xi[c], vi[r], sr);
+                si = fmaf(xi[c], vr[r], si);
+                si = fmaf(-xr[c], vi[r], si);
+              } else {     // a * W
+                sr = fmaf(xr[c], vr[r], sr);
+                sr = fmaf(-xi[c], vi[r], sr);
+                si = fmaf(xr[c], vi[r], si);
+                si = fmaf(xi[c], vr[r], si);
+              }
+            }
+          }
         }
-        continue;
-      }
-#pragma unroll
-      for (int j = 0; j < NG; ++j) {
-        const int n = n0 + j0 + j;
-        if (n >= N) break;
-        const size_t off = ((b * N + n) * L + l) * M + m;
-        outr[off] = F::st(accr[j]);
-        outi[off] = F::st(acci[j]);
       }
     }
+    if (kc < nkc - 1) continue;
+
+    // the output (b, channels n0.., orders m0..) is summed: store it
+    auto gaddr = [&](int n, int m) { return ((b * N + n0 + n) * L + l) * M + m0 + m; };
+    if constexpr (HALF) {
+#pragma unroll
+      for (int t = 0; t < R::NACC; t += 2) {   // t = ((re/im * 2 + mi) * 4 + j) * 4 + e
+        const int e = t & 3, j = (t >> 2) & 3, mi = (t >> 4) & 1;
+        const int n = 32 * wn + 16 * mi + g + 8 * (e >> 1), m = 32 * wm + 8 * j + 2 * t4;
+        *reinterpret_cast<uint32_t*>((t < R::NACC / 2 ? out_r : out_i) + n * R::OP + m) =
+            pack2<T>(acc[t], acc[t + 1]);
+      }
+      __syncthreads();
+      if (vec) {
+        constexpr int UPR = MC / EPC;
+        for (int e = tid; e < 2 * NC * UPR; e += NT) {
+          const int p = e / (NC * UPR), n = (e / UPR) % NC, m = (e % UPR) * EPC;
+          if (n < nn && m0 + m < M)
+            *reinterpret_cast<uint4*>((p ? outi : outr) + gaddr(n, m)) =
+                *reinterpret_cast<const uint4*>((p ? out_i : out_r) + n * R::OP + m);
+        }
+      } else {
+        for (int e = tid; e < 2 * NC * MC; e += NT) {
+          const int p = e / (NC * MC), n = (e / MC) % NC, m = e % MC;
+          if (n < nn && m0 + m < M)
+            (p ? outi : outr)[gaddr(n, m)] = (p ? out_i : out_r)[n * R::OP + m];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int n = 4 * tn + r;
+        if (n >= nn) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = 64 * h + 4 * tm;
+          const float* sr = acc + r * 8 + 4 * h;
+          const float* si = acc + 32 + r * 8 + 4 * h;
+          if (vec) {
+            if (m0 + m < M) {
+              *reinterpret_cast<float4*>(outr + gaddr(n, m)) =
+                  make_float4(sr[0], sr[1], sr[2], sr[3]);
+              *reinterpret_cast<float4*>(outi + gaddr(n, m)) =
+                  make_float4(si[0], si[1], si[2], si[3]);
+            }
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              if (m0 + m + c < M) {
+                outr[gaddr(n, m + c)] = sr[c];
+                outi[gaddr(n, m + c)] = si[c];
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < R::NACC; ++t) acc[t] = 0.f;
   }
+  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -482,35 +665,26 @@ ls_bwd_w_kernel(const typename Fmt<FMT>::T* __restrict__ xr,
 
 template <int FMT, bool BWD>
 int launch_mix(const void* ar, const void* ai, const void* wr, const void* wi,
-               void* outr, void* outi, float* ws, int B, int I, int O, int L, int M,
-               int KC, int NC, cudaStream_t stream) {
+               void* outr, void* outi, int B, int I, int O, int L, int M, int wres,
+               int splits, cudaStream_t stream) {
   using T = typename Fmt<FMT>::T;
   const int K = BWD ? O : I, N = BWD ? I : O;
-  const size_t smem = mix_smem_floats(K, KC, NC) * sizeof(float);
-  if (smem > SMEM_MAX || KC < 1 || NC < NG || NC % NG != 0) return -2;
+  const long long smem = MixTile<T>::smem(K, wres != 0);
+  if (smem > SMEM_MAX || splits < 1) return -2;
   // opt in to more than 48 KB of dynamic shared memory once, at the first
   // launch (never inside a CUDA graph capture, which follows a warm-up)
-  static const cudaError_t opted[2] = {
-      cudaFuncSetAttribute(ls_mix_kernel<FMT, BWD, false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX),
-      cudaFuncSetAttribute(ls_mix_kernel<FMT, BWD, true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX)};
-  if (opted[0] != cudaSuccess) return static_cast<int>(opted[0]);
-  if (opted[1] != cudaSuccess) return static_cast<int>(opted[1]);
-  const size_t total = static_cast<size_t>(I) * O * L;
-  if (total > 0) {   // no channels: the products are empty sums, zeros
-    const int stage_blocks = static_cast<int>(std::min<size_t>((total + NT - 1) / NT, 4096));
-    ls_stage_w_kernel<FMT, BWD><<<stage_blocks, NT, 0, stream>>>(
-        static_cast<const T*>(wr), static_cast<const T*>(wi), ws, I, O, L);
-    const int rc = static_cast<int>(cudaGetLastError());
-    if (rc != 0) return rc;
-  }
-  const dim3 grid(n_tiles(M, TM), L, B * n_tiles(pad_ng(N), NC));
-  auto* kernel = n_tiles(K, KC) > 1 ? ls_mix_kernel<FMT, BWD, true>
-                                    : ls_mix_kernel<FMT, BWD, false>;
-  kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(ar), static_cast<const T*>(ai), ws, static_cast<T*>(outr),
-      static_cast<T*>(outi), K, N, L, M, KC, NC);
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      ls_mix_kernel<FMT, BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  // 16-byte copies and stores need 16-byte rows and operands
+  bool vec = (static_cast<size_t>(M) * sizeof(T)) % 16 == 0;
+  for (const void* p : {ar, ai, static_cast<const void*>(outr), static_cast<const void*>(outi)})
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const dim3 grid(L, n_tiles(N, MixTile<T>::NC), splits);
+  ls_mix_kernel<FMT, BWD><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(ar), static_cast<const T*>(ai), static_cast<const T*>(wr),
+      static_cast<const T*>(wi), static_cast<T*>(outr), static_cast<T*>(outi), B, K, N, L, M,
+      wres != 0, vec, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -540,22 +714,22 @@ int launch_bwd_w(const void* xr, const void* xi, const void* gr, const void* gi,
   return static_cast<int>(cudaGetLastError());
 }
 
+
 template <bool BWD>
 int dispatch_mix(const void* ar, const void* ai, const void* wr, const void* wi,
-                 void* outr, void* outi, void* workspace, int B, int I, int O, int L,
-                 int M, int KC, int NC, int fmt, void* stream) {
-  float* ws = static_cast<float*>(workspace);
+                 void* outr, void* outi, int B, int I, int O, int L, int M, int wres,
+                 int splits, int fmt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
     case FMT_F32:
-      return launch_mix<FMT_F32, BWD>(ar, ai, wr, wi, outr, outi, ws, B, I, O, L, M, KC,
-                                      NC, s);
+      return launch_mix<FMT_F32, BWD>(ar, ai, wr, wi, outr, outi, B, I, O, L, M, wres, splits,
+                                      s);
     case FMT_BF16:
-      return launch_mix<FMT_BF16, BWD>(ar, ai, wr, wi, outr, outi, ws, B, I, O, L, M, KC,
-                                       NC, s);
+      return launch_mix<FMT_BF16, BWD>(ar, ai, wr, wi, outr, outi, B, I, O, L, M, wres,
+                                       splits, s);
     case FMT_F16:
-      return launch_mix<FMT_F16, BWD>(ar, ai, wr, wi, outr, outi, ws, B, I, O, L, M, KC,
-                                      NC, s);
+      return launch_mix<FMT_F16, BWD>(ar, ai, wr, wi, outr, outi, B, I, O, L, M, wres, splits,
+                                      s);
   }
   return -1;
 }
@@ -564,35 +738,41 @@ int dispatch_mix(const void* ar, const void* ai, const void* wr, const void* wi,
 
 // C interface, loaded with ctypes.  The launchers launch on `stream`,
 // allocate nothing, and return cudaGetLastError(), -1 for an unknown format
-// code or -2 for a channel plan (KC input, NC output channels per chunk)
-// whose working set exceeds a block's shared memory (the Python wrapper
-// plans within it).  ls_fwd and ls_bwd_x take an f32 workspace of
-// spectral_contract_ls_workspace(I, O, L) floats.
+// code or -2 for a plan whose working set exceeds a block's shared memory
+// or a split below 1 (the Python wrapper plans within them).  ls_fwd and
+// ls_bwd_x take the plan's `wres` (the weight's degree slice resident in
+// shared memory, or streamed a chunk a stage) and `splits` (blocks a
+// (degree, channel tile) shares its batch rows and order chunks among).
 
 // bytes of shared memory an ls_fwd (K = I) or ls_bwd_x (K = O) block needs
-// under the plan (KC, NC)
-extern "C" long long spectral_contract_ls_smem(int K, int KC, int NC) {
-  return mix_smem_floats(K, KC, NC) * static_cast<long long>(sizeof(float));
-}
-
-extern "C" long long spectral_contract_ls_workspace(int I, int O, int L) {
-  return 2LL * I * O * L;
+// in format `fmt` with the weight resident (wres) or streamed; -1 for an
+// unknown format code
+extern "C" long long spectral_contract_ls_smem(int K, int fmt, int wres) {
+  switch (fmt) {
+    case FMT_F32:
+      return MixTile<float>::smem(K, wres != 0);
+    case FMT_BF16:
+      return MixTile<__nv_bfloat16>::smem(K, wres != 0);
+    case FMT_F16:
+      return MixTile<__half>::smem(K, wres != 0);
+  }
+  return -1;
 }
 
 extern "C" int spectral_contract_ls_fwd(const void* xr, const void* xi, const void* wr,
-                                        const void* wi, void* outr, void* outi,
-                                        void* workspace, int B, int I, int O, int L, int M,
-                                        int KC, int NC, int fmt, void* stream) {
-  return dispatch_mix<false>(xr, xi, wr, wi, outr, outi, workspace, B, I, O, L, M, KC, NC,
-                             fmt, stream);
+                                        const void* wi, void* outr, void* outi, int B, int I,
+                                        int O, int L, int M, int wres, int splits, int fmt,
+                                        void* stream) {
+  return dispatch_mix<false>(xr, xi, wr, wi, outr, outi, B, I, O, L, M, wres, splits, fmt,
+                             stream);
 }
 
 extern "C" int spectral_contract_ls_bwd_x(const void* gr, const void* gi, const void* wr,
-                                          const void* wi, void* dxr, void* dxi,
-                                          void* workspace, int B, int I, int O, int L,
-                                          int M, int KC, int NC, int fmt, void* stream) {
-  return dispatch_mix<true>(gr, gi, wr, wi, dxr, dxi, workspace, B, I, O, L, M, KC, NC,
-                            fmt, stream);
+                                          const void* wi, void* dxr, void* dxi, int B, int I,
+                                          int O, int L, int M, int wres, int splits, int fmt,
+                                          void* stream) {
+  return dispatch_mix<true>(gr, gi, wr, wi, dxr, dxi, B, I, O, L, M, wres, splits, fmt,
+                            stream);
 }
 
 extern "C" int spectral_contract_ls_bwd_w(const void* xr, const void* xi, const void* gr,

@@ -70,7 +70,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -713,67 +713,92 @@ class LSharedContract(torch.autograd.Function):
         return dxr, dxi, dwr, dwi
 
 
-#: orders per ``ls_mix`` block and output channels per thread (``TM``,
-#: ``NG`` in ``csrc/spectral_contract_lshared.cu``)
-_LS_TM, _LS_NG = 64, 8
+class LsPlan(NamedTuple):
+    """How ``ls_mix`` takes one launch: the weight's degree slice resident
+    in shared memory (``resident``) or streamed a chunk a stage, the blocks
+    a (degree, channel tile) shares its outputs among (``splits``), and the
+    block's shared memory in bytes."""
+    resident: bool
+    splits: int
+    smem: int
 
 
-def ls_plan(K: int, N: int) -> Tuple[int, int, int]:
-    """``ls_mix``'s channel chunks for ``ls_fwd`` (K = I, N = O) or
-    ``ls_bwd_x`` (K = O, N = I): ``(KC, NC, smem bytes)``.  One chunk
-    covers both axes wherever the weight's degree slice [K][N pad 8] and
-    the [K][64] tile fit in a block's 227 KB; otherwise output chunks of
-    NC <= 64 channels (a grid axis) and input chunks of KC channels, with
-    a [NC][64] tile of partial sums.  Every width fits."""
-    NP = max(_pad(N, _LS_NG), _LS_NG)
-    if 2 * K * (NP + _LS_TM) <= _SMEM_FLOATS:
-        KC, NC = max(K, 1), NP
-    else:
-        NC = min(NP, 64)
-        KC = min(K, (_SMEM_FLOATS - 2 * NC * _LS_TM) // (2 * (NC + _LS_TM)))
-    partial = 2 * NC * _LS_TM if -(-K // KC) > 1 else 0
-    return KC, NC, 4 * (2 * KC * (NC + _LS_TM) + partial)
+#: ``ls_mix``'s tiles per element size (``MixTile`` in
+#: ``csrc/spectral_contract_lshared.cu``): input channels a stage (KC), the
+#: stages of the ring, orders a stage (MC), output channels a block (NC)
+_LS_KC = {2: 64, 4: 32}
+_LS_STAGES, _LS_MC, _LS_NC = 2, 128, 64
+#: streaming multiprocessors of an H100 SXM: the grid ``ls_plan`` fills
+H100_SMS = 132
 
 
-def _ls_workspace(K: int, N: int, L: int, device) -> torch.Tensor:
-    """The f32 workspace of ``ls_fwd`` (K = I, N = O) or ``ls_bwd_x``
-    (K = O, N = I): the weight restaged in (L, K, N) order."""
-    return torch.empty(int(_library_ls().spectral_contract_ls_workspace(K, N, L)),
-                       dtype=torch.float32, device=device)
+def _ls_smem(K: int, size: int, resident: bool) -> int:
+    """``MixTile<T>::smem``: the ring of a tiles [KC][MC + 16 bytes] (re,
+    im), with the stage's chunk of W where it is not resident; the resident
+    W (halves [NC][K pad + 8], f32 [K pad][NC]); the output tile of the
+    half modes [NC][MC + 8]."""
+    half, KC = size == 2, _LS_KC[size]
+    kpad = _pad(max(K, 1), KC)
+    a_plane = KC * (_LS_MC + 16 // size)
+    w_stage = _LS_NC * (KC + 8) if half else KC * _LS_NC
+    stage = 2 * a_plane + (0 if resident else 2 * w_stage)
+    w = 2 * (_LS_NC * (kpad + 8) if half else kpad * _LS_NC) if resident else 0
+    out = 2 * _LS_NC * (_LS_MC + 8) if half else 0
+    return (_LS_STAGES * stage + w + out) * size
+
+
+def ls_plan(K: int, N: int, dtype: torch.dtype, *, B: int = 1, L: int = 1, M: int = 1,
+            sms: int = H100_SMS) -> LsPlan:
+    """``ls_mix``'s plan for ``ls_fwd`` (K = I, N = O) or ``ls_bwd_x`` (K = O,
+    N = I) at ``dtype``: the weight's degree slice resident wherever it fits
+    a block's 227 KB beside the ring (K <= 448 in half modes, <= 320 in f32
+    mode), else streamed with the a tiles; and as many splits of each
+    (degree, 64-channel tile)'s B * ceil(M / 128) outputs as keep the grid
+    within one block per SM, at least one.  Every width fits.  The splits
+    partition outputs, never a sum: the results do not depend on them."""
+    size = dtype.itemsize
+    if size not in _LS_KC:
+        raise TypeError(f"ls_mix takes f32, bf16 or fp16, got {dtype}")
+    resident = _ls_smem(K, size, True) <= SMEM_LIMIT
+    smem = _ls_smem(K, size, resident)
+    blocks = max(L, 1) * -(-max(N, 1) // _LS_NC)
+    outputs = max(B, 1) * -(-max(M, 1) // _LS_MC)
+    return LsPlan(resident, max(1, min(outputs, sms // blocks)), smem)
+
+
+def _launch_mix(name, a_r, a_i, wr, wi, B, I, O, L, M, K, N):
+    """One ``ls_mix`` launch: ``ls_fwd`` (K = I, N = O) or ``ls_bwd_x`` (K =
+    O, N = I); returns the (B, N, L, M) pair at the operands' dtype."""
+    outr = torch.empty((B, N, L, M), dtype=wr.dtype, device=wr.device)
+    outi = torch.empty_like(outr)
+    if outr.numel() == 0:
+        return outr, outi
+    plan = ls_plan(K, N, wr.dtype, B=B, L=L, M=M,
+                   sms=torch.cuda.get_device_properties(wr.device).multi_processor_count)
+    _call(getattr(_library_ls(), name), name, wr.device,
+          *(t.data_ptr() for t in (a_r, a_i, wr, wi, outr, outi)),
+          B, I, O, L, M, int(plan.resident), plan.splits, _FMT[wr.dtype])
+    return outr, outi
 
 
 def _launch_ls_fwd(xr, xi, wr, wi):
     global launches_ls_fwd
     B, I, L, M = xr.shape
     O = wr.shape[1]
-    outr = torch.empty((B, O, L, M), dtype=xr.dtype, device=xr.device)
-    outi = torch.empty_like(outr)
-    if outr.numel() == 0:
-        return outr, outi
-    work = _ls_workspace(I, O, L, xr.device)
-    KC, NC, _ = ls_plan(I, O)
-    _call(_library_ls().spectral_contract_ls_fwd, "spectral_contract_ls_fwd", xr.device,
-          *(t.data_ptr() for t in (xr, xi, wr, wi, outr, outi, work)),
-          B, I, O, L, M, KC, NC, _FMT[xr.dtype])
-    launches_ls_fwd += 1
-    return outr, outi
+    out = _launch_mix("spectral_contract_ls_fwd", xr, xi, wr, wi, B, I, O, L, M, I, O)
+    if out[0].numel():
+        launches_ls_fwd += 1
+    return out
 
 
 def _launch_ls_bwd_x(gr, gi, wr, wi):
     global launches_ls_bwd_x
     B, O, L, M = gr.shape
     I = wr.shape[0]
-    dxr = torch.empty((B, I, L, M), dtype=wr.dtype, device=wr.device)
-    dxi = torch.empty_like(dxr)
-    if dxr.numel() == 0:
-        return dxr, dxi
-    work = _ls_workspace(O, I, L, wr.device)
-    KC, NC, _ = ls_plan(O, I)
-    _call(_library_ls().spectral_contract_ls_bwd_x, "spectral_contract_ls_bwd_x",
-          wr.device, *(t.data_ptr() for t in (gr, gi, wr, wi, dxr, dxi, work)),
-          B, I, O, L, M, KC, NC, _FMT[wr.dtype])
-    launches_ls_bwd_x += 1
-    return dxr, dxi
+    dx = _launch_mix("spectral_contract_ls_bwd_x", gr, gi, wr, wi, B, I, O, L, M, O, I)
+    if dx[0].numel():
+        launches_ls_bwd_x += 1
+    return dx
 
 
 def _launch_ls_bwd_w(xr, xi, gr, gi):
@@ -1215,12 +1240,10 @@ def _library_cp() -> ctypes.CDLL:
 
 @functools.cache
 def _library_ls() -> ctypes.CDLL:
-    lib = _bind(SOURCE_LS, spectral_contract_ls_fwd=(7, 8),
-                spectral_contract_ls_bwd_x=(7, 8), spectral_contract_ls_bwd_w=(6, 6))
+    lib = _bind(SOURCE_LS, spectral_contract_ls_fwd=(6, 8),
+                spectral_contract_ls_bwd_x=(6, 8), spectral_contract_ls_bwd_w=(6, 6))
     lib.spectral_contract_ls_smem.argtypes = [ctypes.c_int] * 3
     lib.spectral_contract_ls_smem.restype = ctypes.c_longlong
-    lib.spectral_contract_ls_workspace.argtypes = [ctypes.c_int] * 3
-    lib.spectral_contract_ls_workspace.restype = ctypes.c_longlong
     return lib
 
 

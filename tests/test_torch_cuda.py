@@ -613,9 +613,15 @@ def test_cp_channel_plans_match_the_kernels_smem(cuda):
         assert lib.spectral_contract_cp_bwd_smem(width, width, width, IC, OC,
                                                  int(acc_smem)) == need
     lib = sc._library_ls()
-    for K, N in ((64, 64), (139, 139), (140, 140), (200, 200), (1000, 8)):
-        KC, NC, need = sc.ls_plan(K, N)
-        assert lib.spectral_contract_ls_smem(K, KC, NC) == need
+    for dtype in CP_DTYPES:
+        for K, N in ((1, 1), (64, 64), (139, 139), (140, 140), (192, 192), (200, 200),
+                     (320, 64), (321, 64), (448, 64), (449, 64), (1000, 8), (8, 1000),
+                     (3000, 3000)):
+            plan = sc.ls_plan(K, N, dtype)
+            assert lib.spectral_contract_ls_smem(K, sc._FMT[dtype], int(plan.resident)) == \
+                plan.smem
+            assert lib.spectral_contract_ls_smem(K, sc._FMT[dtype], int(not plan.resident)) == \
+                sc._ls_smem(K, torch.empty((), dtype=dtype).element_size(), not plan.resident)
 
 
 @pytest.mark.parametrize("dtype", CP_DTYPES)
@@ -857,6 +863,51 @@ def test_lshared_contract_cuda_matches_cpu(cuda, dtype):
         assert got.dtype == dtype and _cp_budget_ok(got, want, mags[name], eps), name
 
 
+#: ls_mix's plans: the path, ragged orders and channels, few degrees (the
+#: outputs split among blocks), 140 and 200 channels, LS_WIDE_SHAPE, and
+#: 1000 input channels (the weight streamed a chunk a stage) or 1000 output
+#: channels (16 channel tiles)
+LS_MIX_SHAPES = [(8, 64, 64, 128, 128), (3, 5, 7, 37, 29), (16, 20, 36, 9, 70),
+                 (2, 140, 140, 5, 70), (2, 200, 200, 5, 64), (8, 192, 192, 64, 64),
+                 (2, 1000, 8, 3, 70), (2, 8, 1000, 3, 136)]
+
+
+@pytest.mark.parametrize("shape", LS_MIX_SHAPES)
+@pytest.mark.parametrize("dtype", CP_DTYPES)
+def test_ls_mix_matches_plain_at_every_plan(cuda, shape, dtype):
+    """ls_fwd and ls_bwd_x (``ls_mix``) against their plain versions within
+    ``store_budget``, which a zeroed result must exceed, and a rerun bit for
+    bit, for every kind of plan ``ls_plan`` makes."""
+    xr, xi, wr, wi, gr, gi = _ls_operands(*shape, dtype, cuda, seed=sum(shape))
+    runs = [{"out": sc._launch_ls_fwd(xr, xi, wr, wi),
+             "dx": sc._launch_ls_bwd_x(gr, gi, wr, wi)} for _ in range(2)]
+    torch.cuda.synchronize()
+    want = {"out": sc.spectral_contract_lshared_plain(xr, xi, wr, wi),
+            "dx": sc.spectral_contract_lshared_bwd_x_plain(gr, gi, wr, wi)}
+    mags = sc.lshared_magnitudes(xr, xi, wr, wi, gr, gi)
+    eps = FORMAT_EPS[dtype_name(dtype)]
+    for name, pair in runs[0].items():
+        for g, again, w in zip(pair, runs[1][name], want[name], strict=True):
+            assert g.dtype == dtype and g.shape == w.shape, name
+            assert _cp_budget_ok(g, w, mags[name], eps), name
+            assert not _cp_budget_ok(torch.zeros_like(w), w, mags[name], eps), name
+            assert torch.equal(g, again), name
+
+
+def test_ls_mix_refuses_a_plan_that_does_not_fit(cuda):
+    """The weight of 1000 input channels resident would overflow a block's
+    shared memory: the launcher refuses before launch, it does not fall
+    back."""
+    xr, xi, wr, wi, _, _ = _ls_operands(1, 1000, 8, 2, 16, torch.bfloat16, cuda)
+    out = [torch.empty(1, 8, 2, 16, dtype=torch.bfloat16, device=cuda) for _ in range(2)]
+    lib = sc._library_ls()
+    with torch.cuda.device(cuda):
+        rc = lib.spectral_contract_ls_fwd(*(t.data_ptr() for t in (xr, xi, wr, wi, *out)),
+                                          1, 1000, 8, 2, 16, 1, 1, sc._FMT[torch.bfloat16],
+                                          torch.cuda.current_stream().cuda_stream)
+    assert rc == -2
+
+
 def test_lshared_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     xr, xi, wr, wi, _, _ = _ls_operands(2, 4, 3, 5, 16, torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -1013,7 +1064,9 @@ def _rmsnorm_ok(got, want):
     return (g == w).float().mean().item() >= 0.999 and bool(((g - w).abs() <= _ulp(want)).all())
 
 
-@pytest.mark.parametrize("N,D", [(1, 16), (8, 100), (300, 960), (300, 6144), (257, 4096)])
+@pytest.mark.parametrize("N,D", [(1, 16), (8, 100), (300, 960), (300, 6144), (257, 4096),
+                                 (1, 1), (3, 7), (1, 960), (301, 961), (9, 2048), (1, 6144),
+                                 (5, 6145), (301, 6145)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_rmsnorm_kernel_matches_plain(cuda, N, D, dtype):
     g = torch.Generator().manual_seed(N + D)
@@ -1030,14 +1083,54 @@ def test_rmsnorm_kernel_matches_plain(cuda, N, D, dtype):
     assert torch.equal(got, rn.rmsnorm(x, w))
 
 
-@pytest.mark.parametrize("xdtype,wdtype", [(torch.bfloat16, torch.float32),
-                                           (torch.float32, torch.float16)])
-def test_rmsnorm_kernel_takes_a_weight_of_another_dtype(cuda, xdtype, wdtype):
+RMS_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("xdtype", RMS_DTYPES)
+@pytest.mark.parametrize("wdtype", RMS_DTYPES)
+@pytest.mark.parametrize("D", [960, 961, 6144])
+def test_rmsnorm_kernel_takes_a_weight_of_another_dtype(cuda, xdtype, wdtype, D):
+    """Every x/w dtype pair, through 16-byte packs (960, 6144) and one
+    element a lane (961)."""
     g = torch.Generator().manual_seed(2)
-    x = torch.randn(64, 960, generator=g).to(xdtype).to(cuda)
-    w = (torch.rand(960, generator=g) + 0.5).to(wdtype).to(cuda)
-    got = ops.rmsnorm(x.reshape(4, 16, 960), w)
-    assert got.dtype == xdtype and _rmsnorm_ok(got.reshape(64, 960), rn.rmsnorm_plain(x, w))
+    x = torch.randn(64, D, generator=g).to(xdtype).to(cuda)
+    w = (torch.rand(D, generator=g) + 0.5).to(wdtype).to(cuda)
+    got = ops.rmsnorm(x.reshape(4, 16, D), w)
+    want = rn.rmsnorm_plain(x, w)
+    assert got.dtype == xdtype and _rmsnorm_ok(got.reshape(64, D), want)
+    assert not _rmsnorm_ok(torch.zeros_like(want), want)
+    assert torch.equal(got, ops.rmsnorm(x.reshape(4, 16, D), w))
+
+
+@pytest.mark.parametrize("dtype", RMS_DTYPES)
+@pytest.mark.parametrize("which", ["x", "w"])
+def test_rmsnorm_kernel_takes_an_operand_off_16_bytes(cuda, dtype, which):
+    """A contiguous view 2 bytes (one half; 4 bytes in f32) into its storage
+    takes the one-element path and matches; the launcher refuses 16-byte
+    packs on it."""
+    g = torch.Generator().manual_seed(5)
+    N, D = 37, 960
+    x = torch.randn(N, D, generator=g).to(dtype)
+    w = (torch.rand(D, generator=g) + 0.5).to(dtype)
+    base = (x if which == "x" else w).reshape(-1)
+    shifted = torch.empty(base.numel() + 1, dtype=dtype, device=cuda)[1:]
+    shifted.copy_(base)
+    x, w = x.to(cuda), w.to(cuda)
+    if which == "x":
+        x = shifted.view(N, D)
+    else:
+        w = shifted
+    assert not rn.rmsnorm_plan(D, x.dtype, w.dtype, False).vec
+    got = rn.rmsnorm(x, w)
+    want = rn.rmsnorm_plain(x, w)
+    assert _rmsnorm_ok(got, want) and not _rmsnorm_ok(torch.zeros_like(want), want)
+    assert torch.equal(got, rn.rmsnorm(x, w))
+    y = torch.empty_like(x)
+    with torch.cuda.device(cuda):
+        rc = rn._library().rmsnorm_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), N, D,
+                                       rn._FMT[dtype], rn._FMT[dtype], 1, 8, 1, 1, 1e-6,
+                                       torch.cuda.current_stream().cuda_stream)
+    assert rc == -2
 
 
 def _flash_operands(BH, S, Sk, D, dtype, device, seed=0):

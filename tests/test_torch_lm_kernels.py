@@ -230,3 +230,47 @@ def test_wrappers_reject_what_no_version_takes():
         rn.rmsnorm(x, torch.ones(15))
     with pytest.raises(ValueError, match="block_rows"):
         rn.rmsnorm(x, torch.ones(16), block_rows=0)
+
+
+# -- the RMSNorm kernel's plan (host side) ----------------------------------------------
+@pytest.mark.parametrize("D,dtype,aligned,want", [
+    # one warp a row up to 4 packs a lane: 1024 halves, 512 f32 with 16-byte packs
+    (960, torch.bfloat16, True, (True, 4, 1, 8, 2)),
+    (960, torch.float32, True, (True, 4, 2, 4, 0)),
+    (512, torch.float32, True, (True, 4, 1, 8, 0)),
+    (2048, torch.float16, True, (True, 4, 2, 4, 2)),
+    (16, torch.bfloat16, True, (True, 2, 1, 8, 2)),
+    # wider rows take 2, 4 or 8 warps, 8 packs a lane only at 8 warps
+    (6144, torch.bfloat16, True, (True, 4, 8, 1, 2)),
+    (6144, torch.float32, True, (True, 8, 8, 1, 0)),
+    (4096, torch.bfloat16, True, (True, 4, 4, 2, 2)),
+    (16384, torch.bfloat16, True, (True, 8, 8, 1, 2)),
+    # a row of bytes off 16, or an operand off 16 bytes: one element a lane
+    (961, torch.bfloat16, True, (False, 4, 8, 1, 2)),
+    (960, torch.bfloat16, False, (False, 4, 8, 1, 2)),
+    (7, torch.float32, True, (False, 2, 1, 8, 0)),
+    (1, torch.float16, True, (False, 2, 1, 8, 2)),
+    (2048, torch.float32, False, (False, 8, 8, 1, 0)),
+    # past what 8 warps hold: the generic instance reads the row twice
+    (2049, torch.float32, False, (False, 0, 8, 1, 0)),
+    (6145, torch.bfloat16, True, (False, 0, 8, 1, 2)),
+    (32768, torch.bfloat16, True, (False, 0, 8, 1, 2)),
+])
+def test_rmsnorm_plan_picks_the_instance_from_width_dtype_and_alignment(D, dtype, aligned,
+                                                                       want):
+    plan = rn.rmsnorm_plan(D, dtype, torch.float32, aligned)
+    assert tuple(plan) == want
+    vec, chunks, wpr, rows, _ = plan
+    assert rows * wpr == 8
+    if chunks:   # the lanes of a row hold all of it, in one of the instances
+        size = torch.empty((), dtype=dtype).element_size()
+        assert chunks in (2, 4, 8) and 32 * wpr * chunks * (16 // size if vec else 1) >= D
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_rmsnorm_plan_does_not_depend_on_the_weight_dtype(wdtype):
+    for D in (1, 7, 960, 961, 2048, 6144, 6145):
+        for xdtype in (torch.float32, torch.bfloat16, torch.float16):
+            assert rn.rmsnorm_plan(D, xdtype, wdtype) == rn.rmsnorm_plan(D, xdtype, torch.float32)
+    with pytest.raises(TypeError):
+        rn.rmsnorm_plan(960, torch.float64, wdtype)

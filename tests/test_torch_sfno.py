@@ -596,15 +596,39 @@ def test_paper_schedule_trains_an_sfno():
 
 
 # -- the order-shared kernels' channel plan ----------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("K,N", [(1, 1), (64, 64), (139, 139), (140, 140), (192, 192),
                                  (200, 200), (1000, 8), (8, 5000), (3000, 3000)])
-def test_ls_channel_plan_fits_a_block_at_every_width(K, N):
-    """``ls_fwd``/``ls_bwd_x`` tile the channel axes: every width fits a
-    block's shared memory, with one chunk over both axes wherever the
-    weight's degree slice and the order tile fit (the path's 64 x 64, and
-    up to 139 x 139)."""
-    KC, NC, need = sc.ls_plan(K, N)
-    assert need <= sc.SMEM_LIMIT and 1 <= KC <= K and NC % 8 == 0
-    one_chunk = 2 * K * (-(-N // 8) * 8 + 64) <= sc.SMEM_LIMIT // 4
-    assert ((KC, NC) == (K, -(-N // 8) * 8)) == one_chunk
-    assert one_chunk or NC <= 64
+def test_ls_channel_plan_fits_a_block_at_every_width(K, N, dtype):
+    """``ls_fwd``/``ls_bwd_x`` (``ls_mix``) stream the input channels in
+    chunks: every width fits a block's shared memory, with the weight's
+    degree slice resident wherever it fits beside the ring (K <= 448 in
+    half modes, 320 in f32 mode), streamed a chunk a stage beyond."""
+    plan = sc.ls_plan(K, N, dtype)
+    half = dtype != torch.float32
+    assert plan.smem <= sc.SMEM_LIMIT and plan.splits == 1
+    assert plan.resident == (K <= (448 if half else 320))
+    # the path's block holds its ring of 2 stages, W and (halves) the output tile
+    if (K, N) == (64, 64):
+        assert plan.smem == (122_880 if half else 100_352)
+
+
+@pytest.mark.parametrize("shape,splits", [
+    ((8, 64, 64, 128, 128), 1),    # the SFNO path: 128 degrees, one block each
+    ((8, 192, 192, 64, 64), 1),    # LS_WIDE_SHAPE: 3 channel tiles a degree
+    ((3, 5, 7, 37, 29), 3),        # few degrees: the batch rows shared among blocks
+    ((16, 20, 36, 9, 70), 14),
+    ((2, 140, 140, 5, 70), 2),
+    ((1, 1, 1, 1, 1), 1),
+    ((9, 17, 5, 33, 300), 4),      # 3 order chunks a batch row: 27 outputs
+])
+def test_ls_plan_splits_the_outputs_to_fill_the_card(shape, splits):
+    B, I, O, L, M = shape
+    for K, N in ((I, O), (O, I)):
+        plan = sc.ls_plan(K, N, torch.bfloat16, B=B, L=L, M=M)
+        blocks = L * -(-N // 64)
+        outputs = B * -(-M // 128)
+        assert 1 <= plan.splits <= outputs
+        assert blocks * plan.splits <= max(sc.H100_SMS, blocks)
+        if K == I:
+            assert plan.splits == splits

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time phases of ``chip_smoke.py`` from two checkouts in turns on one GPU.
 
-    python3 tools/ab_phases.py OTHER_DIR [--phases flash,ls,sfno_train]
+    python3 tools/ab_phases.py OTHER_DIR [--phases flash,ls,sfno_serve,sfno_train]
 
 OTHER_DIR is another checkout of this repository, labelled "parent" (for
 example the parent commit, ``git archive``d into a directory that
@@ -18,8 +18,12 @@ Phases, each a function of the checkout's own ``chip_smoke.py``:
   pool's shapes, checked against their plain versions and timed;
 - ``ls``: ``ls_timing_phase``, ``ls_fwd``, ``ls_bwd_x`` and ``ls_bwd_w``
   at the SFNO path's shape;
-- ``sfno_train``: ``swe_data``, then ``sfno_train_phase``, the SFNO's 12
-  training steps with their checks and profiles.
+- ``sfno_serve``: ``swe_data``, then ``sfno_serve_phase``, the SFNO
+  served on 16 fields under ``mixed_fno_bf16`` and ``full`` with its
+  checks and a profiled tick each;
+- ``sfno_train``: ``swe_data`` (once for both SFNO phases), then
+  ``sfno_train_phase``, the SFNO's 12 training steps with their checks
+  and profiles.
 
 Exits non-zero if a child fails.  Needs one card.
 """
@@ -31,7 +35,7 @@ from collections import defaultdict
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-PHASES = ("flash", "ls", "sfno_train")
+PHASES = ("flash", "ls", "sfno_serve", "sfno_train")
 
 
 def turn(checkout: Path, phases):
@@ -42,13 +46,15 @@ def turn(checkout: Path, phases):
 
     cs.device_phase()
     cs.build_phase()
+    swe = None
     for phase in phases:
         if phase == "flash":
             cs.lm_kernel_phase()
         elif phase == "ls":
             cs.ls_timing_phase(sc, defaultdict(float), defaultdict(int))
         else:
-            cs.sfno_train_phase(sc, cs.swe_data())
+            swe = cs.swe_data() if swe is None else swe
+            (cs.sfno_serve_phase if phase == "sfno_serve" else cs.sfno_train_phase)(sc, swe)
 
 
 def main():
