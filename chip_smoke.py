@@ -21,8 +21,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    refused before their channel tiling: I = O = R = 128, I = O = 192).
    Dense: within ``4ε·M + 32·ε_f32·M + 1e-5`` elementwise (ε of the
    format each output is stored at, M the contraction of |operands| it
-   sums).  CP and order-shared (kernel and
-   plain both sum in f32 from the same operands): within one rounding of
+   sums); the backward kernels' zeroed outputs are checked to exceed it.
+   CP and order-shared (kernel and plain both sum in f32 from the same
+   operands): within one rounding of
    the stored result, ``2ε/(1-ε)·|plain| + (1+ε)(32·ε_f32·M + 1e-5)``, a
    budget that every zeroed output is checked to exceed.  The fused
    kernels ``fused_fwd`` and ``fused_bwd`` at the Darcy path's shape,
@@ -90,7 +91,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 9. Numbers: each kernel's time (CUDA graph of many launches, operands
    cycled through more than L2 holds) beside its bound (bytes at the HBM
    rate; half x half products at the bf16/fp16 tensor-core rate, the rest
-   at the f32 CUDA-core rate), its plain
+   at the f32 CUDA-core rate; ``cp_fwd``'s bf16 rank-expand as the three
+   exact bf16 products a term it runs on the tensor cores), its plain
    version's and one PyTorch call's on complex64 where one computes the
    same function; engine fields/s and ms per micro-batch per resolution;
    ms per training step, fields/s and peak memory per policy; profiler
@@ -302,7 +304,9 @@ def bwd_magnitudes(xr, xi, wr, wi, gr, gi):
 
 def backward_kernel_phase(sc):
     """dense_bwd_x and dense_bwd_w against their plain versions; returns
-    each kernel's worst max-abs error at the path's shape."""
+    each kernel's worst max-abs error at the path's shape.  A zeroed output
+    must fall outside the budget, or the comparison could not see a wrong
+    one."""
     from repro_torch.core.precision import FORMAT_EPS
     from repro_torch.core.theory import contract_budget
 
@@ -323,12 +327,17 @@ def backward_kernel_phase(sc):
                 diff = torch.hypot(kr - pr, ki - pi)
                 budget = contract_budget(FORMAT_EPS["float32"], mag)
                 err, excess = diff.max().item(), (diff - budget).max().item()
+                zero_excess = (torch.hypot(pr, pi) - budget).max().item()
                 emit("kernel_vs_plain", kernel=name, shape=list(shape), cast_to=str(cast_to),
                      g_dtype=str(out_dtype), max_abs_err=err,
-                     max_excess_over_budget=excess, ok=excess <= 0)
+                     max_excess_over_budget=excess, zeroed_output_excess=zero_excess,
+                     ok=excess <= 0 and zero_excess > 0)
                 if excess > 0:
                     fail(f"{name} disagrees with its plain version at {shape} "
                          f"{cast_to}/{out_dtype}: exceeds the budget by {excess:.3e}")
+                if zero_excess <= 0:
+                    fail(f"{name} at {shape} {cast_to}/{out_dtype}: the budget would accept "
+                         f"a zeroed output")
                 if shape == PATH_SHAPE:
                     worst[name] = max(worst[name], err)
     return worst
@@ -1347,10 +1356,15 @@ def cp_timing_phase(sc, max_err, launches):
     # mode scale (one complex product); the backward's five contractions
     # (t, du, dx, dU_i, dU_o) and its three complex products (u, dt, dW).
     # Of these, t = x·U_i (both) and du = g·U_o (cp_bwd) multiply two
-    # operands at the operand dtype: half x half in a half mode
+    # operands at the operand dtype: half x half in a half mode.  In bf16
+    # mode cp_fwd's rank-expand multiplies the exact three-piece bf16 split
+    # of the f32 u by U_o: three half products a term on the tensor cores
     flops = {"cp_fwd": 8 * B * M * (I * R + R * O) + 6 * B * M * R,
              "cp_bwd": 8 * B * M * (3 * I * R + 2 * O * R) + 20 * B * M * R}
     operand_flops = {"cp_fwd": 8 * B * M * I * R, "cp_bwd": 8 * B * M * (I * R + O * R)}
+    half_work = {"cp_fwd": (8 * B * M * (I * R + 3 * R * O) + 6 * B * M * R,
+                            8 * B * M * (I * R + 3 * R * O)),
+                 "cp_bwd": (flops["cp_bwd"], operand_flops["cp_bwd"])}
     rows = {"cp_fwd": {}, "cp_bwd": {}}
     for dtype in (torch.bfloat16, torch.float32):
         # 8 operand sets (62 MB in bf16): consecutive calls find their
@@ -1365,10 +1379,10 @@ def cp_timing_phase(sc, max_err, launches):
                 "cp_bwd": (lambda *o: sc._launch_cp_bwd(*o),
                            lambda *o: sc.spectral_contract_cp_bwd_plain(*o))}
         for name, (kernel, plain) in runs.items():
+            work = half_work[name] if size == 2 else (flops[name], 0)
             rows[name][str(dtype)] = {"ms": graph_ms(kernel, sets),
                                       "plain_ms": graph_ms(plain, sets),
-                                      **_bound(nbytes[name], flops[name],
-                                               operand_flops[name] if size == 2 else 0)}
+                                      **_bound(nbytes[name], *work)}
     csets = [[torch.complex(o[2 * k], o[2 * k + 1]) for k in range(4)]
              for o in (cp_operands(CP_PATH_SHAPE, torch.float32, 300 + k) for k in range(8))]
     library = {

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the hand-written tensor-core kernels:
 // cp.async staging, ldmatrix and mma.sync m16n8k16 with f32 accumulators on
-// bf16 or fp16 operands.  Included by flash_attention.cu and
-// spectral_contract_lshared.cu; `kernels/build.py` hashes it with them.
+// bf16 or fp16 operands.  Included by flash_attention.cu,
+// spectral_contract_lshared.cu, spectral_contract_cp.cu and
+// spectral_contract_bwd.cu; `kernels/build.py` hashes it with every source.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t):
 //   A (16 x 16, row-major)  a0 (g, 2t..2t+1)   a1 (g+8, 2t..)   a2 (g, 2t+8..)   a3 (g+8, 2t+8..)
@@ -26,6 +27,19 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // 16 bytes global -> shared, of which the first `src_bytes` are read (0: zero-fill)
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// 8 or 4 bytes global -> shared (cp.async.cg takes only 16), `src_bytes` read as above
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes)
                : "memory");
 }

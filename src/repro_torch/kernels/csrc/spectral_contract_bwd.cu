@@ -31,28 +31,51 @@
 // 268 MFLOP on the f32 cores: both are memory-bound, and the (I, O, M)
 // weight or weight-gradient stream is 84 % of the bytes.
 //
-// What the design does about it.  dense_bwd_x is the forward kernel with
+// What the designs do about it.  dense_bwd_x is the forward kernel with
 // the roles of I and O swapped: a thread owns one (i, m) and BT complex
 // batch accumulators, reads each w element once (for B <= BT), coalesced
 // along M, and the g values of its block are staged in shared memory one
-// chunk of OC output channels at a time.  dense_bwd_w writes each dw
-// element once, coalesced along M: a thread owns one (i, m) and TO output
-// channels of it, and loops over the batch in chunks of BT whose x and g
-// tiles are staged in shared memory, so x[b,i,m] is reused across o and
-// g[b,o,m] across i.  Neither kernel uses atomics: every output is reduced
-// by one thread in a fixed order, so a rerun is bit-identical.
+// chunk of OC output channels at a time.  dense_bwd_w is a write-streaming
+// kernel: one persistent block an SM walks (16-mode, 32-input, 32-output
+// channel) tiles, its x and g batch rows coming in through a cp.async ring
+// while the previous tile's dw drains as 16-byte stores straight from
+// registers (a thread owns a 4 x 4 x 4 (i, o, m) tile, so 16 shared loads
+// feed 256 FMAs).  Its 268 MFLOP take 4 us on the f32 cores against the
+// 11.9 us of bytes, so they run on the CUDA cores in every mode: the
+// products of two rounded values are exact in f32 as on the tensor cores,
+// whose per-mode (i, o) fragments would have to be transposed back to the
+// m-contiguous write stream.  Neither kernel uses atomics: every output is
+// reduced by one thread in a fixed order, so a rerun is bit-identical.
+
+#include <algorithm>
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "mma_sync.cuh"
+
 namespace {
 
+using namespace mma_sync;
+
+// dense_bwd_x
 constexpr int TM = 32;  // modes per block: one warp along M
 constexpr int TY = 8;   // threadIdx.y: input channels per block
 constexpr int BT = 8;   // batch rows per pass
-constexpr int OC = 16;  // output channels staged per pass (dense_bwd_x)
-constexpr int TO = 8;   // output channels per thread (dense_bwd_w)
+constexpr int OC = 16;  // output channels staged per pass
+
+// dense_bwd_w: a thread sums a 4 x 4 x 4 (input channel, output channel,
+// mode) tile, so the block tile is WTI x WTO x WTM with WNT = (WTI / 4) *
+// (WTO / 4) * (WTM / 4) threads
+constexpr int WNT = 256;      // threads per block
+constexpr int WTM = 16;       // modes a tile
+constexpr int WTI = 32;       // input channels a tile
+constexpr int WTO = 32;       // output channels a tile
+constexpr int WSTAGES = 3;    // ring slots
+constexpr int WXP = WTM + 4;  // x rows' pitch (floats): 16 bytes of padding
+static_assert(WNT == (WTI / 4) * (WTO / 4) * (WTM / 4), "a thread sums a 4 x 4 x 4 tile");
 
 enum { FMT_F32 = 0, FMT_BF16 = 1, FMT_F16 = 2 };
 
@@ -171,91 +194,251 @@ dense_bwd_x_kernel(const typename Load<G>::T* __restrict__ gr,
   }
 }
 
-// dw[i,o,m] = sum_b conj(x[b,i,m]) * g[b,o,m].  Block (TM, TY): modes
-// m0..m0+TM of input channels i0..i0+TY and output channels o0..o0+TO;
-// the batch is walked in passes of BT rows.
+// a 16-byte store of dw (`tools/kernel_trials.py` tries st.global.cs)
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// dw[i,o,m] = sum_b conj(x[b,i,m]) * g[b,o,m].  Persistent blocks of WNT
+// threads, each walking (mode tile of WTM, input tile of WTI, output tile of
+// WTO) tiles, modes fastest, so x is read from L2 O / WTO times and g
+// I / WTI times: wide channel tiles and a narrow mode tile keep those
+// re-reads at a third of the dw bytes at the path's shape (with 64-mode,
+// 16 x 16 channel tiles they were 0.75 of them).  A tile's batch rows come
+// in chunks of BT rows (8 with a half g, 4 with an f32 one) of x and g
+// through a ring of WSTAGES slots filled by cp.async (4 modes a copy: 16
+// bytes of x, 16 or 8 of g), so later chunks, and the next tile's first,
+// are in flight while one is summed and the last tile's stores drain.
+// Each thread rounds the x (and g) values it copied onto CAST in place once
+// they land, before the slot's barrier.  Thread (mq, iq, oq) owns modes
+// 4 mq.., input channels 4 iq.. and output channels 4 oq..: per batch row,
+// 8 float4 reads of x and 8 reads of g feed 256 FMAs, and its dw goes out
+// as 16-byte stores along m, straight from registers.
+template <int G>
+struct WRing {
+  using T = typename Load<G>::T;
+  static constexpr int BT = sizeof(T) == 2 ? 8 : 4;   // batch rows a ring slot
+  static constexpr int GP = WTM + 16 / static_cast<int>(sizeof(T));   // g rows' pitch
+  static constexpr int X_PLANE = BT * WTI * WXP;       // floats
+  static constexpr int G_PLANE = BT * WTO * GP;        // elements of T
+  static constexpr int X_BYTES = 2 * X_PLANE * 4;
+  static constexpr int STAGE = X_BYTES + 2 * G_PLANE * static_cast<int>(sizeof(T));
+  static constexpr int SMEM = WSTAGES * STAGE;   // 120 KB (f32 g), 192 KB (half g)
+};
+
 template <int CAST, int G>
-__global__ void __launch_bounds__(TM * TY)
+__global__ void __launch_bounds__(WNT, 1)   // one block an SM: 128 accumulators a thread
 dense_bwd_w_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                    const typename Load<G>::T* __restrict__ gr,
                    const typename Load<G>::T* __restrict__ gi,
                    float* __restrict__ dwr, float* __restrict__ dwi,
-                   int B, int I, int O, int M) {
-  __shared__ float sxr[BT][TY][TM];
-  __shared__ float sxi[BT][TY][TM];
-  __shared__ float sgr[BT][TO][TM];
-  __shared__ float sgi[BT][TO][TM];
+                   int B, int I, int O, int M, int vec) {
+  using T = typename Load<G>::T;
+  using R = WRing<G>;
+  // g needs rounding where its grid is not already inside CAST's; a half g
+  // rounded onto the other half format is kept in CAST's own type (SG), which
+  // holds it exactly (an fp16 g near 65504 rounds to a bf16 65536)
+  constexpr bool ROUND_X = CAST != FMT_F32;
+  constexpr bool ROUND_G = CAST != FMT_F32 && G != CAST;
+  constexpr int SG = ROUND_G && sizeof(T) == 2 ? CAST : G;
+  using S = typename Load<SG>::T;
+  static_assert(sizeof(S) == sizeof(T), "a staged g fills its slot's element");
+  constexpr int UPR = WTM / 4;   // 4-mode units a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int m0 = blockIdx.x * TM;
-  const int m = m0 + tx;
-  const int i0 = blockIdx.y * TY;
-  const int i = i0 + ty;
-  const int o0 = blockIdx.z * TO;
-  const int tid = ty * TM + tx;
+  const int tid = threadIdx.x;
+  const int mq = tid % (WTM / 4), iq = (tid / (WTM / 4)) % (WTI / 4);
+  const int oq = tid / (WTM / 4 * (WTI / 4));
+  const int nmt = (M + WTM - 1) / WTM, nit = (I + WTI - 1) / WTI, nto = (O + WTO - 1) / WTO;
+  // one empty batch chunk where B = 0, so every tile is still stored (zeros)
+  const int tiles = nmt * nit * nto, nb = max((B + R::BT - 1) / R::BT, 1);
+  const int mine = tiles > static_cast<int>(blockIdx.x)
+                       ? (tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1 : 0;
+  const int nitems = mine * nb;
 
-  float accr[TO], acci[TO];
+  auto xplane = [&](int slot, int p) {
+    return reinterpret_cast<float*>(smem_raw + slot * R::STAGE) + p * R::X_PLANE;
+  };
+  auto gplane = [&](int slot, int p) {
+    return reinterpret_cast<S*>(smem_raw + slot * R::STAGE + R::X_BYTES) + p * R::G_PLANE;
+  };
+  // the k-th tile of this block: its first mode, input and output channel;
+  // modes fastest, so the blocks in flight write neighbouring stretches of
+  // the same dw rows
+  auto tile_of = [&](int k, int& m0, int& i0, int& o0) {
+    const int t = blockIdx.x + k * gridDim.x;
+    m0 = (t % nmt) * WTM;
+    i0 = ((t / nmt) % nit) * WTI;
+    o0 = (t / (nmt * nit)) * WTO;
+  };
+
+  // item q: batch rows b0.. of tile q / nb, x and g, into ring slot q % WSTAGES
+  // (ROUND: round, in place, the units this thread copied once they landed)
+  auto stage = [&](int q, bool round) {
+    if (q >= nitems) return;
+    int m0, i0, o0;
+    tile_of(q / nb, m0, i0, o0);
+    const int b0 = (q % nb) * R::BT, slot = q % WSTAGES;
+    for (int e = tid; e < 2 * R::BT * WTI * UPR; e += WNT) {
+      const int p = e / (R::BT * WTI * UPR), row = (e / UPR) % (R::BT * WTI), c = (e % UPR) * 4;
+      const int b = b0 + row / WTI, i = i0 + row % WTI;
+      float* dst = xplane(slot, p) + row * WXP + c;
+      if (round) {
+        if (ROUND_X && vec) {
+          float4 v = *reinterpret_cast<float4*>(dst);
+          v = make_float4(round_to<CAST>(v.x), round_to<CAST>(v.y), round_to<CAST>(v.z),
+                          round_to<CAST>(v.w));
+          *reinterpret_cast<float4*>(dst) = v;
+        }
+        continue;
+      }
+      const float* src = p ? xi : xr;
+      const bool ok = b < B && i < I && m0 + c < M;
+      const size_t off = ok ? (static_cast<size_t>(b) * I + i) * M + m0 + c : 0;
+      if (vec) {
+        cp_async16(smem_addr(dst), src + off, ok ? 16 : 0);
+      } else {
 #pragma unroll
-  for (int k = 0; k < TO; ++k) {
-    accr[k] = 0.f;
-    acci[k] = 0.f;
+        for (int k = 0; k < 4; ++k)
+          dst[k] = ok && m0 + c + k < M ? round_to<CAST>(src[off + k]) : 0.f;
+      }
+    }
+    for (int e = tid; e < 2 * R::BT * WTO * UPR; e += WNT) {
+      const int p = e / (R::BT * WTO * UPR), row = (e / UPR) % (R::BT * WTO), c = (e % UPR) * 4;
+      const int b = b0 + row / WTO, o = o0 + row % WTO;
+      S* dst = gplane(slot, p) + row * R::GP + c;
+      if (round) {
+        if (ROUND_G && vec) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float v = Load<G>::cvt(reinterpret_cast<const T*>(dst)[k]);
+            dst[k] = S(round_to<CAST>(v));
+          }
+        }
+        continue;
+      }
+      const T* src = p ? gi : gr;
+      const bool ok = b < B && o < O && m0 + c < M;
+      const size_t off = ok ? (static_cast<size_t>(b) * O + o) * M + m0 + c : 0;
+      if (vec) {
+        if constexpr (sizeof(T) == 4) {
+          cp_async16(smem_addr(dst), src + off, ok ? 16 : 0);
+        } else {
+          cp_async8(smem_addr(dst), src + off, ok ? 8 : 0);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          dst[k] = ok && m0 + c + k < M ? S(round_to<CAST>(Load<G>::cvt(src[off + k]))) : S(0.f);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int q = 0; q < WSTAGES - 1; ++q) {
+    stage(q, false);
+    cp_async_commit();
   }
 
-  for (int b0 = 0; b0 < B; b0 += BT) {
-    // stage x[b0:b0+BT, i0:i0+TY, m-tile] and g[b0:b0+BT, o0:o0+TO, m-tile]
-    for (int t = tid; t < BT * TY * TM; t += TM * TY) {
-      const int mm = t % TM;
-      const int ii = (t / TM) % TY;
-      const int bb = t / (TM * TY);
-      const int gm = m0 + mm, gb = b0 + bb, gi_ = i0 + ii;
-      float vr = 0.f, vi = 0.f;
-      if (gm < M && gb < B && gi_ < I) {
-        const size_t off = (static_cast<size_t>(gb) * I + gi_) * M + gm;
-        vr = round_to<CAST>(xr[off]);
-        vi = round_to<CAST>(xi[off]);
-      }
-      sxr[bb][ii][mm] = vr;
-      sxi[bb][ii][mm] = vi;
-    }
-    for (int t = tid; t < BT * TO * TM; t += TM * TY) {
-      const int mm = t % TM;
-      const int oo = (t / TM) % TO;
-      const int bb = t / (TM * TO);
-      const int gm = m0 + mm, gb = b0 + bb, go = o0 + oo;
-      float vr = 0.f, vi = 0.f;
-      if (gm < M && gb < B && go < O) {
-        const size_t off = (static_cast<size_t>(gb) * O + go) * M + gm;
-        vr = round_to<CAST>(Load<G>::cvt(gr[off]));
-        vi = round_to<CAST>(Load<G>::cvt(gi[off]));
-      }
-      sgr[bb][oo][mm] = vr;
-      sgi[bb][oo][mm] = vi;
-    }
-    __syncthreads();
+  float accr[4][4][4], acci[4][4][4];   // [input channel][output channel][mode]
+  for (int q = 0; q < nitems; ++q) {
+    cp_async_wait<WSTAGES - 2>();   // item q has landed
+    if (ROUND_X || ROUND_G) stage(q, true);
+    __syncthreads();                // and every thread is done with item q - 1
+    stage(q + WSTAGES - 1, false);
+    cp_async_commit();
+    const int bc = q % nb, slot = q % WSTAGES;
+    if (bc == 0) {
 #pragma unroll
-    for (int b = 0; b < BT; ++b) {
-      const float p = sxr[b][ty][tx], q = sxi[b][ty][tx];
+      for (int k = 0; k < 4; ++k)
 #pragma unroll
-      for (int k = 0; k < TO; ++k) {
-        const float u = sgr[b][k][tx], v = sgi[b][k][tx];
-        accr[k] = fmaf(p, u, accr[k]);
-        accr[k] = fmaf(q, v, accr[k]);
-        acci[k] = fmaf(p, v, acci[k]);
-        acci[k] = fmaf(-q, u, acci[k]);
+        for (int o = 0; o < 4; ++o)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            accr[k][o][c] = 0.f;
+            acci[k][o][c] = 0.f;
+          }
+    }
+    const float* sxr = xplane(slot, 0);
+    const float* sxi = xplane(slot, 1);
+    const S* sgr = gplane(slot, 0);
+    const S* sgi = gplane(slot, 1);
+    const int nbv = min(R::BT, B - bc * R::BT);
+    for (int bb = 0; bb < nbv; ++bb) {
+      float p[4][4], qv[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int off = (bb * WTI + 4 * iq + k) * WXP + 4 * mq;
+        const float4 a = *reinterpret_cast<const float4*>(sxr + off);
+        const float4 b = *reinterpret_cast<const float4*>(sxi + off);
+        p[k][0] = a.x, p[k][1] = a.y, p[k][2] = a.z, p[k][3] = a.w;
+        qv[k][0] = b.x, qv[k][1] = b.y, qv[k][2] = b.z, qv[k][3] = b.w;
+      }
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        const int off = (bb * WTO + 4 * oq + o) * R::GP + 4 * mq;
+        float u[4], v[4];
+        if constexpr (sizeof(T) == 4) {
+          const float4 a = *reinterpret_cast<const float4*>(sgr + off);
+          const float4 b = *reinterpret_cast<const float4*>(sgi + off);
+          u[0] = a.x, u[1] = a.y, u[2] = a.z, u[3] = a.w;
+          v[0] = b.x, v[1] = b.y, v[2] = b.z, v[3] = b.w;
+        } else {
+          const uint2 a = *reinterpret_cast<const uint2*>(sgr + off);
+          const uint2 b = *reinterpret_cast<const uint2*>(sgi + off);
+          const S* ha = reinterpret_cast<const S*>(&a);
+          const S* hb = reinterpret_cast<const S*>(&b);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            u[c] = Load<SG>::cvt(ha[c]);
+            v[c] = Load<SG>::cvt(hb[c]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            accr[k][o][c] = fmaf(p[k][c], u[c], accr[k][o][c]);
+            accr[k][o][c] = fmaf(qv[k][c], v[c], accr[k][o][c]);
+            acci[k][o][c] = fmaf(p[k][c], v[c], acci[k][o][c]);
+            acci[k][o][c] = fmaf(-qv[k][c], u[c], acci[k][o][c]);
+          }
       }
     }
-    __syncthreads();
-  }
+    if (bc < nb - 1) continue;
 
-  if (m >= M || i >= I) return;
+    // the tile is summed: 16-byte stores along m, straight from registers
+    int m0, i0, o0;
+    tile_of(q / nb, m0, i0, o0);
+    const int m = m0 + 4 * mq;
 #pragma unroll
-  for (int k = 0; k < TO; ++k) {
-    if (o0 + k < O) {
-      const size_t off = (static_cast<size_t>(i) * O + o0 + k) * M + m;
-      dwr[off] = accr[k];
-      dwi[off] = acci[k];
+    for (int k = 0; k < 4; ++k) {
+      const int i = i0 + 4 * iq + k;
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        const int oo = o0 + 4 * oq + o;
+        if (i >= I || oo >= O) continue;
+        const size_t off = (static_cast<size_t>(i) * O + oo) * M + m;
+        if (vec) {
+          if (m < M) {
+            const float* a = accr[k][o];
+            const float* b = acci[k][o];
+            store4(dwr + off, make_float4(a[0], a[1], a[2], a[3]));
+            store4(dwi + off, make_float4(b[0], b[1], b[2], b[3]));
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (m + c < M) {
+              dwr[off + c] = accr[k][o][c];
+              dwi[off + c] = acci[k][o][c];
+            }
+          }
+        }
+      }
     }
   }
+  cp_async_wait<0>();
 }
 
 template <int CAST, int G>
@@ -271,15 +454,34 @@ void launch_x(const void* gr, const void* gi, const float* wr, const float* wi,
 }
 
 template <int CAST, int G>
-void launch_w(const float* xr, const float* xi, const void* gr, const void* gi,
-              float* dwr, float* dwi, int B, int I, int O, int M,
-              cudaStream_t stream) {
+int launch_w(const float* xr, const float* xi, const void* gr, const void* gi, float* dwr,
+             float* dwi, int B, int I, int O, int M, cudaStream_t stream) {
   using T = typename Load<G>::T;
-  const dim3 block(TM, TY, 1);
-  const dim3 grid((M + TM - 1) / TM, (I + TY - 1) / TY, (O + TO - 1) / TO);
-  dense_bwd_w_kernel<CAST, G><<<grid, block, 0, stream>>>(
-      xr, xi, static_cast<const T*>(gr), static_cast<const T*>(gi), dwr, dwi,
-      B, I, O, M);
+  // opt in to more than 48 KB of dynamic shared memory, and count the SMs,
+  // once, at the first launch (never inside a CUDA graph capture, which
+  // follows a warm-up)
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      dense_bwd_w_kernel<CAST, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, WRing<G>::SMEM);
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // 4-mode copies and stores need rows of a multiple of 4 modes and aligned operands
+  bool vec = M % 4 == 0;
+  for (const void* p : {static_cast<const void*>(xr), static_cast<const void*>(xi),
+                        static_cast<const void*>(dwr), static_cast<const void*>(dwi)})
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (const void* p : {gr, gi}) vec = vec && reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
+  const long long tiles =
+      1LL * ((M + WTM - 1) / WTM) * ((I + WTI - 1) / WTI) * ((O + WTO - 1) / WTO);
+  const int grid = static_cast<int>(std::min<long long>(tiles, sms));
+  dense_bwd_w_kernel<CAST, G><<<grid, WNT, WRing<G>::SMEM, stream>>>(
+      xr, xi, static_cast<const T*>(gr), static_cast<const T*>(gi), dwr, dwi, B, I, O, M, vec);
+  return 0;
 }
 
 // (CAST, G) -> one instantiation of F; -1 for an unknown format code.
@@ -287,8 +489,7 @@ template <template <int, int> class F, typename... Args>
 int dispatch(int cast_fmt, int g_fmt, Args... args) {
 #define REPRO_CASE(C, G)                          \
   if (cast_fmt == C && g_fmt == G) {              \
-    F<C, G>::run(args...);                        \
-    return 0;                                     \
+    return F<C, G>::run(args...);                 \
   }
   REPRO_CASE(FMT_F32, FMT_F32)
   REPRO_CASE(FMT_F32, FMT_BF16)
@@ -305,19 +506,20 @@ int dispatch(int cast_fmt, int g_fmt, Args... args) {
 
 template <int C, int G>
 struct RunX {
-  static void run(const void* gr, const void* gi, const float* wr,
-                  const float* wi, float* dxr, float* dxi, int B, int I, int O,
-                  int M, cudaStream_t s) {
+  static int run(const void* gr, const void* gi, const float* wr,
+                 const float* wi, float* dxr, float* dxi, int B, int I, int O,
+                 int M, cudaStream_t s) {
     launch_x<C, G>(gr, gi, wr, wi, dxr, dxi, B, I, O, M, s);
+    return 0;
   }
 };
 
 template <int C, int G>
 struct RunW {
-  static void run(const float* xr, const float* xi, const void* gr,
-                  const void* gi, float* dwr, float* dwi, int B, int I, int O,
-                  int M, cudaStream_t s) {
-    launch_w<C, G>(xr, xi, gr, gi, dwr, dwi, B, I, O, M, s);
+  static int run(const float* xr, const float* xi, const void* gr,
+                 const void* gi, float* dwr, float* dwi, int B, int I, int O,
+                 int M, cudaStream_t s) {
+    return launch_w<C, G>(xr, xi, gr, gi, dwr, dwi, B, I, O, M, s);
   }
 };
 

@@ -481,9 +481,9 @@ class CPContract(torch.autograd.Function):
         return _launch_cp_bwd(*ops, gr.contiguous(), gi.contiguous())
 
 
-#: mode tiles of cp_fwd and cp_bwd, and cp_bwd's padded rank-tile row
-#: (``TMF``, ``TMB``, ``TP`` in ``csrc/spectral_contract_cp.cu``)
-_CP_TMF, _CP_TMB, _CP_TP = 32, 16, 17
+#: cp_bwd's mode tile and padded rank-tile row (``TMB``, ``TP`` in
+#: ``csrc/spectral_contract_cp.cu``)
+_CP_TMB, _CP_TP = 16, 17
 _SMEM_FLOATS = SMEM_LIMIT // 4
 
 
@@ -491,29 +491,45 @@ def _pad(n: int, k: int) -> int:
     return -(-n // k) * k
 
 
-def cp_fwd_plan(I: int, O: int, R: int) -> Tuple[int, int, int]:
-    """``cp_fwd``'s channel chunks: ``(IC, OC, smem bytes)``.  The t/u
-    tile [R][32] stays resident; the x and U_i chunk of IC input channels
-    and the U_oᵀ chunk of OC output channels (a multiple of 4) take the
-    rest of a block's 227 KB, one chunk each wherever the whole channel
-    axes fit.  Raises ``ValueError`` for a rank whose tiles leave no room
-    for one channel (R > 784)."""
-    RP, OP = _pad(R, 4), _pad(O, 4)
-    resident = 2 * RP * _CP_TMF
-    per_i = 2 * (_CP_TMF + RP)
-    avail = _SMEM_FLOATS - resident
-    if I * per_i + 2 * R * OP <= avail:
-        IC, OC = max(I, 1), max(OP, 4)
-    else:
-        OC = min(OP, max(4, avail // 2 // max(2 * R, 1) // 4 * 4))
-        IC = min(I, (avail - 2 * R * OC) // per_i)
-    need = 4 * (resident + IC * per_i + 2 * R * OC)
-    if IC < 1 or OC < 4 or need > SMEM_LIMIT:
-        raise ValueError(
-            f"spectral_contract_cp: cp_fwd keeps the rank tiles of R={R} resident in "
-            f"shared memory, and with one channel beside them a block needs more than "
-            f"its {SMEM_LIMIT} bytes (R <= 784 fits)")
-    return IC, OC, need
+class CPFwdPlan(NamedTuple):
+    """``cp_fwd``'s launch plan: the factors resident in shared memory
+    (copied once a block) or streamed a chunk an item, and the bytes of
+    shared memory a block takes."""
+    resident: bool
+    smem: int
+
+
+#: ``cp_fwd``'s tile (``FwdTile`` in ``csrc/spectral_contract_cp.cu``): modes
+#: a tile, input channels an item (halves, f32), ranks and output channels a
+#: chunk, the widest I, R and O whose factors stay resident, ring slots
+_CPF_MT, _CPF_IC, _CPF_RC, _CPF_OC, _CPF_RES, _CPF_STAGES = 64, (64, 32), 64, 64, 64, 2
+
+
+def _cp_fwd_smem(size: int, resident: bool) -> int:
+    """Bytes of shared memory a ``cp_fwd`` block takes at operand ``size``
+    (``FwdTile::smem``)."""
+    half = size == 2
+    pad = 16 // size
+    ic = _CPF_IC[0] if half else _CPF_IC[1]
+    xp, up, otp = _CPF_MT + pad, _CPF_RC + pad, _CPF_OC + pad
+    xw = 2 * (ic * xp + _CPF_RC * xp)
+    uo = _CPF_OC * up if half else _CPF_RC * otp
+    slot = xw + (0 if resident else 2 * (ic * up + uo))
+    # halves with streamed factors: out's f32 partial sums over rank chunks
+    part = 0 if resident or not half else 2 * _CPF_OC * (_CPF_MT + 4) * 4
+    return (_CPF_STAGES * slot + (2 * (_CPF_RES * up + uo) if resident else 0)) * size + part
+
+
+def cp_fwd_plan(I: int, O: int, R: int, dtype: torch.dtype) -> CPFwdPlan:
+    """``cp_fwd``'s plan at operands of ``dtype``: the factors U_i and U_o
+    stay resident in a block's shared memory where I, R and O are at most
+    64 (the TFNO path's widths); wider factors come a chunk at a time with
+    the items that use them.  The kernel walks ranks, input and output
+    channels in chunks whose sums carry over, so every width fits: there is
+    no limit to refuse."""
+    resident = max(I, O, R) <= _CPF_RES
+    size = torch.empty((), dtype=dtype).element_size()
+    return CPFwdPlan(resident, _cp_fwd_smem(size, resident))
 
 
 def cp_bwd_plan(I: int, O: int, R: int) -> Tuple[int, int, bool, int]:
@@ -550,10 +566,10 @@ def _launch_cp_fwd(xr, xi, uir, uii, uor, uoi, wr, wi):
     outi = torch.empty_like(outr)
     if outr.numel() == 0:
         return outr, outi
-    IC, OC, _ = cp_fwd_plan(I, O, R)
+    plan = cp_fwd_plan(I, O, R, xr.dtype)
     ptrs = [t.data_ptr() for t in (xr, xi, uir, uii, uor, uoi, wr, wi, outr, outi)]
     _call(_library_cp().spectral_contract_cp_fwd, "spectral_contract_cp_fwd",
-          xr.device, *ptrs, B, I, O, R, M, IC, OC, _FMT[xr.dtype])
+          xr.device, *ptrs, B, I, O, R, M, int(plan.resident), _FMT[xr.dtype])
     launches_cp_fwd += 1
     return outr, outi
 
@@ -1227,9 +1243,9 @@ def _library_bwd() -> ctypes.CDLL:
 
 @functools.cache
 def _library_cp() -> ctypes.CDLL:
-    lib = _bind(SOURCE_CP, spectral_contract_cp_fwd=(10, 8),
+    lib = _bind(SOURCE_CP, spectral_contract_cp_fwd=(10, 7),
                 spectral_contract_cp_bwd=(19, 9))
-    for name, n_int in (("spectral_contract_cp_fwd_smem", 5),
+    for name, n_int in (("spectral_contract_cp_fwd_smem", 2),
                         ("spectral_contract_cp_bwd_smem", 6),
                         ("spectral_contract_cp_bwd_workspace", 4)):
         fn = getattr(lib, name)

@@ -606,9 +606,16 @@ def test_cp_kernels_match_plain_past_the_old_width_limits(cuda, width, dtype):
 
 def test_cp_channel_plans_match_the_kernels_smem(cuda):
     lib = sc._library_cp()
+    for dtype in CP_DTYPES:
+        size = torch.empty((), dtype=dtype).element_size()
+        for resident in (True, False):
+            assert lib.spectral_contract_cp_fwd_smem(sc._FMT[dtype], int(resident)) == \
+                sc._cp_fwd_smem(size, resident)
     for width in (16, 64, 76, 105, 160, 256):
-        IC, OC, need = sc.cp_fwd_plan(width, width, width)
-        assert lib.spectral_contract_cp_fwd_smem(width, width, width, IC, OC) == need
+        for dtype in CP_DTYPES:
+            plan = sc.cp_fwd_plan(width, width, width, dtype)
+            assert lib.spectral_contract_cp_fwd_smem(sc._FMT[dtype], int(plan.resident)) == \
+                plan.smem
         IC, OC, acc_smem, need = sc.cp_bwd_plan(width, width, width)
         assert lib.spectral_contract_cp_bwd_smem(width, width, width, IC, OC,
                                                  int(acc_smem)) == need
@@ -622,6 +629,100 @@ def test_cp_channel_plans_match_the_kernels_smem(cuda):
                 plan.smem
             assert lib.spectral_contract_ls_smem(K, sc._FMT[dtype], int(not plan.resident)) == \
                 sc._ls_smem(K, torch.empty((), dtype=dtype).element_size(), not plan.resident)
+
+
+#: (B, I, O, M) where cp_fwd's design has edges: batch rows past one (1, 3, 9,
+#: 17), the last mode tile ragged and rows off 16 bytes (M = 300, 1023 odd,
+#: 1764), channels off the 16-wide mma tiles and past one 64-wide chunk
+CP_FWD_EDGES = [(1, 24, 40, 1764), (3, 76, 105, 300), (9, 105, 76, 1023), (17, 40, 24, 300)]
+
+
+@pytest.mark.parametrize("shape", CP_FWD_EDGES)
+@pytest.mark.parametrize("R", [17, 64, 200, 784])
+@pytest.mark.parametrize("dtype", CP_DTYPES)
+def test_cp_fwd_matches_plain_at_its_edges(cuda, shape, R, dtype):
+    """cp_fwd (tensor cores and the exact split of u in half modes) against
+    its plain version within ``store_budget``, which a zeroed output must
+    exceed; the rank in one, four and thirteen 64-wide chunks."""
+    B, I, O, M = shape
+    ops_ = _cp_operands(B, I, O, R, M, dtype, cuda, seed=R + M)[:8]
+    before = sc.launches_cp_fwd
+    got = sc._launch_cp_fwd(*ops_)
+    torch.cuda.synchronize()
+    assert sc.launches_cp_fwd == before + 1
+    want = sc.spectral_contract_cp_plain(*ops_)
+    mag = sc.cp_magnitudes(*ops_)["out"]
+    eps = FORMAT_EPS[dtype_name(dtype)]
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _cp_budget_ok(g, w, mag, eps)
+        assert not _cp_budget_ok(torch.zeros_like(w), w, mag, eps)
+    again = sc._launch_cp_fwd(*ops_)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
+
+
+#: (I, O, M) where dense_bwd_w's design has edges: channels off its 16-wide
+#: tiles, the last mode tile ragged, rows off 16 bytes (M = 1023)
+DENSE_BWD_W_EDGES = [(24, 40, 300), (76, 105, 1023), (105, 76, 1764)]
+
+
+@pytest.mark.parametrize("B", [0, 1, 3, 9, 17])
+@pytest.mark.parametrize("shape", DENSE_BWD_W_EDGES)
+@pytest.mark.parametrize("cast_to,out_dtype", MODES)
+def test_dense_bwd_w_matches_plain_at_its_edges(cuda, B, shape, cast_to, out_dtype):
+    """dense_bwd_w against its plain version within ``contract_budget`` at
+    ε_f32 of Σ_b |x||g|, which a zeroed output must exceed; B in one and
+    several 4-row ring slots, and B = 0, where dw is zeros; a rerun
+    bit-identical."""
+    I, O, M = shape
+    xr, xi, _, _ = _operands(B, I, 1, M, cuda, seed=B + M)
+    gr, gi = _cotangent(B, O, M, out_dtype, cuda, seed=B + M + 1)
+    before = sc.launches_bwd_w
+    kr, ki = sc._launch_bwd_w(xr, xi, gr, gi, cast_to)
+    torch.cuda.synchronize()
+    assert sc.launches_bwd_w == before + 1
+    pr, pi = sc.spectral_contract_bwd_w_plain(xr, xi, gr, gi, cast_to=cast_to)
+    mag = torch.einsum("bim,bom->iom", torch.hypot(xr, xi), torch.hypot(gr.float(), gi.float()))
+    budget = contract_budget(FORMAT_EPS["float32"], mag)
+    assert kr.dtype == torch.float32 and kr.shape == pr.shape
+    diff = torch.hypot(kr - pr, ki - pi)
+    assert bool((diff <= budget).all()), float((diff - budget).max())
+    if B == 0:
+        assert not bool(kr.any()) and not bool(ki.any())
+    else:
+        assert not bool((torch.hypot(pr, pi) <= budget).all())
+    again = sc._launch_bwd_w(xr, xi, gr, gi, cast_to)
+    torch.cuda.synchronize()
+    assert torch.equal(kr, again[0]) and torch.equal(ki, again[1])
+
+
+@pytest.mark.parametrize("M", [1024, 301])
+@pytest.mark.parametrize("cast_to,g_dtype,edge", [
+    (torch.bfloat16, torch.float16, [65504.0, -65440.0, 65472.0, 65409.0]),
+    (torch.float16, torch.bfloat16, [65280.0, -65024.0, 257.0, 3.0e-5])])
+def test_dense_bwd_w_rounds_a_half_g_onto_the_other_half(cuda, M, cast_to, g_dtype, edge):
+    """A g stored in one half format, rounded onto the other: an fp16 g in
+    (65408, 65504] rounds to bf16 65536, which the kernel must keep finite,
+    as the plain version does (a bf16 g onto fp16: the largest values fp16
+    holds, and one in its subnormal range); staged by cp.async (M = 1024)
+    and element by element (M = 301)."""
+    B, I, O = 9, 24, 40
+    xr, xi, _, _ = _operands(B, I, 1, M, cuda, seed=M)
+    gr, gi = _cotangent(B, O, M, g_dtype, cuda, seed=M + 1)
+    big = torch.tensor(edge).to(g_dtype)
+    gr[:, :, :4] = big.to(cuda)
+    gi[:, 3:5, 7:11] = big.flip(0).to(cuda)
+    kr, ki = sc._launch_bwd_w(xr, xi, gr, gi, cast_to)
+    torch.cuda.synchronize()
+    pr, pi = sc.spectral_contract_bwd_w_plain(xr, xi, gr, gi, cast_to=cast_to)
+    assert bool(torch.isfinite(pr).all() and torch.isfinite(pi).all())
+    assert bool(torch.isfinite(kr).all() and torch.isfinite(ki).all())
+    mag = torch.einsum("bim,bom->iom", torch.hypot(xr, xi), torch.hypot(gr.float(), gi.float()))
+    budget = contract_budget(FORMAT_EPS["float32"], mag)
+    diff = torch.hypot(kr - pr, ki - pi)
+    assert bool((diff <= budget).all()), float((diff - budget).max())
+    assert not bool((torch.hypot(pr, pi) <= budget).all())
 
 
 @pytest.mark.parametrize("dtype", CP_DTYPES)

@@ -388,12 +388,14 @@ def test_tfno_engine_serves_batched_as_solo_and_refuses_small_grids():
 @pytest.mark.parametrize("width", [1, 16, 64, 75, 76, 104, 105, 128, 160, 256, 558])
 def test_cp_channel_plans_fit_a_block_at_every_width(width):
     """``cp_fwd`` and ``cp_bwd`` tile the channel axes, so every width up to
-    the rank limit fits a block's shared memory.  At the path's widths (I =
-    O = R = 64) and below the old limits one chunk covers both axes and
-    cp_bwd keeps dU_i/dU_o in shared memory (the one-chunk layout)."""
-    IC, OC, need = sc.cp_fwd_plan(width, width, width)
-    assert need <= sc.SMEM_LIMIT and 1 <= IC <= width and OC % 4 == 0 and OC >= 4
-    assert ((IC, OC) == (width, -(-width // 4) * 4)) == (width <= 104)
+    the rank limit fits a block's shared memory.  cp_fwd keeps its factors
+    resident up to the path's widths (I = O = R = 64) and streams them a
+    chunk at a time past them, in every operand dtype; below the old limits
+    one chunk covers both of cp_bwd's axes and it keeps dU_i/dU_o in shared
+    memory (the one-chunk layout)."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        plan = sc.cp_fwd_plan(width, width, width, dtype)
+        assert plan.smem <= sc.SMEM_LIMIT and plan.resident == (width <= 64)
     IC, OC, acc_smem, need = sc.cp_bwd_plan(width, width, width)
     assert need <= sc.SMEM_LIMIT and 1 <= IC <= width and 1 <= OC <= width
     assert acc_smem == (width <= 75)
@@ -401,11 +403,14 @@ def test_cp_channel_plans_fit_a_block_at_every_width(width):
 
 
 def test_cp_plans_refuse_only_ranks_whose_tiles_leave_no_room():
-    """What remains after the channel tiling is a limit on the rank: its
-    resident tiles and one channel of each side must fit in 227 KB."""
-    assert sc.cp_fwd_plan(3000, 2000, 784)[2] <= sc.SMEM_LIMIT
+    """What remains after the channel tiling is a limit on cp_bwd's rank: its
+    resident tiles and one channel of each side must fit in 227 KB.  cp_fwd
+    walks the rank in chunks too, so it refuses no rank: past its old limit
+    (R <= 784) its plan still fits."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for R in (784, 785, 4096):
+            assert sc.cp_fwd_plan(3000, 2000, R, dtype).smem <= sc.SMEM_LIMIT
+            assert sc.cp_fwd_plan(1, 1, R, dtype).smem <= sc.SMEM_LIMIT
     assert sc.cp_bwd_plan(3000, 2000, 558)[3] <= sc.SMEM_LIMIT
-    with pytest.raises(ValueError, match="R <= 784"):
-        sc.cp_fwd_plan(1, 1, 785)
     with pytest.raises(ValueError, match="R <= 558"):
         sc.cp_bwd_plan(1, 1, 559)

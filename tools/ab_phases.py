@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time phases of ``chip_smoke.py`` from two checkouts in turns on one GPU.
 
-    python3 tools/ab_phases.py OTHER_DIR [--phases flash,ls,sfno_serve,sfno_train]
+    python3 tools/ab_phases.py OTHER_DIR [--phases dense,cp,bits,...]
 
 OTHER_DIR is another checkout of this repository, labelled "parent" (for
 example the parent commit, ``git archive``d into a directory that
@@ -23,7 +23,21 @@ Phases, each a function of the checkout's own ``chip_smoke.py``:
   checks and a profiled tick each;
 - ``sfno_train``: ``swe_data`` (once for both SFNO phases), then
   ``sfno_train_phase``, the SFNO's 12 training steps with their checks
-  and profiles.
+  and profiles;
+- ``dense``: ``timing_phase``, ``dense_fwd``, ``dense_bwd_x`` and
+  ``dense_bwd_w`` at the Darcy path's shape;
+- ``cp``: ``cp_timing_phase``, ``cp_fwd`` and ``cp_bwd`` at the TFNO
+  path's shape;
+- ``tfno_serve``: ``tfno_serve_phase``, the TFNO served at 128² and 256²
+  under ``mixed_fno_bf16`` and ``full`` with its checks and profiled ticks;
+- ``tfno_train``: ``tfno_train_phase``, its Navier-Stokes pairs and 12
+  training steps with their checks and profiles;
+- ``darcy_staged_train``: ``train_phase``, the staged Darcy FNO's pairs and
+  12 training steps with their checks and profiles;
+- ``bits``: a digest of each dense and CP kernel's outputs at its path's
+  shape in each mode, from the same seeded operands in every turn; after
+  the turns a ``bits_compare`` line names the kernels and modes whose
+  digests agree between the two checkouts and those that differ.
 
 Exits non-zero if a child fails.  Needs one card.
 """
@@ -35,7 +49,35 @@ from collections import defaultdict
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-PHASES = ("flash", "ls", "sfno_serve", "sfno_train")
+PHASES = ("flash", "ls", "sfno_serve", "sfno_train", "dense", "cp", "tfno_serve", "tfno_train",
+          "darcy_staged_train", "bits")
+
+
+def bits(cs, sc):
+    """Digests of the dense and CP kernels' outputs, from seeded operands."""
+    import hashlib
+
+    import torch
+
+    def digest(ts):
+        h = hashlib.sha1()
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    out = {}
+    ops = cs.operands(cs.PATH_SHAPE, 500)
+    for cast_to, dt in cs.MODES:
+        g = cs.cotangent(cs.PATH_SHAPE, dt, 501)
+        out[f"dense_fwd/{dt}"] = digest(
+            sc.spectral_contract_dense(*ops, cast_to=cast_to, out_dtype=dt))
+        out[f"dense_bwd_x/{dt}"] = digest(sc._launch_bwd_x(*g, ops[2], ops[3], cast_to))
+        out[f"dense_bwd_w/{dt}"] = digest(sc._launch_bwd_w(ops[0], ops[1], *g, cast_to))
+    for dtype in cs.CP_DTYPES:
+        cops = cs.cp_operands(cs.CP_PATH_SHAPE, dtype, 502)
+        out[f"cp_fwd/{dtype}"] = digest(sc._launch_cp_fwd(*cops[:8]))
+        out[f"cp_bwd/{dtype}"] = digest(sc._launch_cp_bwd(*cops))
+    cs.emit("bits", digests=out)
 
 
 def turn(checkout: Path, phases):
@@ -52,6 +94,18 @@ def turn(checkout: Path, phases):
             cs.lm_kernel_phase()
         elif phase == "ls":
             cs.ls_timing_phase(sc, defaultdict(float), defaultdict(int))
+        elif phase == "dense":
+            cs.timing_phase(sc, defaultdict(float), defaultdict(int))
+        elif phase == "cp":
+            cs.cp_timing_phase(sc, defaultdict(float), defaultdict(int))
+        elif phase == "tfno_serve":
+            cs.tfno_serve_phase(sc)
+        elif phase == "tfno_train":
+            cs.tfno_train_phase(sc)
+        elif phase == "darcy_staged_train":
+            cs.train_phase(sc)
+        elif phase == "bits":
+            bits(cs, sc)
         else:
             swe = cs.swe_data() if swe is None else swe
             (cs.sfno_serve_phase if phase == "sfno_serve" else cs.sfno_train_phase)(sc, swe)
@@ -70,19 +124,27 @@ def main():
         turn(args.other.resolve(), phases)
         return 0
     checkouts = {"parent": args.other.resolve(), "change": HERE}
+    digests = defaultdict(dict)      # kernel/mode -> {checkout: {digests of its turns}}
     for k, label in enumerate(("parent", "change", "change", "parent")):
         child = subprocess.run(
             [sys.executable, __file__, str(checkouts[label]), "--phases", args.phases,
              "--turn"], capture_output=True, text=True, check=False)
         for line in child.stdout.splitlines():
             if line.startswith("{"):
-                print(json.dumps({"turn": k, "checkout": label, **json.loads(line)}),
-                      flush=True)
+                row = json.loads(line)
+                print(json.dumps({"turn": k, "checkout": label, **row}), flush=True)
+                for key, d in row.get("digests", {}).items():
+                    digests[key].setdefault(label, set()).add(d)
         if child.returncode != 0:
             print(child.stderr[-4000:], file=sys.stderr)
             print(f"ab_phases: turn {k} ({label}) failed with {child.returncode}",
                   file=sys.stderr)
             return 1
+    if digests:
+        same = sorted(k for k, d in digests.items()
+                      if len(d.get("parent", ())) == 1 and d.get("parent") == d.get("change"))
+        print(json.dumps({"phase": "bits_compare", "same": same,
+                          "differ": sorted(set(digests) - set(same))}), flush=True)
     return 0
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Try variants of hand-written kernels beside the shipped ones on one GPU.
 
-    python3 tools/kernel_trials.py [--only flash,ls_bwd_w,ls_mix,rmsnorm]
+    python3 tools/kernel_trials.py [--only flash,ls_bwd_w,ls_mix,rmsnorm,cp_fwd,dense_bwd_w]
 
-Each variant is the shipped source with a few lines replaced (``VARIANTS``),
+Each variant is the shipped source with a few lines replaced (``VARIANTS``;
+one puts a block of its own in front of a line),
 or the shipped library called with another plan than the host's.
 Every library is built with the port's nvcc flags into
 ``build/kernel_trials/`` and called through the same C interface as the
@@ -27,7 +28,25 @@ reverse).  Prints one JSON line per shape and mode:
   bf16 and f32, each a CUDA graph of 20 launches: the shipped plan beside
   other (packs a lane, warps a row, waves of the resident blocks) plans,
   one element a lane, no prefetch of the next row and prefetch at every
-  instance; ``F.rms_norm`` timed the same way first and last.
+  instance; ``F.rms_norm`` timed the same way first and last;
+- ``spectral_contract_cp_fwd`` at the TFNO path's shape in bf16, fp16 and
+  f32, each a CUDA graph of 40 launches cycling operands larger than L2:
+  the half modes' rank-expand on the CUDA cores from u in f32 in shared
+  memory instead of the exact bf16 split on the tensor cores, and a ring of
+  3 slots instead of 2; each library's largest excess over
+  ``store_budget`` (a negative one is inside it) beside its µs, and the
+  complex64 ``torch.einsum`` timed the same way; each library also timed
+  with a cuFFT transform of the TFNO path's activations before every
+  launch (``after_fft_us``: the graph of both less the transform's);
+- ``spectral_contract_dense_bwd_w`` at the Darcy path's shape in bf16 and
+  f32 mode, timed both ways: rings of 2 and 4 slots instead of 3 (4 do not
+  fit with a half g: null), 2- and 4-row slots instead of 8 (4 with an f32
+  g), 64-mode, 16 x 16 channel tiles instead of 16-mode, 32 x 32 ones,
+  tiles walked channels first instead of modes first, and streaming
+  (``st.global.cs``) stores; each library's largest difference from the plain version, and
+  the complex64 ``torch.einsum``.  Variants named ``diag`` switch a part
+  off (the sums, the stores, a contraction) to show what it costs; their
+  answers are wrong by design.
 
 Needs one card.
 """
@@ -43,12 +62,68 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import chip_smoke as cs  # noqa: E402
+from repro_torch.core.precision import FORMAT_EPS, dtype_name  # noqa: E402
+from repro_torch.core.theory import store_budget  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import spectral_contract as sc  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_trials"
+#: the half modes' rank-expand on the CUDA cores, put in front of the
+#: shipped stage 3 (which it leaves unreachable): u in f32 through the
+#: slot's x/W area, [r][m], and thread (mq, nq) sums modes 4 mq.. x output
+#: channels 8 nq.. (acc_o[re/im][channel][mode])
+_CP_STAGE3 = "      // stage 3: out[m][o] += u[m][r] U_o[o][r], u in three exact bf16\n"
+_CP_CUDA_CORE_RANK_EXPAND = """      {
+        constexpr int UFP = MT + 4;
+        float* sur = reinterpret_cast<float*>(st);
+        float* sui = sur + RC * UFP;
+        __syncthreads();
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int j = 0; j < RC / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              (p ? sui : sur)[(8 * j + 2 * t4 + (e & 1)) * UFP + wm + g + 8 * (e >> 1)] =
+                  acc_t[p][j][e];
+        __syncthreads();
+        for (int r = 0; r < nr; ++r) {
+          const float4 a4 = *reinterpret_cast<const float4*>(sur + r * UFP + 4 * mq);
+          const float4 c4 = *reinterpret_cast<const float4*>(sui + r * UFP + 4 * mq);
+          const float ua[4] = {a4.x, a4.y, a4.z, a4.w}, ub[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const float pr = F::ld(s_uor[(8 * nq + k) * UP + r]);
+            const float pi = F::ld(s_uoi[(8 * nq + k) * UP + r]);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              acc_o[0][k][c] = fmaf(ua[c], pr, acc_o[0][k][c]);
+              acc_o[0][k][c] = fmaf(-ub[c], pi, acc_o[0][k][c]);
+              acc_o[1][k][c] = fmaf(ua[c], pi, acc_o[1][k][c]);
+              acc_o[1][k][c] = fmaf(ub[c], pr, acc_o[1][k][c]);
+            }
+          }
+        }
+        if (it.rc < nrc - 1) continue;
+        __syncthreads();
+        T* sor = st;
+        T* soi = st + OC * XP;
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              (p ? soi : sor)[(8 * nq + k) * XP + 4 * mq + c] = F::st(acc_o[p][k][c]);
+        __syncthreads();
+        const size_t oo = (it.b * O + oc0) * M + it.m0;
+        store_rows<T, NT>(outr + oo, M, sor, XP, no, nm, MT, um, tid);
+        store_rows<T, NT>(outi + oo, M, soi, XP, no, nm, MT, um, tid);
+        continue;
+      }
+"""
 #: name -> (shipped source, [(old line, new line), ...])
 VARIANTS = {
     "flash_fast_exp": ("flash_attention.cu", [
@@ -70,6 +145,42 @@ VARIANTS = {
         ("static constexpr int STAGES = 2; ", "static constexpr int STAGES = 3; ")]),
     "ls_mix_4_stages": ("spectral_contract_lshared.cu", [
         ("static constexpr int STAGES = 2; ", "static constexpr int STAGES = 4; ")]),
+    "cp_fwd_cuda_core_rank_expand": ("spectral_contract_cp.cu", [
+        (_CP_STAGE3, _CP_CUDA_CORE_RANK_EXPAND + _CP_STAGE3)]),
+    "cp_fwd_3_stages": ("spectral_contract_cp.cu", [
+        ("static constexpr int STAGES = 2;", "static constexpr int STAGES = 3;")]),
+    # diagnostics (their answers are wrong by design): what a part of the
+    # kernel costs, by switching it off behind a condition that is false at
+    # run time, so the compiler keeps the rest
+    "cp_fwd_diag_no_rank_project": ("spectral_contract_cp.cu", [
+        ("        for (int ks = 0; ks < nk; ks += 16) {",
+         "        for (int ks = 0; ks < nk && M < 0; ks += 16) {")]),
+    "cp_fwd_diag_no_rank_expand": ("spectral_contract_cp.cu", [
+        ("            if (16 * kk < nr) {", "            if (16 * kk < nr && M < 0) {")]),
+    "dense_bwd_w_64_mode_tiles": ("spectral_contract_bwd.cu", [
+        ("constexpr int WTM = 16;", "constexpr int WTM = 64;"),
+        ("constexpr int WTI = 32;", "constexpr int WTI = 16;"),
+        ("constexpr int WTO = 32;", "constexpr int WTO = 16;")]),
+    "dense_bwd_w_channels_fastest": ("spectral_contract_bwd.cu", [
+        ("    m0 = (t % nmt) * WTM;", "    o0 = (t % nto) * WTO;"),
+        ("    i0 = ((t / nmt) % nit) * WTI;", "    i0 = ((t / nto) % nit) * WTI;"),
+        ("    o0 = (t / (nmt * nit)) * WTO;", "    m0 = (t / (nto * nit)) * WTM;")]),
+    "dense_bwd_w_diag_no_stores": ("spectral_contract_bwd.cu", [
+        ("        if (i >= I || oo >= O) continue;",
+         "        if (i >= I || oo >= O || M > 0) continue;")]),
+    "dense_bwd_w_diag_no_sums": ("spectral_contract_bwd.cu", [
+        ("    for (int bb = 0; bb < nbv; ++bb) {",
+         "    for (int bb = 0; bb < nbv && M < 0; ++bb) {")]),
+    "dense_bwd_w_2_stages": ("spectral_contract_bwd.cu", [
+        ("constexpr int WSTAGES = 3;", "constexpr int WSTAGES = 2;")]),
+    "dense_bwd_w_4_stages": ("spectral_contract_bwd.cu", [
+        ("constexpr int WSTAGES = 3;", "constexpr int WSTAGES = 4;")]),
+    "dense_bwd_w_2_row_slots": ("spectral_contract_bwd.cu", [
+        ("static constexpr int BT = sizeof(T) == 2 ? 8 : 4;", "static constexpr int BT = 2;")]),
+    "dense_bwd_w_4_row_slots": ("spectral_contract_bwd.cu", [
+        ("static constexpr int BT = sizeof(T) == 2 ? 8 : 4;", "static constexpr int BT = 4;")]),
+    "dense_bwd_w_streaming_stores": ("spectral_contract_bwd.cu", [
+        ("  *reinterpret_cast<float4*>(p) = v;", "  __stcs(reinterpret_cast<float4*>(p), v);")]),
     "rmsnorm_no_prefetch": ("rmsnorm.cu", [
         ("constexpr int PREFETCH_MAX_CH = 4;", "constexpr int PREFETCH_MAX_CH = 0;")]),
     "rmsnorm_prefetch_all": ("rmsnorm.cu", [
@@ -256,8 +367,103 @@ def rmsnorm_trials():
             torch.cuda.empty_cache()
 
 
+def interleaved_us(fn, sets, other):
+    """µs per call of ``fn`` when each call follows ``other()`` (another
+    kernel, as on the paths, where cuFFT and elementwise kernels run between
+    launches): a CUDA graph of both in turns, less one of ``other`` alone."""
+    both = cs.graph_ms(lambda *a: (other(), fn(*a)), sets)
+    return 1e3 * (both - cs.graph_ms(lambda *a: other(), sets))
+
+
+def fft_between():
+    """A cuFFT transform of the TFNO path's 128² activations (8 x 64
+    fields), the kernel that precedes the spectral contraction there."""
+    x = torch.randn(8, 64, 128, 128, device="cuda")
+    return lambda: torch.fft.rfft2(x)
+
+
+def cp_fwd_trials():
+    libs = libraries("cp_fwd", "spectral_contract_cp.cu", {"spectral_contract_cp_fwd": (10, 7)})
+    B, I, O, R, M = cs.CP_PATH_SHAPE
+    other = fft_between()
+    order = list(libs) + list(reversed(libs))
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        sets = [cs.cp_operands(cs.CP_PATH_SHAPE, dtype, 300 + k)[:8] for k in range(8)]
+        plan = sc.cp_fwd_plan(I, O, R, dtype)
+
+        def run(name, *ops, dtype=dtype, plan=plan):
+            out = [torch.empty((B, O, M), dtype=dtype, device="cuda") for _ in range(2)]
+            build._call(libs[name].spectral_contract_cp_fwd, "spectral_contract_cp_fwd",
+                        ops[0].device, *(t.data_ptr() for t in (*ops, *out)),
+                        B, I, O, R, M, int(plan.resident), sc._FMT[dtype])
+            return out
+
+        want = sc.spectral_contract_cp_plain(*sets[0])
+        mag = sc.cp_magnitudes(*sets[0])["out"]
+        eps = FORMAT_EPS[dtype_name(dtype)]
+        row = {"kernel": "spectral_contract_cp_fwd", "shape": list(cs.CP_PATH_SHAPE),
+               "dtype": str(dtype), "us": {}, "excess_over_budget": {}}
+        for name in order:
+            got = run(name, *sets[0])
+            row["excess_over_budget"][name] = max(
+                ((a.float() - b.float()).abs() - store_budget(eps, b.float(), mag)).max().item()
+                for a, b in zip(got, want, strict=True))
+            row["us"].setdefault(name, []).append(
+                1e3 * cs.graph_ms(lambda *a, n=name: run(n, *a), sets))
+            row.setdefault("after_fft_us", {}).setdefault(name, []).append(
+                interleaved_us(lambda *a, n=name: run(n, *a), sets, other))
+        csets = [[torch.complex(o[2 * k].float(), o[2 * k + 1].float()) for k in range(4)]
+                 for o in sets]
+        row["library_us"] = 1e3 * cs.graph_ms(
+            lambda x, ui, uo, w: torch.einsum("bim,ir,rm,or->bom", x, ui, w, uo), csets)
+        print(json.dumps(row), flush=True)
+        del sets, csets
+        torch.cuda.empty_cache()
+
+
+def dense_bwd_w_trials():
+    libs = libraries("dense_bwd_w", "spectral_contract_bwd.cu",
+                     {"spectral_contract_dense_bwd_w": (6, 6)})
+    B, I, O, M = cs.PATH_SHAPE
+    order = list(libs) + list(reversed(libs))
+    sets = [cs.operands(cs.PATH_SHAPE, 100 + k) for k in range(4)]
+    other = fft_between()
+    for cast_to, dt in ((torch.bfloat16, torch.bfloat16), (None, torch.float32)):
+        full = [(xr, xi, *cs.cotangent(cs.PATH_SHAPE, dt, 200 + k))
+                for k, (xr, xi, _, _) in enumerate(sets)]
+
+        def run(name, xr, xi, gr, gi, cast_to=cast_to):
+            dw = [torch.empty((I, O, M), device="cuda") for _ in range(2)]
+            build._call(libs[name].spectral_contract_dense_bwd_w, "spectral_contract_dense_bwd_w",
+                        xr.device, *(t.data_ptr() for t in (xr, xi, gr, gi, *dw)),
+                        B, I, O, M, sc._FMT[cast_to or torch.float32], sc._FMT[gr.dtype])
+            return dw
+
+        want = sc.spectral_contract_bwd_w_plain(*full[0], cast_to=cast_to)
+        row = {"kernel": "spectral_contract_dense_bwd_w", "shape": list(cs.PATH_SHAPE),
+               "mode": str(dt), "us": {}, "max_abs_diff": {}}
+        for name in order:
+            try:
+                got = run(name, *full[0])
+            except RuntimeError as err:     # a ring that does not fit shared memory
+                row["us"][name], row["max_abs_diff"][name] = None, str(err)
+                continue
+            row["max_abs_diff"][name] = max((a - b).abs().max().item()
+                                            for a, b in zip(got, want, strict=True))
+            row["us"].setdefault(name, []).append(
+                1e3 * cs.graph_ms(lambda *a, n=name: run(n, *a), full))
+            row.setdefault("after_fft_us", {}).setdefault(name, []).append(
+                interleaved_us(lambda *a, n=name: run(n, *a), full, other))
+        gc = [torch.complex(*cs.cotangent(cs.PATH_SHAPE, torch.float32, 200 + k))
+              for k in range(4)]
+        xs = [torch.complex(xr, xi) for xr, xi, _, _ in sets]
+        row["library_us"] = 1e3 * cs.graph_ms(
+            lambda x, g: torch.einsum("bim,bom->iom", x.conj(), g), list(zip(xs, gc)))
+        print(json.dumps(row), flush=True)
+
+
 TRIALS = {"flash": flash_trials, "ls_bwd_w": ls_bwd_w_trials, "ls_mix": ls_mix_trials,
-          "rmsnorm": rmsnorm_trials}
+          "rmsnorm": rmsnorm_trials, "cp_fwd": cp_fwd_trials, "dense_bwd_w": dense_bwd_w_trials}
 
 
 def main():
