@@ -1041,25 +1041,35 @@ def fused_magnitude(x, wgr, wgi, modes, g=None):
     return out
 
 
+#: the fused kernels' contraction tile: 8 modes of 64 channels of 8 batch
+#: rows, complex f32 (``CT_BYTES`` in the source); a block takes at least it
+FUSED_TILE_BYTES = 8 * 64 * 8 * 8
 def fused_smem_bytes(spatial, modes) -> int:
     """Shared memory one block of the fused kernels holds for these axes:
     the slab after its last axis (S0·R1 complex f32 for 2 axes; S0·S1·R2
-    and S0·R1·R2 for 3), mirrored by ``spectral_fused_smem`` in the source."""
+    and S0·R1·R2 for 3), and at least the contraction's tile
+    (``FUSED_TILE_BYTES``); mirrored by ``spectral_fused_smem`` in the
+    source."""
     S, R = tuple(int(s) for s in spatial), fused_rows(spatial, modes)
+    slab = 0
     if len(S) == 2:
-        return 8 * S[0] * R[1]
+        slab = 8 * S[0] * R[1]
     if len(S) == 3:
-        return 8 * (S[0] * S[1] * R[2] + S[0] * R[1] * R[2])
-    return 0
+        slab = 8 * (S[0] * S[1] * R[2] + S[0] * R[1] * R[2])
+    return max(slab, FUSED_TILE_BYTES)
 
 
 def fused_scratch_bytes(block_b: int, I: int, O: int, spatial, modes) -> int:
-    """The bytes the fused kernels keep between their stages for a batch
-    tile of ``block_b`` rows: the truncated spectra, complex f32 of Mh
-    modes each, x̂, ĝ and dx̂ in the backward.  The forward's x̂ and ŷ fill
-    the first ``I + O`` rows of the same scratch, so one size serves both
-    directions."""
+    """The bytes the fused backward keeps between its stages for a batch
+    tile of ``block_b`` rows: the truncated spectra x̂, ĝ and dx̂, complex
+    f32 of Mh modes each.  The larger of the two directions' scratch, so
+    the viability rule and the batch tile are decided by it."""
     return 8 * block_b * (2 * I + O) * math.prod(fused_rows(spatial, modes))
+
+
+def fused_fwd_scratch_bytes(block_b: int, I: int, O: int, spatial, modes) -> int:
+    """The bytes the fused forward keeps between its stages: x̂ and ŷ."""
+    return 8 * block_b * (I + O) * math.prod(fused_rows(spatial, modes))
 
 
 def pick_block_b(B: int, I: int, O: int, spatial, modes) -> int:
@@ -1073,21 +1083,68 @@ def pick_block_b(B: int, I: int, O: int, spatial, modes) -> int:
     return 1
 
 
-@functools.cache
-def _fused_pack(spatial, modes, device) -> torch.Tensor:
-    """The kernels' factor pack on ``device``: per axis eight f32 matrices,
-    each cast from ``fused_factors`` as the reference casts them and then
-    transposed or negated (exact): the forward DFT and its adjoint, the
-    inverse and its adjoint (the layout ``spectral_fused.cu`` states)."""
+def fused_products(spatial, modes):
+    """The fused kernels' product matrices B, f32 on the CPU, in the
+    pack's order (per axis, axis 0 first: the forward DFT, the inverse,
+    the inverse's adjoint, the forward's adjoint): each factor cast from
+    ``fused_factors`` as the reference casts it, transposed or negated
+    (exact) into ``(B_re + i B_im)[l][j]`` (index l of the axis in, j
+    out), padded with zeros to Lp = L rounded up to 16 rows and Jp = J to
+    8 columns, then laid out as the source states: ``[B_re | B_im]`` on
+    real data (the analysis' last axis), ``[[B_re, B_im], [-B_im, B_re]]``
+    on a complex axis, ``[B_re ; B_im]`` back to real (the synthesis'
+    last axis)."""
     nd = len(modes)
     f = [torch.from_numpy(a).float() for a in fused_factors(spatial, modes)]
-    parts = []
+    out = []
     for k in range(nd):
         fr, fi = f[2 * k], f[2 * k + 1]
         gr, gi = f[2 * nd + 2 * k], f[2 * nd + 2 * k + 1]
         last = k == nd - 1
-        parts += [fr.T, fi.T, gr, gi, gr.T, gi.T if last else -gi.T, fr, fi if last else -fi]
-    return torch.cat([p.contiguous().reshape(-1) for p in parts]).to(device)
+        pairs = ((fr.T, fi.T), (gr, gi), (gr.T, gi.T if last else -gi.T),
+                 (fr, fi if last else -fi))
+        for q, (bre, bim) in enumerate(pairs):
+            L, J = bre.shape
+            pad = (0, -J % 8, 0, -L % 16)
+            bre, bim = torch.nn.functional.pad(bre, pad), torch.nn.functional.pad(bim, pad)
+            analysis = q in (0, 2)
+            if analysis and last:
+                out.append(torch.cat([bre, bim], 1))
+            elif last:
+                out.append(torch.cat([bre, bim], 0))
+            else:
+                out.append(torch.cat([torch.cat([bre, bim], 1), torch.cat([-bim, bre], 1)], 0))
+    return out
+
+
+def bf16_split(b: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Three bf16 pieces of f32 ``b`` whose sum is ``b`` exactly: each the
+    bf16 rounding (to nearest even) of what the earlier pieces leave (the
+    source's ``split3``)."""
+    rest, pieces = b.float(), []
+    for _ in range(3):
+        piece = rest.to(torch.bfloat16)
+        pieces.append(piece)
+        rest = rest - piece.float()
+    return tuple(pieces)
+
+
+def fragment_order(p: torch.Tensor) -> torch.Tensor:
+    """A (Kp, Np) bf16 piece as the kernels load it: [k step of 16 rows]
+    [n tile of 8 columns][lane (g, t) = 4g + t][rows 2t, 2t+1, 2t+8, 2t+9
+    of column g], flat."""
+    Kp, Np = p.shape
+    return p.reshape(Kp // 16, 2, 4, 2, Np // 8, 8).permute(0, 4, 5, 2, 1, 3).reshape(-1)
+
+
+@functools.cache
+def _fused_pack(spatial, modes, device) -> torch.Tensor:
+    """The kernels' factor pack on ``device``: every ``fused_products``
+    matrix as its three ``bf16_split`` pieces, piece after piece, each in
+    ``fragment_order`` (bf16 bits, the layout ``spectral_fused.cu``
+    states)."""
+    parts = [fragment_order(p) for b in fused_products(spatial, modes) for p in bf16_split(b)]
+    return torch.cat(parts).view(torch.int16).to(device)
 
 
 def _check_fused(x, wgr, wgi, modes, cast_to, sim_fmt) -> torch.device:
@@ -1174,12 +1231,14 @@ def _fused_args(x, modes):
     return (nd, *(int(s) for s in x.shape[2:]), *pad, *(int(m) for m in modes), *pad)
 
 
-def _fused_setup(x, modes, I, O, bb):
+def _fused_setup(x, modes, I, O, bb, backward):
     """The library, its axes, the factor pack and the scratch of a launch
-    (``fused_scratch_bytes``).  A shape whose slab does not fit a block's
-    shared memory is refused by the launcher."""
-    scratch = torch.empty(fused_scratch_bytes(bb, I, O, x.shape[2:], modes) // 4,
-                          dtype=torch.float32, device=x.device)
+    (``fused_scratch_bytes`` for the backward, ``fused_fwd_scratch_bytes``
+    for the forward).  A shape whose slab does not fit a block's shared
+    memory is refused by the launcher."""
+    size = (fused_scratch_bytes if backward else fused_fwd_scratch_bytes)(
+        bb, I, O, x.shape[2:], modes)
+    scratch = torch.empty(size // 4, dtype=torch.float32, device=x.device)
     return (_library_fused(), _fused_args(x, modes),
             _fused_pack(tuple(x.shape[2:]), tuple(modes), x.device), scratch)
 
@@ -1193,7 +1252,7 @@ def _launch_fused_fwd(x, wgr, wgi, modes, cast_to, sim_fmt):
     if y.numel() == 0 or x.numel() == 0:
         return y.zero_()
     bb = pick_block_b(B, I, O, spatial, modes)
-    lib, axes, fac, scratch = _fused_setup(x, modes, I, O, bb)
+    lib, axes, fac, scratch = _fused_setup(x, modes, I, O, bb, backward=False)
     for b0 in range(0, B, bb):
         n = min(bb, B - b0)
         _call(lib.spectral_fused_fwd, "spectral_fused_fwd", x.device,
@@ -1218,7 +1277,7 @@ def _launch_fused_bwd(x, wgr, wgi, g, modes, cast_to, sim_fmt):
         raise ValueError(f"spectral_fused backward: cotangent {tuple(g.shape)}, "
                          f"expected {(B, O, *spatial)}")
     bb = pick_block_b(B, I, O, spatial, modes)
-    lib, axes, fac, scratch = _fused_setup(x, modes, I, O, bb)
+    lib, axes, fac, scratch = _fused_setup(x, modes, I, O, bb, backward=True)
     for b0 in range(0, B, bb):
         n = min(bb, B - b0)
         _call(lib.spectral_fused_bwd, "spectral_fused_bwd", x.device,
@@ -1266,6 +1325,7 @@ def _library_ls() -> ctypes.CDLL:
 @functools.cache
 def _library_fused() -> ctypes.CDLL:
     lib = _bind(SOURCE_FUSED, spectral_fused_fwd=(6, 12), spectral_fused_bwd=(9, 13))
-    lib.spectral_fused_smem.argtypes = [ctypes.c_int] * 7
-    lib.spectral_fused_smem.restype = ctypes.c_longlong
+    for name in ("spectral_fused_smem", "spectral_fused_pack_words"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 7
+        getattr(lib, name).restype = ctypes.c_longlong
     return lib

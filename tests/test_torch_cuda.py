@@ -325,10 +325,11 @@ def test_trainer_two_steps_cuda_matches_cpu(cuda):
 FUSED_MODES = [(None, None), (torch.bfloat16, None), (torch.float16, None),
                (torch.float16, "fp8_e4m3"), (torch.float16, "fp8_e5m2")]
 #: (B, I, O, spatial, modes): the Darcy path's shape, a ragged 2-d, a 3-d, a
-#: 1-d whose last axis keeps its Nyquist row, and two batch tiles
+#: 1-d whose last axis keeps its Nyquist row, the 421-point (prime) grid of
+#: the Darcy path at a few channels, and two batch tiles
 FUSED_SHAPES = [(8, 64, 64, (128, 128), (32, 32)), (3, 5, 7, (20, 24), (6, 9)),
                 (2, 4, 6, (10, 12, 8), (3, 4, 5)), (3, 5, 7, (30,), (16,)),
-                (11, 3, 4, (16, 16), (4, 5))]
+                (2, 3, 4, (421, 421), (32, 32)), (11, 3, 4, (16, 16), (4, 5))]
 
 
 def _fused_operands(B, I, O, spatial, modes, device, seed=0):
@@ -386,13 +387,16 @@ def test_fused_kernels_match_plain_within_budget(cuda, shape, cast_to, sim_fmt):
 
 def test_fused_sizes_match_the_python_budgets(cuda):
     """The shared memory the library launches with is the formula the CPU
-    decides viability with."""
+    decides viability with, and its factor pack is the wrapper's."""
     lib = sc._library_fused()
     for B, I, _O, spatial, modes in FUSED_SHAPES + [(8, 64, 64, (421, 421), (32, 32)),
                                                     (2, 64, 64, (32, 32, 32), (12, 12, 12))]:
         x = torch.empty(B, I, *spatial, device="meta")
         assert lib.spectral_fused_smem(*sc._fused_args(x, modes)) == \
             sc.fused_smem_bytes(spatial, modes)
+        # the factor pack the wrapper builds is the one the kernels index
+        assert lib.spectral_fused_pack_words(*sc._fused_args(x, modes)) * 4 == \
+            sc._fused_pack(tuple(spatial), tuple(modes), torch.device("cpu")).numel()
 
 
 @pytest.mark.parametrize("cast_to,sim_fmt", FUSED_MODES)

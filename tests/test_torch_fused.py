@@ -21,6 +21,7 @@ Pallas kernels in interpret mode.
   limits of ``tests/test_torch_train.py``.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -95,6 +96,71 @@ def test_factor_layout_equals_the_reference(ndim):
     got = _gathered(params, modes)
     for w, g in zip(want, got, strict=True):
         assert g.shape == w.shape and np.array_equal(g.numpy(), np.asarray(w))
+
+
+def _unfragment(flat, Kp, Np):
+    """The inverse of the kernels' fragment order, written from the
+    m16n8k16 B fragment: lane (g, t) = 4g + t holds rows 2t, 2t+1, 2t+8,
+    2t+9 of column g of each (16-row, 8-column) tile, tiles k step major."""
+    out = torch.empty(Kp, Np, dtype=flat.dtype)
+    words = flat.reshape(Kp // 16, Np // 8, 32, 4)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for e, kk in enumerate((2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)):
+            out[kk::16, g::8] = words[:, :, lane, e]
+    return out
+
+
+@pytest.mark.parametrize("spatial,modes", [((30,), (16,)), ((20, 24), (6, 9)),
+                                           ((421, 421), (32, 32)), ((10, 12, 8), (3, 4, 5))])
+def test_factor_pack_splits_the_reference_factors_exactly(spatial, modes):
+    """The kernels' factor pack: per axis and use, three bf16 pieces in
+    fragment order whose sum is exactly the reference's ``fused_factors``
+    cast to f32 (transposed, negated, laid out as the source states), zero
+    in the padding to 16 rows and 8 columns; prime and ragged axes too."""
+    nd = len(modes)
+    f32 = [torch.from_numpy(a).float() for a in sc.fused_factors(spatial, modes)]
+    pack = sc._fused_pack(spatial, modes, torch.device("cpu")).view(torch.bfloat16)
+    rows, off = sc.fused_rows(spatial, modes), 0
+    for k in range(nd):
+        fr, fi = f32[2 * k], f32[2 * k + 1]
+        gr, gi = f32[2 * nd + 2 * k], f32[2 * nd + 2 * k + 1]
+        last = k == nd - 1
+        # (B_re, B_im)[l][j], axis lengths in and out, real data in, real out
+        uses = (((fr.T, fi.T), spatial[k], rows[k], last, False),
+                ((gr, gi), rows[k], spatial[k], False, last),
+                ((gr.T, gi.T if last else -gi.T), spatial[k], rows[k], last, False),
+                ((fr, fi if last else -fi), rows[k], spatial[k], False, last))
+        for (bre, bim), L, J, real_in, real_out in uses:
+            Lp, Jp = -(-L // 16) * 16, -(-J // 8) * 8
+            Kp, Np = (1 if real_in else 2) * Lp, (1 if real_out else 2) * Jp
+            pieces = [_unfragment(pack[off + q * Kp * Np:off + (q + 1) * Kp * Np], Kp, Np)
+                      for q in range(3)]
+            off += 3 * Kp * Np
+            B = sum(p.double() for p in pieces)
+            # every piece holds what the earlier ones leave, rounded to bf16
+            rest = B.float()
+            for p in pieces:
+                assert torch.equal(p, rest.to(torch.bfloat16))
+                rest = rest - p.float()
+            want = torch.zeros(Kp, Np, dtype=torch.float64)
+            blocks = [(0, 0, bre), (0, Jp, bim)] if real_in else \
+                [(0, 0, bre), (Lp, 0, bim)] if real_out else \
+                [(0, 0, bre), (0, Jp, bim), (Lp, 0, -bim), (Lp, Jp, bre)]
+            for r0, c0, blk in blocks:
+                want[r0:r0 + L, c0:c0 + J] = blk.double()
+            assert torch.equal(B, want)
+    assert off == pack.numel()
+
+
+@pytest.mark.parametrize("decade", range(-30, 31, 10))
+def test_bf16_split_sums_back_to_f32_values(decade):
+    g = np.random.default_rng(decade + 40)
+    v = torch.from_numpy((g.uniform(1.0, 10.0, 4096) * 10.0 ** decade
+                          * g.choice([-1.0, 1.0], 4096)).astype(np.float32))
+    pieces = sc.bf16_split(v)
+    assert all(p.dtype == torch.bfloat16 for p in pieces)
+    assert torch.equal(sum(p.double() for p in pieces), v.double())
 
 
 @pytest.mark.parametrize("ndim", [1, 2, 3])
@@ -178,6 +244,22 @@ def test_l2_rule_admits_full_width_darcy_that_vmem_refuses(grid):
     assert sc.fused_scratch_bytes(8, H, H, spatial, modes) == 24 * 2 ** 20
     assert sc.pick_block_b(8, H, H, spatial, modes) == 8
     assert sc.fused_smem_bytes(spatial, modes) == 8 * grid * 32
+
+
+@pytest.mark.parametrize("grid", [128, 421])
+def test_forward_scratch_holds_only_the_forward_spectra(grid):
+    """The forward keeps x̂ and ŷ (2 MiB a batch row at FNO_DARCY's width),
+    the backward also dx̂ (3 MiB, the size the viability rule and the batch
+    tile are decided by): a served micro-batch of 8 allocates 8 MiB less."""
+    H, modes, spatial = FNO_DARCY.hidden_channels, FNO_DARCY.modes, (grid, grid)
+    assert sc.fused_fwd_scratch_bytes(1, H, H, spatial, modes) == 2 * 2 ** 20
+    assert sc.fused_fwd_scratch_bytes(8, H, H, spatial, modes) == 16 * 2 ** 20
+    assert sc.fused_scratch_bytes(8, H, H, spatial, modes) - \
+        sc.fused_fwd_scratch_bytes(8, H, H, spatial, modes) == 8 * 2 ** 20
+    # ragged channels: x̂ (I) and ŷ (O) forward, x̂, ĝ and dx̂ backward
+    Mh = math.prod(sc.fused_rows((20, 24), (6, 9)))
+    assert sc.fused_fwd_scratch_bytes(3, 5, 7, (20, 24), (6, 9)) == 8 * 3 * (5 + 7) * Mh
+    assert sc.fused_scratch_bytes(3, 5, 7, (20, 24), (6, 9)) == 8 * 3 * (10 + 7) * Mh
 
 
 def test_budgets_refuse_what_the_card_cannot_hold():

@@ -34,9 +34,20 @@ Phases, each a function of the checkout's own ``chip_smoke.py``:
   training steps with their checks and profiles;
 - ``darcy_staged_train``: ``train_phase``, the staged Darcy FNO's pairs and
   12 training steps with their checks and profiles;
-- ``bits``: a digest of each dense and CP kernel's outputs at its path's
-  shape in each mode, from the same seeded operands in every turn; after
-  the turns a ``bits_compare`` line names the kernels and modes whose
+- ``darcy_staged_serve``: ``serve_phase``, the staged Darcy FNO served at
+  128² and 421² under ``mixed_fno_bf16`` and ``full`` with its checks and
+  profiled ticks;
+- ``fused``: ``fused_timing_phase``, ``fused_fwd`` and ``fused_bwd`` at the
+  Darcy path's shape at 128² and 421² in their five modes, beside the fused
+  and the staged layer;
+- ``darcy_fused_serve``: ``serve_phase(fused=True)``, the fused Darcy FNO
+  served as the staged one is;
+- ``darcy_fused_train``: ``darcy_data``, then ``fused_train_phase``, the
+  fused Darcy FNO's 12 training steps with their checks and profiles;
+- ``bits``: a digest of each dense, CP and fused kernel's outputs at its
+  path's shape in each mode (the fused ones in their five modes, with one
+  batch tile and with two), from the same seeded operands in every turn;
+  after the turns a ``bits_compare`` line names the kernels and modes whose
   digests agree between the two checkouts and those that differ.
 
 Exits non-zero if a child fails.  Needs one card.
@@ -50,11 +61,13 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 PHASES = ("flash", "ls", "sfno_serve", "sfno_train", "dense", "cp", "tfno_serve", "tfno_train",
-          "darcy_staged_train", "bits")
+          "darcy_staged_train", "darcy_staged_serve", "fused", "darcy_fused_serve",
+          "darcy_fused_train", "bits")
 
 
 def bits(cs, sc):
-    """Digests of the dense and CP kernels' outputs, from seeded operands."""
+    """Digests of the dense, CP and fused kernels' outputs, from seeded
+    operands."""
     import hashlib
 
     import torch
@@ -77,6 +90,17 @@ def bits(cs, sc):
         cops = cs.cp_operands(cs.CP_PATH_SHAPE, dtype, 502)
         out[f"cp_fwd/{dtype}"] = digest(sc._launch_cp_fwd(*cops[:8]))
         out[f"cp_bwd/{dtype}"] = digest(sc._launch_cp_bwd(*cops))
+    # the Darcy path's shape (one batch tile) and a shape of two tiles
+    for shape in (cs.FUSED_SHAPES[0], (11, 3, 4, (16, 16), (4, 5))):
+        x, wgr, wgi, g = cs.fused_operands(shape, 503)
+        tiles = -(-shape[0] // sc.pick_block_b(*shape))
+        for cast_to, sim_fmt in cs.FUSED_MODES:
+            key = f"{cs.mode_name(cast_to, sim_fmt)}/{tiles}_tiles"
+            modes = shape[-1]
+            out[f"fused_fwd/{key}"] = digest(
+                [sc._launch_fused_fwd(x, wgr, wgi, modes, cast_to, sim_fmt)])
+            out[f"fused_bwd/{key}"] = digest(
+                sc._launch_fused_bwd(x, wgr, wgi, g, modes, cast_to, sim_fmt))
     cs.emit("bits", digests=out)
 
 
@@ -88,7 +112,7 @@ def turn(checkout: Path, phases):
 
     cs.device_phase()
     cs.build_phase()
-    swe = None
+    swe = darcy = None
     for phase in phases:
         if phase == "flash":
             cs.lm_kernel_phase()
@@ -104,6 +128,15 @@ def turn(checkout: Path, phases):
             cs.tfno_train_phase(sc)
         elif phase == "darcy_staged_train":
             cs.train_phase(sc)
+        elif phase == "darcy_staged_serve":
+            cs.serve_phase(sc)
+        elif phase == "fused":
+            cs.fused_timing_phase(sc, defaultdict(float), defaultdict(int))
+        elif phase == "darcy_fused_serve":
+            cs.serve_phase(sc, fused=True)
+        elif phase == "darcy_fused_train":
+            darcy = cs.darcy_data() if darcy is None else darcy
+            cs.fused_train_phase(sc, darcy)
         elif phase == "bits":
             bits(cs, sc)
         else:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Try variants of hand-written kernels beside the shipped ones on one GPU.
 
-    python3 tools/kernel_trials.py [--only flash,ls_bwd_w,ls_mix,rmsnorm,cp_fwd,dense_bwd_w]
+    python3 tools/kernel_trials.py [--only flash,ls_bwd_w,ls_mix,rmsnorm,cp_fwd,dense_bwd_w,fused]
 
 Each variant is the shipped source with a few lines replaced (``VARIANTS``;
 one puts a block of its own in front of a line),
@@ -44,9 +44,24 @@ reverse).  Prints one JSON line per shape and mode:
   g), 64-mode, 16 x 16 channel tiles instead of 16-mode, 32 x 32 ones,
   tiles walked channels first instead of modes first, and streaming
   (``st.global.cs``) stores; each library's largest difference from the plain version, and
-  the complex64 ``torch.einsum``.  Variants named ``diag`` switch a part
-  off (the sums, the stores, a contraction) to show what it costs; their
-  answers are wrong by design.
+  the complex64 ``torch.einsum``;
+- ``spectral_fused_fwd`` and ``_bwd`` at the Darcy path's shape at 128² and
+  421² in bf16, fp16 and f32 mode, CUDA events over back-to-back launches
+  cycling two operand sets: the transforms' products as 3xTF32 (``m16n8k8``
+  on hi/lo tf32 pieces of both operands, B rebuilt from the pack's bf16
+  pieces) instead of the exact three-piece bf16 split, all six piece
+  products in one accumulator (with 16 x 32 and 32 x 32 warp tiles), each n
+  tile's six products in a row instead of each product over the n tiles,
+  warp tiles of 32 x 32 and 16 x 16 instead of 16 x 32, the weights 1 or 8
+  channels ahead of their products instead of 4, contraction tiles of 4
+  modes instead of 8, registers uncapped (one block an SM), and diagnostics
+  without the transforms, the contraction, the products, the factor's
+  loads, the data's loads, the transforms' stores or only the y/dx stores;
+  each library's
+  largest excess over ``chip_smoke.py``'s envelope budget (and in the half
+  modes over its quarter-gap limit; negative: inside).  Variants named ``diag``
+  switch a part off (the sums, the stores, a contraction) to show what it
+  costs; their answers are wrong by design.
 
 Needs one card.
 """
@@ -63,7 +78,7 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.core.precision import FORMAT_EPS, dtype_name  # noqa: E402
-from repro_torch.core.theory import store_budget  # noqa: E402
+from repro_torch.core.theory import contract_budget, store_budget  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
@@ -124,6 +139,85 @@ _CP_CUDA_CORE_RANK_EXPAND = """      {
         continue;
       }
 """
+#: the fused transforms' products as 3xTF32, put in front of the shipped
+#: ``run_step``: A split into hi/lo tf32 in registers, B rebuilt in f32 from
+#: the pack's three bf16 pieces (exact) and split the same way; per k half,
+#: a_hi b_hi into one accumulator, a_hi b_lo + a_lo b_hi into the other.
+#: The thread's columns 2t, 2t+1 (2t+8, 2t+9) of a 16-deep k step are the
+#: m16n8k8 fragment's k = t, t + 4 of the first (second) half, for A and B
+#: alike, so the sum runs over the same k.
+_FUSED_RUN_STEP = "// Each warp walks its output tiles, loading its own data and factor\n"
+_FUSED_TF32 = """__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void mma1688(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// [mt][hi half 0, hi half 1, lo half 0, lo half 1][m16n8k8 A fragment]
+template <int MT>
+__device__ __forceinline__ void split_a_tf32(const float (&a)[MT][2][4],
+                                             uint32_t (&ap)[MT][4][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float v[4] = {a[mt][0][2 * hh], a[mt][1][2 * hh], a[mt][0][2 * hh + 1],
+                          a[mt][1][2 * hh + 1]};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        ap[mt][hh][r] = tf32(v[r]);
+        ap[mt][2 + hh][r] = tf32(v[r] - __uint_as_float(ap[mt][hh][r]));
+      }
+    }
+}
+
+template <int MT, int NTL>
+__device__ __forceinline__ void products_tf32(float (&hi)[MT][NTL][4], float (&lo)[MT][NTL][4],
+                                              const uint32_t (&ap)[MT][4][4],
+                                              const uint2 (&b)[NTL][3], int nvalid) {
+  uint32_t bh[NTL][4], bl[NTL][4];
+#pragma unroll
+  for (int nt = 0; nt < NTL; ++nt) {
+    uint32_t w[3][4];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      w[q][0] = b[nt][q].x << 16;
+      w[q][1] = b[nt][q].x & 0xffff0000u;
+      w[q][2] = b[nt][q].y << 16;
+      w[q][3] = b[nt][q].y & 0xffff0000u;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = __uint_as_float(w[0][e]) +
+                      (__uint_as_float(w[1][e]) + __uint_as_float(w[2][e]));
+      bh[nt][e] = tf32(v);
+      bl[nt][e] = tf32(v - __uint_as_float(bh[nt][e]));
+    }
+  }
+  // per k half: a_hi b_hi into hi, a_hi b_lo and a_lo b_hi into lo, n tile innermost
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NTL; ++nt)
+          if (nt < nvalid)
+            mma1688(p == 0 ? hi[mt][nt] : lo[mt][nt], ap[mt][p == 2 ? 2 + hh : hh],
+                    (p == 1 ? bl : bh)[nt][2 * hh], (p == 1 ? bl : bh)[nt][2 * hh + 1]);
+}
+
+"""
 #: name -> (shipped source, [(old line, new line), ...])
 VARIANTS = {
     "flash_fast_exp": ("flash_attention.cu", [
@@ -181,6 +275,60 @@ VARIANTS = {
         ("static constexpr int BT = sizeof(T) == 2 ? 8 : 4;", "static constexpr int BT = 4;")]),
     "dense_bwd_w_streaming_stores": ("spectral_contract_bwd.cu", [
         ("  *reinterpret_cast<float4*>(p) = v;", "  __stcs(reinterpret_cast<float4*>(p), v);")]),
+    "fused_3xtf32": ("spectral_fused.cu", [
+        (_FUSED_RUN_STEP, _FUSED_TF32 + _FUSED_RUN_STEP),
+        ("uint32_t ap[MT][3][4];", "uint32_t ap[MT][4][4];"),
+        ("split_a<MT>(a, ap);", "split_a_tf32<MT>(a, ap);"),
+        ("products<MT, NTL>(hi, lo, ap, b,", "products_tf32<MT, NTL>(hi, lo, ap, b,")]),
+    "fused_one_accumulator": ("spectral_fused.cu", [
+        ("constexpr bool TWO_ACC = true;", "constexpr bool TWO_ACC = false;")]),
+    "fused_one_accumulator_32x32": ("spectral_fused.cu", [
+        ("constexpr bool TWO_ACC = true;", "constexpr bool TWO_ACC = false;"),
+        ("constexpr int WARP_MT = 1, WARP_NT = 4;", "constexpr int WARP_MT = 2, WARP_NT = 4;")]),
+    "fused_warp_tiles_32x32": ("spectral_fused.cu", [
+        ("constexpr int WARP_MT = 1, WARP_NT = 4;", "constexpr int WARP_MT = 2, WARP_NT = 4;")]),
+    "fused_warp_tiles_16x16": ("spectral_fused.cu", [
+        ("constexpr int WARP_MT = 1, WARP_NT = 4;", "constexpr int WARP_MT = 1, WARP_NT = 2;")]),
+    "fused_weights_1_channel_ahead": ("spectral_fused.cu", [
+        ("constexpr int CT_AHEAD = 4;", "constexpr int CT_AHEAD = 1;")]),
+    "fused_weights_8_channels_ahead": ("spectral_fused.cu", [
+        ("constexpr int CT_AHEAD = 4;", "constexpr int CT_AHEAD = 8;")]),
+    "fused_products_in_order": ("spectral_fused.cu", [
+        ("  for (int p = 0; p < 6; ++p)\n#pragma unroll\n    for (int mt = 0; mt < MT; ++mt)\n"
+         "#pragma unroll\n      for (int nt = 0; nt < NTL; ++nt)\n",
+         "  for (int nt = 0; nt < NTL; ++nt)\n#pragma unroll\n    for (int mt = 0; mt < MT; ++mt)\n"
+         "#pragma unroll\n      for (int p = 0; p < 6; ++p)\n")]),
+    "fused_uncapped_registers": ("spectral_fused.cu", [
+        ("constexpr int MINB = 2;", "constexpr int MINB = 1;")]),
+    "fused_ct_4_modes": ("spectral_fused.cu", [
+        ("constexpr int CT_T = 8;", "constexpr int CT_T = 4;")]),
+    "fused_diag_no_transforms": ("spectral_fused.cu", [
+        ("  for (int i = 0; i < D.nd; ++i) {\n    run_step",
+         "  for (int i = 0; i < 0 * D.nd; ++i) {\n    run_step")]),
+    "fused_diag_no_contraction": ("spectral_fused.cu", [
+        ("  contract_fwd(xhr, xhi, wr, wi, yhr, yhi, D, cast, sm);\n", ""),
+        ("  contract_bwd(xhr, xhi, ghr, ghi, wr, wi, dxr, dxi, dwr, dwi, D, cast, accumulate, sm);\n",
+         "")]),
+    "fused_diag_no_products": ("spectral_fused.cu", [
+        ("        if (nt < nvalid)\n          mma16816",
+         "        if (nt < nvalid && nvalid > (1 << 30))\n          mma16816")]),
+    "fused_diag_no_factor_loads": ("spectral_fused.cu", [
+        ("    for (int q = 0; q < 3; ++q) b[nt][q] = nt < nvalid ? fb[nt * 32 + q * piece] : uint2{};",
+         "    for (int q = 0; q < 3; ++q) b[nt][q] = make_uint2(nt + q, nvalid);")]),
+    "fused_diag_no_output_stores": ("spectral_fused.cu", [
+        ("        float* p = o + part * s.oP + j * s.oJ;\n",
+         "        float* p = o + part * s.oP + j * s.oJ;\n        if (s.oP == 0) continue;\n")]),
+    "fused_products_in_order": ("spectral_fused.cu", [
+        ("  for (int p = 0; p < 6; ++p)\n#pragma unroll\n    for (int mt = 0; mt < MT; ++mt)\n"
+         "#pragma unroll\n      for (int nt = 0; nt < NTL; ++nt)\n",
+         "  for (int nt = 0; nt < NTL; ++nt)\n#pragma unroll\n    for (int mt = 0; mt < MT; ++mt)\n"
+         "#pragma unroll\n      for (int p = 0; p < 6; ++p)\n")]),
+    "fused_diag_no_data_loads": ("spectral_fused.cu", [
+        ("a[mt][h][e] = lv && roff[mt][h] >= 0 ? d[roff[mt][h] + l * s.dL] : 0.f;",
+         "a[mt][h][e] = lv ? float(roff[mt][h] + l) : 0.f;")]),
+    "fused_diag_no_transform_stores": ("spectral_fused.cu", [
+        ("        float* p = o + part * s.oP + j * s.oJ;\n",
+         "        float* p = o + part * s.oP + j * s.oJ;\n        if (s.cast >= 0) continue;\n")]),
     "rmsnorm_no_prefetch": ("rmsnorm.cu", [
         ("constexpr int PREFETCH_MAX_CH = 4;", "constexpr int PREFETCH_MAX_CH = 0;")]),
     "rmsnorm_prefetch_all": ("rmsnorm.cu", [
@@ -462,8 +610,69 @@ def dense_bwd_w_trials():
         print(json.dumps(row), flush=True)
 
 
+def fused_trials():
+    libs = libraries("fused", "spectral_fused.cu",
+                     {"spectral_fused_fwd": (6, 12), "spectral_fused_bwd": (9, 13)})
+    order = list(libs) + list(reversed(libs))
+    for grid, iters in ((128, 20), (421, 10)):
+        B, I, O, spatial, modes = shape = (8, 64, 64, (grid, grid), (32, 32))
+        sets = [cs.fused_operands(shape, 500 + k) for k in range(2)]
+        x0, wr0, wi0, g0 = sets[0]
+        pack = sc._fused_pack(spatial, modes, x0.device)
+        scratch = torch.empty(sc.fused_scratch_bytes(B, I, O, spatial, modes) // 4,
+                              device=x0.device)
+        axes = sc._fused_args(x0, modes)
+        mags = sc.fused_magnitude(x0, wr0, wi0, modes, g=g0)
+        mags = (mags["out"], mags["dx"], mags["dw"], mags["dw"])
+        raw = (sc.spectral_fused_plain(x0, wr0, wi0, modes),
+               *sc.spectral_fused_bwd_plain(x0, wr0, wi0, g0, modes))
+        for cast_to in (torch.bfloat16, torch.float16, None):
+            mode = sc._FMT[cast_to or torch.float32]
+
+            def fwd(name, x, wr, wi, _g, mode=mode):
+                y = torch.empty((B, O, *spatial), device=x.device)
+                build._call(libs[name].spectral_fused_fwd, "spectral_fused_fwd", x.device,
+                            *(t.data_ptr() for t in (x, wr, wi, pack, y, scratch)), B, I, O,
+                            *axes, mode, 0)
+                return y
+
+            def bwd(name, x, wr, wi, g, mode=mode):
+                dx, dwr, dwi = torch.empty_like(x), torch.empty_like(wr), torch.empty_like(wi)
+                build._call(libs[name].spectral_fused_bwd, "spectral_fused_bwd", x.device,
+                            *(t.data_ptr() for t in (x, wr, wi, pack, g, dx, dwr, dwi, scratch)),
+                            B, I, O, *axes, mode, 0, 0)
+                return dx, dwr, dwi
+
+            want = (sc.spectral_fused_plain(x0, wr0, wi0, modes, cast_to=cast_to),
+                    *sc.spectral_fused_bwd_plain(x0, wr0, wi0, g0, modes, cast_to=cast_to))
+            eps = FORMAT_EPS[dtype_name(cast_to or torch.float32)]
+            row = {"kernel": "spectral_fused", "shape": [B, I, O, list(spatial), list(modes)],
+                   "mode": str(cast_to or torch.float32), "fwd_us": {}, "bwd_us": {},
+                   "excess_over_budget": {}, "rel_l2_excess": {}}
+            for name in order:
+                got = (fwd(name, *sets[0]), *bwd(name, *sets[0]))
+                torch.cuda.synchronize()
+                excess, gap_excess = [], []
+                for a, b, r, mag, stages in zip(got, want, raw, mags, (2, 4, 4, 4), strict=True):
+                    budget = contract_budget(eps, mag, stages=stages)
+                    excess.append(((a.double() - b.double()).abs() - budget).max().item())
+                    if cast_to is not None:
+                        gap_excess.append(cs.rel_l2_dev(a, b) - 0.25 * cs.rel_l2_dev(b, r))
+                row["excess_over_budget"][name] = max(excess)
+                if gap_excess:
+                    row["rel_l2_excess"][name] = max(gap_excess)
+                del got
+                for key, fn in (("fwd_us", fwd), ("bwd_us", bwd)):
+                    row[key].setdefault(name, []).append(
+                        1e3 * cs.event_ms(lambda *a, n=name, fn=fn: fn(n, *a), sets, iters))
+            print(json.dumps(row), flush=True)
+        del sets, scratch, raw, mags
+        torch.cuda.empty_cache()
+
+
 TRIALS = {"flash": flash_trials, "ls_bwd_w": ls_bwd_w_trials, "ls_mix": ls_mix_trials,
-          "rmsnorm": rmsnorm_trials, "cp_fwd": cp_fwd_trials, "dense_bwd_w": dense_bwd_w_trials}
+          "rmsnorm": rmsnorm_trials, "cp_fwd": cp_fwd_trials, "dense_bwd_w": dense_bwd_w_trials,
+          "fused": fused_trials}
 
 
 def main():
