@@ -1357,14 +1357,16 @@ def cp_timing_phase(sc, max_err, launches):
     # (t, du, dx, dU_i, dU_o) and its three complex products (u, dt, dW).
     # Of these, t = x·U_i (both) and du = g·U_o (cp_bwd) multiply two
     # operands at the operand dtype: half x half in a half mode.  In bf16
-    # mode cp_fwd's rank-expand multiplies the exact three-piece bf16 split
-    # of the f32 u by U_o: three half products a term on the tensor cores
+    # mode the kernels multiply the exact three-piece bf16 split of an f32
+    # operand (cp_fwd's u; cp_bwd's dt in dx and dU_i, u in dU_o) by the
+    # other: three half products a term on the tensor cores; the mode scale
+    # (and cp_bwd's dt and dW terms) stay f32 products
     flops = {"cp_fwd": 8 * B * M * (I * R + R * O) + 6 * B * M * R,
              "cp_bwd": 8 * B * M * (3 * I * R + 2 * O * R) + 20 * B * M * R}
-    operand_flops = {"cp_fwd": 8 * B * M * I * R, "cp_bwd": 8 * B * M * (I * R + O * R)}
-    half_work = {"cp_fwd": (8 * B * M * (I * R + 3 * R * O) + 6 * B * M * R,
-                            8 * B * M * (I * R + 3 * R * O)),
-                 "cp_bwd": (flops["cp_bwd"], operand_flops["cp_bwd"])}
+    tensor = {"cp_fwd": 8 * B * M * (I * R + 3 * R * O),
+              "cp_bwd": 8 * B * M * (I * R + O * R) + 3 * 8 * B * M * (2 * I * R + O * R)}
+    half_work = {"cp_fwd": (tensor["cp_fwd"] + 6 * B * M * R, tensor["cp_fwd"]),
+                 "cp_bwd": (tensor["cp_bwd"] + 20 * B * M * R, tensor["cp_bwd"])}
     rows = {"cp_fwd": {}, "cp_bwd": {}}
     for dtype in (torch.bfloat16, torch.float32):
         # 8 operand sets (62 MB in bf16): consecutive calls find their

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks of the hand-written tensor-core kernels:
+// Hopper (sm_90a) building blocks of the hand-written kernels:
 // cp.async staging, ldmatrix and mma.sync m16n8k16 with f32 accumulators on
 // bf16 or fp16 operands.  Included by flash_attention.cu,
-// spectral_contract_lshared.cu, spectral_contract_cp.cu and
+// spectral_contract_lshared.cu, spectral_contract_cp.cu, spectral_contract.cu and
 // spectral_contract_bwd.cu; `kernels/build.py` hashes it with every source.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t):

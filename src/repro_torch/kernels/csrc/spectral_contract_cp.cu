@@ -40,8 +40,12 @@
 // cores would round; split exactly into three bf16 pieces (fp16 U_o into
 // two), it is 3 (6) half products a term there, so cp_fwd's half-mode work
 // is 4 (7) x 0.46 GFLOP at the tensor-core rate, 1.9 us (3.3 us), under its
-// bytes.  cp_bwd's products of the f32 t, u, du or dt (u, dt, dx, dU_i,
-// dU_o, dW) take the CUDA cores: 21.9 us, bound by operations.
+// bytes.  cp_bwd multiplies the f32 dt by U_i (dx) and by x (dU_i) and the
+// f32 u by g (dU_o): on the same three-piece split these are 3 half
+// products a term (5 with fp16 operands), so its half-mode work is 5.1
+// GFLOP at the tensor-core rate, 5.4 us with its f32 mode-scale products,
+// bound by operations (counted as f32 products on the CUDA cores, as the
+// earlier design did them, it was 21.9 us).
 //
 // cp_fwd's design: see the block comment above cp_fwd_kernel.  Persistent
 // blocks over (batch row, 64-mode) tiles, the factors resident in their own
@@ -52,25 +56,16 @@
 // keep every width within a block's registers and shared memory; the
 // accumulators carry over them, so there is no width limit.
 //
-// cp_bwd's design, simply: f32 FMAs on the CUDA cores, with the rank factors
-// staged in shared memory as f32, so the inner loops read shared memory
-// only.  One block of 512 threads per mode tile of 16 stages its x and g
-// tiles as f32, looping over the batch so that dW of its modes is summed
-// inside the block; dU_i and dU_o of the tile are summed across the batch and
-// written as per-tile f32 partials, which a second kernel sums in tile order.
-// Only its rank-sized tiles stay resident in shared memory (u, dt and dW,
-// [R][16 or 17], 100 KB at R = 256).  The x (or g) tile and the factors are
-// staged in chunks of IC input and OC output channels, which the host picks
-// (`cp_bwd_plan` in kernels/spectral_contract.py) so that the block fits in
-// 227 KB; a partial sum over the input channels waits in the t (or du) tile
-// between chunks, so every sum keeps the order of one chunk and a chunked
-// launch is bit-identical to an unchunked one.  dU_i and dU_o of its tile
-// stay in shared memory where they fit and in its own slice of the f32
-// workspace otherwise, each element added to once per batch row by one
-// thread, in batch order either way.  At I = O = R one chunk covers both
-// channel axes up to 101 channels (dU_i and dU_o in shared memory up to 75),
-// as at the path's 64; cp_bwd takes R <= 558, where the resident rank tiles
-// and a one-channel chunk still fit.
+// cp_bwd's design: see the block comment above cp_bwd_kernel.  Persistent
+// blocks, one an SM (132 on the H100), walk (64-mode tile, batch row) items
+// (224 at the path's shape) with the next item's x and g in flight through a
+// cp.async ring, and all five contractions run on mma.sync, in f32 mode too
+// (every operand split in three; six piece products a term).  What holds it
+// now is latency more than products: with one block of 8 warps an SM (its
+// 221 KB of shared memory) each phase's latency and the first item's loads
+// are exposed, and the fixed-order reduction of the dW terms and block
+// partials is a second launch.  Channels and ranks come in 64-wide chunks
+// whose sums carry over, so it has no width or rank limit.
 //
 // Neither kernel uses atomics: every output is reduced by one thread (or one
 // mma fragment) in a fixed order, so a rerun is bit-identical.
@@ -90,10 +85,6 @@ namespace {
 
 using namespace mma_sync;
 
-constexpr int NT = 256;       // threads per cp_bwd reduction block
-constexpr int NTB = 512;      // threads per cp_bwd block
-constexpr int TMB = 16;       // modes per cp_bwd block
-constexpr int TP = TMB + 1;   // padded row of cp_bwd's [R][TMB] tiles
 constexpr int SMEM_MAX = 232448;  // 227 KB, the most a block may opt in to
 
 enum { FMT_F32 = 0, FMT_BF16 = 1, FMT_F16 = 2 };
@@ -122,20 +113,7 @@ struct Fmt<FMT_F16> {
   __device__ static T st(float v) { return __float2half_rn(v); }
 };
 
-__host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
-// chunks of c covering n channels; one (empty) chunk for none
-__host__ __device__ inline int n_chunks(int n, int c) { return n > 0 ? (n + c - 1) / c : 1; }
 
-long long bwd_smem_floats(int I, int O, int R, int IC, int OC, int acc_smem) {
-  const long long i = I, o = O, r = R, ic = IC, oc = OC;
-  // u and dt [R][TP], dW [R][TMB], the x and g chunks [IC|OC][TMB], the
-  // U_i and U_o chunks as f32 [IC|OC][R], and, where they fit, dU_i [I][R]
-  // and dU_o [O][R], re/im each
-  return 2LL * (2 * r * TP + r * TMB + ic * TMB + oc * TMB + ic * r + oc * r +
-                (acc_smem ? i * r + o * r : 0));
-}
-
-int n_tiles(int M, int tm) { return (M + tm - 1) / tm; }
 
 // ---------------------------------------------------------------------------
 // cp_fwd: persistent blocks, each walking tiles of MT consecutive modes of one
@@ -206,7 +184,8 @@ struct FwdTile {
 // rows [0, nr) x columns [0, nc) of a row-major global matrix at `src` (`ld`
 // elements a row) into dst[row * pitch + column], zero past `nrv` rows and
 // `ncv` columns: cp.async of `unit` elements (a divisor of the row length) or,
-// where that is under 4 bytes, plain loads.
+// where that is under 4 bytes, plain loads.  nc / unit is a power of two, so
+// a copy's row and column come by shifts.
 template <typename T, int NTH>
 __device__ __forceinline__ void copy_rows(T* dst, int pitch, const T* src, size_t ld, int nrv,
                                           int ncv, int nr, int nc, int unit, int tid) {
@@ -218,9 +197,9 @@ __device__ __forceinline__ void copy_rows(T* dst, int pitch, const T* src, size_
     }
     return;
   }
-  const int upr = nc / unit;
-  for (int e = tid; e < nr * upr; e += NTH) {
-    const int r = e / upr, c = (e % upr) * unit;
+  const int sh = __ffs(nc / unit) - 1, mask = (1 << sh) - 1;
+  for (int e = tid; e < (nr << sh); e += NTH) {
+    const int r = e >> sh, c = (e & mask) * unit;
     const bool ok = r < nrv && c < ncv;
     const T* s = ok ? src + r * ld + c : src;
     const uint32_t d = smem_addr(dst + r * pitch + c);
@@ -682,15 +661,180 @@ cp_fwd_kernel(const typename Fmt<FMT>::T* __restrict__ xr,
 }
 
 // ---------------------------------------------------------------------------
-// cp_bwd: block (mode tile m0..m0+TMB), every batch row.  Per row: t over the
-// input-channel chunks, du over the output-channel chunks (each partial sum
-// waiting in its rank tile), then u, dt and dW per (r, m); then dx and dU_i
-// over the input chunks and dU_o over the output chunks.  Without CHUNKED one
-// chunk covers each channel axis: the factors are staged once, x and g once
-// per row, and t and du are summed in registers in one pass per (r, m).
+// cp_bwd: persistent blocks of 256 threads, one an SM, each walking items
+// (tile of MT consecutive modes, batch row b), b fastest.  An item's x and g
+// tiles (the first 64-wide chunk of each) come in through a ring of two slots
+// filled by cp.async, so the next item's loads are in flight while one is
+// summed; where I, O and R are at most CH the factors U_i and U_o stay
+// resident in shared memory, copied once a block.  For each 64-rank chunk:
+//
+//   phase 1  t[m][r] = sum_i x[i][m] U_i[i][r] and du[m][r] = sum_o g[o][m]
+//            conj(U_o[o][r]) (warp tile 16 modes x NW1 rank tiles of 8),
+//            then on the accumulators u = t W (W read from L2: shared
+//            memory is full), dt = du conj(W) and row b's dW term du
+//            conj(t), which goes to the workspace; u and dt go to shared
+//            memory as three exact bf16 pieces each, [m][r], split once.
+//   phase 2  dx^T[i][m] = sum_r conj(U_i[i][r]) dt[m][r] (warp tile 16
+//            channels x NW2 mode tiles), stored at T a fragment pair at a
+//            time (or, with several rank chunks, summed over them in the
+//            block's slice of the workspace);
+//            dU_i[i][r] += sum_m conj(x[i][m]) dt[m][r] and dU_o[o][r] +=
+//            sum_m g[o][m] conj(u[m][r]) (warp tile 16 channels x 32 ranks).
+//
+// Every product is an mma.sync m16n8k16 with f32 sums.  An operand at T
+// enters as it is stored (ldmatrix) where both are half (t and du in the
+// half modes); an f32 operand (u and dt, read as their pieces; every operand
+// in f32 mode) is split exactly into three bf16 pieces (split3), an fp16 one
+// beside it into two,
+// and the piece products whose orders add to at most 2 are summed (3 a term
+// in bf16 mode, 5 in fp16, 6 in f32: what is left out is below f32's
+// rounding of the product).  dU_i and dU_o stay in registers across the
+// block's items where the widths fit one chunk (the path's I = O = R = 64),
+// else in the block's slice of the workspace, added to by the one thread
+// that owns each element, in item order; each block's partial and each
+// batch row's dW term are then summed in a fixed order by
+// cp_bwd_reduce_kernel (at the path's shape it reads 7.2 MB of dW terms and
+// 8.7 MB of block partials, mostly from L2, where they were just written).
+// Channels and ranks come in chunks of CH whose sums carry over, so there is
+// no width or rank limit.
 // ---------------------------------------------------------------------------
-template <int FMT, bool CHUNKED>
-__global__ void __launch_bounds__(NTB)
+template <typename T>
+struct BwdTile {
+  static constexpr bool HALF = sizeof(T) == 2;
+  static constexpr int NT = 256;                // threads
+  static constexpr int MT = HALF ? 64 : 32;     // modes a tile
+  static constexpr int CH = 64;                 // channels and ranks a chunk
+  static constexpr int STAGES = 2;              // ring slots
+  static constexpr int PAD = 16 / static_cast<int>(sizeof(T));
+  static constexpr int XP = MT + PAD;           // x and g rows' pitch
+  static constexpr int FP = CH + PAD;           // U_i and U_o rows' pitch
+  static constexpr int PP = CH + 8;             // u and dt pieces' rows' pitch (bf16)
+  static constexpr int TILE = CH * XP;          // an x or g plane
+  static constexpr int SLOT = 4 * TILE;         // a slot's x and g, re/im
+  static constexpr int FPLANE = CH * FP;
+  static constexpr int PPLANE = MT * PP;        // a piece of u or dt, re or im
+  static constexpr int WM = MT / 16;            // t, du: warps along the modes
+  static constexpr int NW1 = CH / 8 / (8 / WM); // t, du: rank tiles a warp
+  static constexpr int NW2 = MT / 16;           // dx^T: mode tiles a warp
+  static constexpr long long SMEM =
+      (static_cast<long long>(STAGES) * SLOT + 4 * FPLANE) * static_cast<long long>(sizeof(T)) +
+      12LL * PPLANE * 2;
+};
+
+// a packed pair of T as two bf16 pieces, hi + lo, exactly (fp16's range and
+// significand lie inside two bf16s')
+template <typename T>
+__device__ __forceinline__ void split2(uint32_t v, uint32_t& hi, uint32_t& lo) {
+  const float2 f = to_float2<T>(v);
+  hi = pack2<__nv_bfloat16>(f.x, f.y);
+  const float2 h = bf16x2_to_float2(hi);
+  lo = pack2<__nv_bfloat16>(f.x - h.x, f.y - h.y);
+}
+
+// A fragments (16 rows from r0, k from k0) or, B_ROLE, the B fragments of
+// two n tiles (n from r0 and r0 + 8, k from k0; registers 0-1 the first
+// tile's, 2-3 the second's) of a shared matrix stored [row][k] (KC) or
+// [k][row], in NP pieces: 16-bit elements through ldmatrix (NP 1 as stored,
+// 2 as bf16 pieces), f32 ones as pairs split into three bf16 pieces.
+template <bool B_ROLE, bool KC, int NP, typename S>
+__device__ __forceinline__ void ld_quad(uint32_t (&q)[NP][4], const S* base, int pitch, int r0,
+                                        int k0, int lane) {
+  if constexpr (sizeof(S) == 2) {
+    static_assert(NP <= 2, "a 16-bit operand is one or two pieces");
+    const int l7 = lane & 7, b3 = (lane >> 3) & 1, b4 = lane >> 4;
+    const int dr = B_ROLE ? 8 * b4 : 8 * b3, dk = B_ROLE ? 8 * b3 : 8 * b4;
+    uint32_t raw[4];
+    if constexpr (KC) {
+      ldsm_x4(raw, smem_addr(base + (r0 + l7 + dr) * pitch + k0 + dk));
+    } else {
+      ldsm_x4_trans(raw, smem_addr(base + (k0 + l7 + dk) * pitch + r0 + dr));
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if constexpr (NP == 1) {
+        q[0][k] = raw[k];
+      } else {
+        split2<S>(raw[k], q[0][k], q[1][k]);
+      }
+    }
+  } else {
+    static_assert(NP == 3, "an f32 operand is three pieces");
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int dr = B_ROLE ? 8 * (k >> 1) : 8 * (k & 1), dk = B_ROLE ? 8 * (k & 1) : 8 * (k >> 1);
+      const int row = r0 + g + dr, kk = k0 + 2 * t + dk;
+      float2 v;
+      if constexpr (KC) {
+        v = *reinterpret_cast<const float2*>(base + row * pitch + kk);
+      } else {
+        v = make_float2(base[kk * pitch + row], base[(kk + 1) * pitch + row]);
+      }
+      split3(v.x, v.y, q[0][k], q[1][k], q[2][k]);
+    }
+  }
+}
+
+// c += a b over one k step and two n tiles, complex: CONJ 0 a b, 1 conj(a) b,
+// 2 a conj(b); the piece products whose orders add to at most 2, each
+// accumulator's products three mma apart
+template <int PA, int PB, typename MM, int CONJ>
+__device__ __forceinline__ void cmac(float (*cr)[4], float (*ci)[4], const uint32_t (&ar)[PA][4],
+                                     const uint32_t (&ai)[PA][4], const uint32_t (&br)[PB][4],
+                                     const uint32_t (&bi)[PB][4]) {
+#pragma unroll
+  for (int p = 0; p < PA; ++p)
+#pragma unroll
+    for (int q = 0; q < PB; ++q) {
+      if (p + q > 2) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) mma16816<MM>(cr[h], ar[p], br[q][2 * h], br[q][2 * h + 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t b0 = bi[q][2 * h], b1 = bi[q][2 * h + 1];
+        mma16816<MM>(ci[h], ar[p], CONJ == 2 ? neg2(b0) : b0, CONJ == 2 ? neg2(b1) : b1);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t b0 = bi[q][2 * h], b1 = bi[q][2 * h + 1];
+        mma16816<MM>(cr[h], ai[p], CONJ == 0 ? neg2(b0) : b0, CONJ == 0 ? neg2(b1) : b1);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t b0 = br[q][2 * h], b1 = br[q][2 * h + 1];
+        mma16816<MM>(ci[h], ai[p], CONJ == 1 ? neg2(b0) : b0, CONJ == 1 ? neg2(b1) : b1);
+      }
+    }
+}
+
+// a warp's 16 x 8 NW tile: c += sum over ksteps k steps of a b; la(k, ar,
+// ai) loads the A pieces, lb(k, jj, br, bi) the B pieces of n tiles 2 jj and
+// 2 jj + 1
+template <int PA, int PB, typename MM, int CONJ, int NW, class LA, class LB>
+__device__ __forceinline__ void cgemm(float (&cr)[NW][4], float (&ci)[NW][4], int ksteps,
+                                      LA&& la, LB&& lb) {
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t ar[PA][4], ai[PA][4];
+    la(ks, ar, ai);
+#pragma unroll
+    for (int jj = 0; jj < NW / 2; ++jj) {
+      uint32_t br[PB][4], bi[PB][4];
+      lb(ks, jj, br, bi);
+      cmac<PA, PB, MM, CONJ>(cr + 2 * jj, ci + 2 * jj, ar, ai, br, bi);
+    }
+  }
+}
+
+template <int NW>
+__device__ __forceinline__ void zero(float (&c)[NW][4]) {
+#pragma unroll
+  for (int j = 0; j < NW; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+}
+
+template <int FMT>
+__global__ void __launch_bounds__(BwdTile<typename Fmt<FMT>::T>::NT, 1)
 cp_bwd_kernel(const typename Fmt<FMT>::T* __restrict__ xr,
               const typename Fmt<FMT>::T* __restrict__ xi,
               const typename Fmt<FMT>::T* __restrict__ uir,
@@ -703,260 +847,398 @@ cp_bwd_kernel(const typename Fmt<FMT>::T* __restrict__ xr,
               const typename Fmt<FMT>::T* __restrict__ gi,
               typename Fmt<FMT>::T* __restrict__ dxr,
               typename Fmt<FMT>::T* __restrict__ dxi,
-              typename Fmt<FMT>::T* __restrict__ dwr,
-              typename Fmt<FMT>::T* __restrict__ dwi,
-              float* __restrict__ part,
-              int B, int I, int O, int R, int M, int IC, int OC, int acc_smem) {
+              float* __restrict__ dwp, float* __restrict__ part, float* __restrict__ dxp,
+              int B, int I, int O, int R, int M, int onchip, int um, int ur, int pair) {
   using F = Fmt<FMT>;
-  extern __shared__ __align__(16) float smem[];
-  float* sur = smem;              // t, then u: [R][TP]
-  float* sui = sur + R * TP;
-  float* str = sui + R * TP;      // du, then dt: [R][TP]
-  float* sti = str + R * TP;
-  float* swr = sti + R * TP;      // dW, [R][TMB]
-  float* swi = swr + R * TMB;
-  float* sxr = swi + R * TMB;     // the x chunk, [IC][TMB]
-  float* sxi = sxr + IC * TMB;
-  float* sgr = sxi + IC * TMB;    // the g chunk, [OC][TMB]
-  float* sgi = sgr + OC * TMB;
-  float* suir = sgi + OC * TMB;   // the U_i chunk as f32, [IC][R]
-  float* suii = suir + IC * R;
-  float* suor = suii + IC * R;    // the U_o chunk as f32, [OC][R]
-  float* suoi = suor + OC * R;
+  using T = typename F::T;
+  using P = BwdTile<T>;
+  constexpr bool HALF = P::HALF;
+  constexpr int NT = P::NT, MT = P::MT, CH = P::CH, XP = P::XP, FP = P::FP, PP = P::PP;
+  constexpr int NW1 = P::NW1, NW2 = P::NW2;
+  // pieces of an operand at T in t and du (NPN, as stored in the half
+  // modes) and beside a split f32 one (NP); the mma type of t and du
+  constexpr int NPN = HALF ? 1 : 3;
+  constexpr int NP = HALF ? (std::is_same<T, __half>::value ? 2 : 1) : 3;
+  using MN = typename std::conditional<HALF, T, __nv_bfloat16>::type;
+  using BF = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const ring = reinterpret_cast<T*>(smem_raw);
+  T* const sui = ring + P::STAGES * P::SLOT;   // the U_i chunk [CH][FP], re then im
+  T* const suo = sui + 2 * P::FPLANE;          // the U_o chunk
+  // u and dt as three exact bf16 pieces each, [MT][PP]: plane (2 v + p) 3 +
+  // piece, v 0 for u and 1 for dt, p 0 for re and 1 for im
+  BF* const spc = reinterpret_cast<BF*>(suo + 2 * P::FPLANE);
+  auto plane = [&](int v, int p) { return spc + (2 * v + p) * 3 * P::PPLANE; };
+  // the B fragments of two n tiles in u's or dt's three pieces, from [n][k]
+  // (KC: dx^T, k the ranks) or [k][n] (dU: k the modes)
+  auto ld_pieces = [&](auto kc, uint32_t(&q)[3][4], const BF* pl, int r0, int k0, int ln) {
+    constexpr bool KC = decltype(kc)::value;
+#pragma unroll
+    for (int piece = 0; piece < 3; ++piece) {
+      uint32_t one[1][4];
+      ld_quad<true, KC, 1>(one, pl + piece * P::PPLANE, PP, r0, k0, ln);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) q[piece][k] = one[0][k];
+    }
+  };
 
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * TMB;
-  const int nic = CHUNKED ? n_chunks(I, IC) : 1, noc = CHUNKED ? n_chunks(O, OC) : 1;
-  // dU_i [I][R] and dU_o [O][R], re/im: in shared memory where they fit,
-  // else this tile's slice of the workspace, which the partials go to anyway
-  const size_t ir = static_cast<size_t>(I) * R, orr = static_cast<size_t>(O) * R;
-  float* p = part + blockIdx.x * 2 * (ir + orr);
-  float* sar = acc_smem ? suoi + OC * R : p;
-  float* sai = sar + ir;
-  float* sbr = sai + ir;
-  float* sbi = sbr + orr;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int items = cdiv(M, MT) * B;
+  const int nic = cdiv(I, CH), noc = cdiv(O, CH), nrc = cdiv(R, CH);
+  const int mine = items > static_cast<int>(blockIdx.x)
+                       ? (items - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1 : 0;
+  const size_t IR = static_cast<size_t>(I) * R, OR = static_cast<size_t>(O) * R;
+  float* const slice = part + blockIdx.x * 2 * (IR + OR);   // dU_i re, im, dU_o re, im
+  float* const dxs = dxp + blockIdx.x * 2 * static_cast<size_t>(I) * MT;
+  const size_t dplane = static_cast<size_t>(B) * R * M;
+  // warp tiles: t, du [16 modes][8 NW1 ranks]; dx^T [16 channels][8 NW2
+  // modes]; dU_i, dU_o [16 channels][32 ranks]
+  const int w1m = 16 * (warp % P::WM), w1n = (warp / P::WM) * 8 * NW1;
+  const int w2i = 16 * (warp % 4), w2m = (warp / 4) * 8 * NW2;
+  const int w3i = 16 * (warp % 4), w3r = (warp / 4) * 32;
 
-  for (int t = tid; t < R * TMB; t += NTB) {
-    swr[t] = 0.f;
-    swi[t] = 0.f;
+  auto item_of = [&](int k, int& m0, int& b) {
+    const int q = blockIdx.x + k * gridDim.x;
+    m0 = (q / B) * MT;
+    b = q % B;
+  };
+  auto stage_x = [&](T* s, int b, int m0, int ic) {
+    const int i0 = ic * CH;
+    const size_t o = (static_cast<size_t>(b) * I + i0) * M + m0;
+    copy_rows<T, NT>(s, XP, xr + o, M, I - i0, M - m0, CH, MT, um, tid);
+    copy_rows<T, NT>(s + P::TILE, XP, xi + o, M, I - i0, M - m0, CH, MT, um, tid);
+  };
+  auto stage_g = [&](T* s, int b, int m0, int oc) {
+    const int o0 = oc * CH;
+    const size_t o = (static_cast<size_t>(b) * O + o0) * M + m0;
+    copy_rows<T, NT>(s + 2 * P::TILE, XP, gr + o, M, O - o0, M - m0, CH, MT, um, tid);
+    copy_rows<T, NT>(s + 3 * P::TILE, XP, gi + o, M, O - o0, M - m0, CH, MT, um, tid);
+  };
+  // the (c, rc) chunk of a factor [N][R] into [CH][FP]
+  auto stage_f = [&](T* d, const T* fr, const T* fi, int N, int c, int rc) {
+    const size_t o = static_cast<size_t>(c) * CH * R + rc * CH;
+    copy_rows<T, NT>(d, FP, fr + o, R, N - c * CH, R - rc * CH, CH, CH, ur, tid);
+    copy_rows<T, NT>(d + P::FPLANE, FP, fi + o, R, N - c * CH, R - rc * CH, CH, CH, ur, tid);
+  };
+  auto stage_item = [&](int k) {
+    if (k < mine) {
+      int m0, b;
+      item_of(k, m0, b);
+      T* s = ring + (k % P::STAGES) * P::SLOT;
+      stage_x(s, b, m0, 0);
+      stage_g(s, b, m0, 0);
+    }
+    cp_async_commit();
+  };
+  // a chunk that is not in shared memory yet, synchronously (wide factors)
+  auto ensure = [&](int& cur, int want, auto&& copy) {
+    if (cur == want) return;
+    __syncthreads();   // every warp is done with what is there
+    copy();
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    cur = want;
+  };
+
+  int cur_ui = -1, cur_uo = -1;
+  if (onchip && mine > 0) {   // resident factors, once, in the first item's group
+    stage_f(sui, uir, uii, I, 0, 0);
+    stage_f(suo, uor, uoi, O, 0, 0);
+    cur_ui = cur_uo = 0;
   }
-  for (size_t t = tid; t < 2 * (ir + orr); t += NTB) sar[t] = 0.f;
+  stage_item(0);
 
-  // the x (and U_i) or g (and U_o) chunk of batch row b as f32, zero past M
-  auto stage = [&](size_t b, int n0, int n, int N, const typename F::T* ar,
-                   const typename F::T* ai, const typename F::T* fr,
-                   const typename F::T* fi, float* sr, float* si, float* ur, float* ui,
-                   bool factors) {
-    for (int t = tid; t < n * TMB; t += NTB) {
-      const int k = n0 + t / TMB, m = m0 + t % TMB;
-      float vr = 0.f, vi = 0.f;
-      if (m < M) {
-        const size_t off = (b * N + k) * M + m;
-        vr = F::ld(ar[off]);
-        vi = F::ld(ai[off]);
+  // dU_i and dU_o of the warp's [16][32] tile, [n tile][fragment]
+  float duir[4][4], duii[4][4], duor[4][4], duoi[4][4];
+  zero(duir);
+  zero(duii);
+  zero(duor);
+  zero(duoi);
+  // the block's slice: add the tile at (c0, rc0) of dU_i (o = 0) or dU_o (o = 1)
+  auto slice_io = [&](bool load, int o, int c0, int rc0, float (&cr)[4][4], float (&ci)[4][4]) {
+    const int N = o ? O : I;
+    float* pr = slice + (o ? 2 * IR : 0);
+    float* pi = pr + (o ? OR : IR);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + w3i + g + 8 * (e >> 1), r = rc0 + w3r + 8 * j + 2 * t4 + (e & 1);
+        if (c >= N || r >= R) continue;
+        const size_t off = static_cast<size_t>(c) * R + r;
+        if (load) {
+          cr[j][e] = pr[off];
+          ci[j][e] = pi[off];
+        } else {
+          pr[off] = cr[j][e];
+          pi[off] = ci[j][e];
+        }
       }
-      sr[t] = vr;
-      si[t] = vi;
-    }
-    if (factors) {
-      for (int t = tid; t < n * R; t += NTB) {
-        ur[t] = F::ld(fr[static_cast<size_t>(n0) * R + t]);
-        ui[t] = F::ld(fi[static_cast<size_t>(n0) * R + t]);
+  };
+
+  for (int k = 0; k < mine; ++k) {
+    cp_async_wait<0>();   // item k has landed
+    __syncthreads();      // and every thread is done with item k - 1
+    stage_item(k + 1);
+    int m0, b;
+    item_of(k, m0, b);
+    T* const s = ring + (k % P::STAGES) * P::SLOT;
+    const T* const sxr = s;
+    const T* const sxi = s + P::TILE;
+    const T* const sgr = s + 2 * P::TILE;
+    const T* const sgi = s + 3 * P::TILE;
+    int cur_x = 0, cur_g = 0;   // the ring brought the first chunks
+    const int nm = min(MT, M - m0), mk = cdiv(nm, 16);
+
+    for (int rc = 0; rc < nrc; ++rc) {
+      const int rc0 = rc * CH, nr = min(CH, R - rc0);
+      // phase 1: t and du over the channel chunks
+      float tr[NW1][4], ti[NW1][4], dr[NW1][4], di[NW1][4];
+      zero(tr);
+      zero(ti);
+      zero(dr);
+      zero(di);
+      for (int ic = 0; ic < nic; ++ic) {
+        ensure(cur_x, ic, [&] { stage_x(s, b, m0, ic); });
+        ensure(cur_ui, ic * nrc + rc, [&] { stage_f(sui, uir, uii, I, ic, rc); });
+        cgemm<NPN, NPN, MN, 0, NW1>(
+            tr, ti, cdiv(min(CH, I - ic * CH), 16),
+            [&](int kq, auto& ar, auto& ai) {
+              ld_quad<false, false, NPN>(ar, sxr, XP, w1m, 16 * kq, lane);
+              ld_quad<false, false, NPN>(ai, sxi, XP, w1m, 16 * kq, lane);
+            },
+            [&](int kq, int jj, auto& br, auto& bi) {
+              ld_quad<true, false, NPN>(br, sui, FP, w1n + 16 * jj, 16 * kq, lane);
+              ld_quad<true, false, NPN>(bi, sui + P::FPLANE, FP, w1n + 16 * jj, 16 * kq, lane);
+            });
       }
-    }
-  };
-
-  // t[r][m] = sum_i x[i][m] U_i[i][r] over input channels i0..i0+ni,
-  // continuing the partial sum (tr, ti)
-  auto project = [&](int t, int ni, float& tr, float& ti) {
-    const int r = t / TMB, mm = t % TMB;
-    for (int i = 0; i < ni; ++i) {
-      const float ar = sxr[i * TMB + mm], ai = sxi[i * TMB + mm];
-      const float br = suir[i * R + r], bi = suii[i * R + r];
-      tr = fmaf(ar, br, tr);
-      tr = fmaf(-ai, bi, tr);
-      ti = fmaf(ar, bi, ti);
-      ti = fmaf(ai, br, ti);
-    }
-  };
-  // du[r][m] = sum_o g[o][m] conj(U_o[o][r]) over output channels o0..o0+no
-  auto pullback = [&](int t, int no, float& dur, float& dui) {
-    const int r = t / TMB, mm = t % TMB;
-    for (int o = 0; o < no; ++o) {
-      const float ar = sgr[o * TMB + mm], ai = sgi[o * TMB + mm];
-      const float br = suor[o * R + r], bi = suoi[o * R + r];
-      dur = fmaf(ar, br, dur);
-      dur = fmaf(ai, bi, dur);
-      dui = fmaf(ai, br, dui);
-      dui = fmaf(-ar, bi, dui);
-    }
-  };
-  // per (r, m): u = t W, dt = du conj(W); dW accumulates du conj(t) over rows
-  auto finish = [&](int t, float tr, float ti, float dur, float dui) {
-    const int r = t / TMB, mm = t % TMB, m = m0 + mm;
-    float vr = 0.f, vi = 0.f;
-    if (m < M) {
-      vr = F::ld(wr[static_cast<size_t>(r) * M + m]);
-      vi = F::ld(wi[static_cast<size_t>(r) * M + m]);
-    }
-    sur[r * TP + mm] = tr * vr - ti * vi;
-    sui[r * TP + mm] = tr * vi + ti * vr;
-    str[r * TP + mm] = dur * vr + dui * vi;     // du * conj(W)
-    sti[r * TP + mm] = dui * vr - dur * vi;
-    swr[t] += dur * tr + dui * ti;              // du * conj(t)
-    swi[t] += dui * tr - dur * ti;
-  };
-
-  for (size_t b = 0; b < static_cast<size_t>(B); ++b) {
-    if (!CHUNKED) {
-      stage(b, 0, I, I, xr, xi, uir, uii, sxr, sxi, suir, suii, b == 0);
-      stage(b, 0, O, O, gr, gi, uor, uoi, sgr, sgi, suor, suoi, b == 0);
+      for (int oc = 0; oc < noc; ++oc) {
+        ensure(cur_g, oc, [&] { stage_g(s, b, m0, oc); });
+        ensure(cur_uo, oc * nrc + rc, [&] { stage_f(suo, uor, uoi, O, oc, rc); });
+        cgemm<NPN, NPN, MN, 2, NW1>(
+            dr, di, cdiv(min(CH, O - oc * CH), 16),
+            [&](int kq, auto& ar, auto& ai) {
+              ld_quad<false, false, NPN>(ar, sgr, XP, w1m, 16 * kq, lane);
+              ld_quad<false, false, NPN>(ai, sgi, XP, w1m, 16 * kq, lane);
+            },
+            [&](int kq, int jj, auto& br, auto& bi) {
+              ld_quad<true, false, NPN>(br, suo, FP, w1n + 16 * jj, 16 * kq, lane);
+              ld_quad<true, false, NPN>(bi, suo + P::FPLANE, FP, w1n + 16 * jj, 16 * kq, lane);
+            });
+      }
+      // u = t W and dt = du conj(W) in place; row b's dW term du conj(t)
+      float* const dwpr = dwp + (static_cast<size_t>(b) * R + rc0) * M + m0;
+      float* const dwpi = dwpr + dplane;
+#pragma unroll
+      for (int j = 0; j < NW1; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = w1m + g + 8 * (e >> 1), r = w1n + 8 * j + 2 * t4 + (e & 1);
+          const bool in = r < nr && m < nm;
+          const size_t wo = static_cast<size_t>(rc0 + r) * M + m0 + m;
+          const float vr = in ? F::ld(wr[wo]) : 0.f, vi = in ? F::ld(wi[wo]) : 0.f;
+          const float a = tr[j][e], c = ti[j][e], p = dr[j][e], q = di[j][e];
+          if (in) {
+            dwpr[static_cast<size_t>(r) * M + m] = p * a + q * c;
+            dwpi[static_cast<size_t>(r) * M + m] = q * a - p * c;
+          }
+          tr[j][e] = a * vr - c * vi;
+          ti[j][e] = a * vi + c * vr;
+          dr[j][e] = p * vr + q * vi;
+          di[j][e] = q * vr - p * vi;
+        }
+      __syncthreads();   // every warp is done with the last u and dt
+#pragma unroll
+      for (int j = 0; j < NW1; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int off = (w1m + g + 8 * h) * PP + w1n + 8 * j + 2 * t4;
+          auto put = [&](BF* d, float lo, float hi) {
+            uint32_t q0, q1, q2;
+            split3(lo, hi, q0, q1, q2);
+            *reinterpret_cast<uint32_t*>(d + off) = q0;
+            *reinterpret_cast<uint32_t*>(d + off + P::PPLANE) = q1;
+            *reinterpret_cast<uint32_t*>(d + off + 2 * P::PPLANE) = q2;
+          };
+          put(plane(0, 0), tr[j][2 * h], tr[j][2 * h + 1]);
+          put(plane(0, 1), ti[j][2 * h], ti[j][2 * h + 1]);
+          put(plane(1, 0), dr[j][2 * h], dr[j][2 * h + 1]);
+          put(plane(1, 1), di[j][2 * h], di[j][2 * h + 1]);
+        }
       __syncthreads();
-      for (int t = tid; t < R * TMB; t += NTB) {
-        float tr = 0.f, ti = 0.f, dur = 0.f, dui = 0.f;
-        project(t, I, tr, ti);
-        pullback(t, O, dur, dui);
-        finish(t, tr, ti, dur, dui);
-      }
-      __syncthreads();
-    } else {
-      for (int c = 0; c < nic; ++c) {
-        const int i0 = c * IC, ni = min(IC, I - i0);
-        stage(b, i0, ni, I, xr, xi, uir, uii, sxr, sxi, suir, suii, true);
-        __syncthreads();
-        for (int t = tid; t < R * TMB; t += NTB) {
-          const int r = t / TMB, mm = t % TMB;
-          float tr = c > 0 ? sur[r * TP + mm] : 0.f, ti = c > 0 ? sui[r * TP + mm] : 0.f;
-          project(t, ni, tr, ti);
-          sur[r * TP + mm] = tr;
-          sui[r * TP + mm] = ti;
-        }
-        __syncthreads();
-      }
-      for (int c = 0; c < noc; ++c) {
-        const int o0 = c * OC, no = min(OC, O - o0);
-        stage(b, o0, no, O, gr, gi, uor, uoi, sgr, sgi, suor, suoi, true);
-        __syncthreads();
-        for (int t = tid; t < R * TMB; t += NTB) {
-          const int r = t / TMB, mm = t % TMB;
-          float dur = c > 0 ? str[r * TP + mm] : 0.f, dui = c > 0 ? sti[r * TP + mm] : 0.f;
-          pullback(t, no, dur, dui);
-          str[r * TP + mm] = dur;
-          sti[r * TP + mm] = dui;
-        }
-        __syncthreads();
-      }
-      for (int t = tid; t < R * TMB; t += NTB) {
-        const int r = t / TMB, mm = t % TMB;
-        finish(t, sur[r * TP + mm], sui[r * TP + mm], str[r * TP + mm], sti[r * TP + mm]);
-      }
-      __syncthreads();
-    }
 
-    for (int c = 0; c < nic; ++c) {
-      const int i0 = c * IC, ni = CHUNKED ? min(IC, I - i0) : I;
-      if (CHUNKED && nic > 1) {
-        stage(b, i0, ni, I, xr, xi, uir, uii, sxr, sxi, suir, suii, true);
-        __syncthreads();
-      }
-      // dx[b][i][m] = sum_r dt[r][m] conj(U_i[i][r])
-      for (int t = tid; t < ni * TMB; t += NTB) {
-        const int i = t / TMB, mm = t % TMB, m = m0 + mm;
-        if (m >= M) continue;
-        float accr = 0.f, acci = 0.f;
-        for (int r = 0; r < R; ++r) {
-          const float ar = str[r * TP + mm], ai = sti[r * TP + mm];
-          const float br = suir[i * R + r], bi = suii[i * R + r];
-          accr = fmaf(ar, br, accr);
-          accr = fmaf(ai, bi, accr);
-          acci = fmaf(ai, br, acci);
-          acci = fmaf(-ar, bi, acci);
+      // phase 2: dx and dU_i over the input chunks, dU_o over the output chunks
+      for (int ic = 0; ic < nic; ++ic) {
+        ensure(cur_x, ic, [&] { stage_x(s, b, m0, ic); });
+        ensure(cur_ui, ic * nrc + rc, [&] { stage_f(sui, uir, uii, I, ic, rc); });
+        const int i0 = ic * CH, ni = min(CH, I - i0);
+        float xr_[NW2][4], xi_[NW2][4];
+        zero(xr_);
+        zero(xi_);
+        if (rc > 0) {   // the earlier rank chunks' sum
+#pragma unroll
+          for (int j = 0; j < NW2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = w2i + g + 8 * (e >> 1), m = w2m + 8 * j + 2 * t4 + (e & 1);
+              const size_t off = static_cast<size_t>(i0 + i) * MT + m;
+              if (i < ni) {
+                xr_[j][e] = dxs[off];
+                xi_[j][e] = dxs[static_cast<size_t>(I) * MT + off];
+              }
+            }
         }
-        const size_t off = (b * I + i0 + i) * M + m;
-        dxr[off] = F::st(accr);
-        dxi[off] = F::st(acci);
-      }
-      // dU_i[i][r] += sum_m conj(x[i][m]) dt[r][m]
-      for (int t = tid; t < ni * R; t += NTB) {
-        const int i = t / R, r = t % R;
-        float accr = 0.f, acci = 0.f;
-        for (int mm = 0; mm < TMB; ++mm) {
-          const float ar = sxr[i * TMB + mm], ai = sxi[i * TMB + mm];
-          const float br = str[r * TP + mm], bi = sti[r * TP + mm];
-          accr = fmaf(ar, br, accr);
-          accr = fmaf(ai, bi, accr);
-          acci = fmaf(ar, bi, acci);
-          acci = fmaf(-ai, br, acci);
+        cgemm<NP, 3, BF, 1, NW2>(
+            xr_, xi_, cdiv(nr, 16),
+            [&](int kq, auto& ar, auto& ai) {
+              ld_quad<false, true, NP>(ar, sui, FP, w2i, 16 * kq, lane);
+              ld_quad<false, true, NP>(ai, sui + P::FPLANE, FP, w2i, 16 * kq, lane);
+            },
+            [&](int kq, int jj, auto& br, auto& bi) {
+              ld_pieces(std::true_type{}, br, plane(1, 0), w2m + 16 * jj, 16 * kq, lane);
+              ld_pieces(std::true_type{}, bi, plane(1, 1), w2m + 16 * jj, 16 * kq, lane);
+            });
+        const bool last = rc == nrc - 1;
+        // a fragment's pair (m, m + 1) in one store where rows allow it
+        auto put = [&](T* d, size_t off, float a, float c, bool two) {
+          if (pair) {
+            if constexpr (HALF) {
+              *reinterpret_cast<uint32_t*>(d + off) = pack2<T>(a, c);
+            } else {
+              *reinterpret_cast<float2*>(d + off) = make_float2(a, c);
+            }
+            return;
+          }
+          d[off] = F::st(a);
+          if (two) d[off + 1] = F::st(c);
+        };
+#pragma unroll
+        for (int j = 0; j < NW2; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = w2i + g + 8 * h, m = w2m + 8 * j + 2 * t4;
+            if (i >= ni || m >= nm) continue;
+            const float ar = xr_[j][2 * h], cr = xr_[j][2 * h + 1];
+            const float ai = xi_[j][2 * h], ci = xi_[j][2 * h + 1];
+            if (last) {
+              const size_t off = (static_cast<size_t>(b) * I + i0 + i) * M + m0 + m;
+              put(dxr, off, ar, cr, m + 1 < nm);
+              put(dxi, off, ai, ci, m + 1 < nm);
+            } else {
+              const size_t off = static_cast<size_t>(i0 + i) * MT + m;
+              *reinterpret_cast<float2*>(dxs + off) = make_float2(ar, cr);
+              *reinterpret_cast<float2*>(dxs + static_cast<size_t>(I) * MT + off) =
+                  make_float2(ai, ci);
+            }
+          }
+        if (!onchip) {
+          if (k == 0) {
+            zero(duir);
+            zero(duii);
+          } else {
+            slice_io(true, 0, i0, rc0, duir, duii);
+          }
         }
-        sar[static_cast<size_t>(i0) * R + t] += accr;
-        sai[static_cast<size_t>(i0) * R + t] += acci;
+        cgemm<NP, 3, BF, 1, 4>(
+            duir, duii, mk,
+            [&](int kq, auto& ar, auto& ai) {
+              ld_quad<false, true, NP>(ar, sxr, XP, w3i, 16 * kq, lane);
+              ld_quad<false, true, NP>(ai, sxi, XP, w3i, 16 * kq, lane);
+            },
+            [&](int kq, int jj, auto& br, auto& bi) {
+              ld_pieces(std::false_type{}, br, plane(1, 0), w3r + 16 * jj, 16 * kq, lane);
+              ld_pieces(std::false_type{}, bi, plane(1, 1), w3r + 16 * jj, 16 * kq, lane);
+            });
+        if (!onchip) slice_io(false, 0, i0, rc0, duir, duii);
       }
-      if (CHUNKED) __syncthreads();
-    }
-    // dU_o[o][r] += sum_m g[o][m] conj(u[r][m])
-    for (int c = 0; c < noc; ++c) {
-      const int o0 = c * OC, no = CHUNKED ? min(OC, O - o0) : O;
-      if (CHUNKED && noc > 1) {
-        stage(b, o0, no, O, gr, gi, uor, uoi, sgr, sgi, suor, suoi, false);
-        __syncthreads();
-      }
-      for (int t = tid; t < no * R; t += NTB) {
-        const int o = t / R, r = t % R;
-        float accr = 0.f, acci = 0.f;
-        for (int mm = 0; mm < TMB; ++mm) {
-          const float ar = sgr[o * TMB + mm], ai = sgi[o * TMB + mm];
-          const float br = sur[r * TP + mm], bi = sui[r * TP + mm];
-          accr = fmaf(ar, br, accr);
-          accr = fmaf(ai, bi, accr);
-          acci = fmaf(ai, br, acci);
-          acci = fmaf(-ar, bi, acci);
+      for (int oc = 0; oc < noc; ++oc) {
+        ensure(cur_g, oc, [&] { stage_g(s, b, m0, oc); });
+        const int o0 = oc * CH;
+        if (!onchip) {
+          if (k == 0) {
+            zero(duor);
+            zero(duoi);
+          } else {
+            slice_io(true, 1, o0, rc0, duor, duoi);
+          }
         }
-        sbr[static_cast<size_t>(o0) * R + t] += accr;
-        sbi[static_cast<size_t>(o0) * R + t] += acci;
+        cgemm<NP, 3, BF, 2, 4>(
+            duor, duoi, mk,
+            [&](int kq, auto& ar, auto& ai) {
+              ld_quad<false, true, NP>(ar, sgr, XP, w3i, 16 * kq, lane);
+              ld_quad<false, true, NP>(ai, sgi, XP, w3i, 16 * kq, lane);
+            },
+            [&](int kq, int jj, auto& br, auto& bi) {
+              ld_pieces(std::false_type{}, br, plane(0, 0), w3r + 16 * jj, 16 * kq, lane);
+              ld_pieces(std::false_type{}, bi, plane(0, 1), w3r + 16 * jj, 16 * kq, lane);
+            });
+        if (!onchip) slice_io(false, 1, o0, rc0, duor, duoi);
       }
-      if (CHUNKED) __syncthreads();
-    }
-    if (!CHUNKED) __syncthreads();
-  }
-
-  // dW of the tile's modes, summed over the batch
-  for (int t = tid; t < R * TMB; t += NTB) {
-    const int r = t / TMB, m = m0 + t % TMB;
-    if (m < M) {
-      dwr[static_cast<size_t>(r) * M + m] = F::st(swr[t]);
-      dwi[static_cast<size_t>(r) * M + m] = F::st(swi[t]);
     }
   }
-  // this tile's f32 partials of dU_i and dU_o: [dUi re | dUi im | dUo re | dUo im]
-  if (acc_smem) {
-    for (size_t t = tid; t < 2 * (ir + orr); t += NTB) p[t] = sar[t];
+  if (onchip && mine > 0) {
+    slice_io(false, 0, 0, 0, duir, duii);
+    slice_io(false, 1, 0, 0, duor, duoi);
   }
+  cp_async_wait<0>();
 }
 
-// dU_i and dU_o: the per-tile partials summed in tile order, stored at T.
+// dU_i and dU_o: the blocks' partials summed in a fixed order (eight runs of
+// consecutive blocks, each summed in block order by its own warp, then the
+// eight run sums in run order), 32 elements a reduction block; dW: the batch
+// rows' terms summed in batch order, an element a thread; stored at T.
+constexpr int NTR = 256;          // threads a reduction block
+constexpr int RUNS = NTR / 32;    // runs of blocks a dU element is summed in
+
 template <int FMT>
-__global__ void __launch_bounds__(NT)
-cp_bwd_reduce_kernel(const float* __restrict__ part, int tiles, int I, int O, int R,
+__global__ void __launch_bounds__(NTR)
+cp_bwd_reduce_kernel(const float* __restrict__ part, int nblk, const float* __restrict__ dwp,
+                     int B, int I, int O, int R, int M,
                      typename Fmt<FMT>::T* __restrict__ duir,
                      typename Fmt<FMT>::T* __restrict__ duii,
                      typename Fmt<FMT>::T* __restrict__ duor,
-                     typename Fmt<FMT>::T* __restrict__ duoi) {
+                     typename Fmt<FMT>::T* __restrict__ duoi,
+                     typename Fmt<FMT>::T* __restrict__ dwr,
+                     typename Fmt<FMT>::T* __restrict__ dwi) {
   using F = Fmt<FMT>;
+  __shared__ float runs[RUNS][32];
   const size_t ir = static_cast<size_t>(I) * R, orr = static_cast<size_t>(O) * R;
-  const size_t per = 2 * (ir + orr);
-  const size_t e = static_cast<size_t>(blockIdx.x) * NT + threadIdx.x;
-  if (e >= per) return;
-  float s = 0.f;
-  for (int k = 0; k < tiles; ++k) s += part[k * per + e];
-  if (e < ir) {
-    duir[e] = F::st(s);
-  } else if (e < 2 * ir) {
-    duii[e - ir] = F::st(s);
-  } else if (e < 2 * ir + orr) {
-    duor[e - 2 * ir] = F::st(s);
-  } else {
-    duoi[e - 2 * ir - orr] = F::st(s);
+  const size_t per = 2 * (ir + orr), rm = static_cast<size_t>(R) * M;
+  const size_t du_blocks = (per + 31) / 32;
+  if (blockIdx.x < du_blocks) {
+    const int lane = threadIdx.x % 32, run = threadIdx.x / 32;
+    const size_t e = blockIdx.x * 32 + lane;
+    const int len = (nblk + RUNS - 1) / RUNS, k0 = run * len, k1 = min(nblk, k0 + len);
+    float s = 0.f;
+    if (e < per) {
+#pragma unroll 4
+      for (int k = k0; k < k1; ++k) s += part[k * per + e];
+    }
+    runs[run][lane] = s;
+    __syncthreads();
+    if (run > 0 || e >= per) return;
+    s = runs[0][lane];
+#pragma unroll
+    for (int r = 1; r < RUNS; ++r) s += runs[r][lane];
+    if (e < ir) {
+      duir[e] = F::st(s);
+    } else if (e < 2 * ir) {
+      duii[e - ir] = F::st(s);
+    } else if (e < 2 * ir + orr) {
+      duor[e - 2 * ir] = F::st(s);
+    } else {
+      duoi[e - 2 * ir - orr] = F::st(s);
+    }
+    return;
   }
+  const size_t e = (blockIdx.x - du_blocks) * NTR + threadIdx.x;
+  if (e >= 2 * rm) return;
+  const size_t p = e / rm, idx = e % rm;
+  const float* src = dwp + p * B * rm + idx;
+  float s = 0.f;
+  for (int b = 0; b < B; ++b) s += src[b * rm];
+  (p ? dwi : dwr)[idx] = F::st(s);
 }
 
 // the widest copy, at most 16 bytes, of elements of T that divides a row of n
@@ -1010,34 +1292,76 @@ int launch_fwd(const void* const* in, void* outr, void* outi, int B, int I, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// cp_bwd's grid: one block an SM (as many as fit), at most one an item; the
+// attribute opt-in and the occupancy, once (never inside a CUDA graph
+// capture, which follows a warm-up)
 template <int FMT>
-int launch_bwd(const void* const* in, void* const* out, float* part, int B, int I,
-               int O, int R, int M, int IC, int OC, int acc_smem, cudaStream_t stream) {
+cudaError_t bwd_grid(int B, int M, int& grid) {
+  using P = BwdTile<typename Fmt<FMT>::T>;
+  struct Occupancy {
+    cudaError_t err;
+    int sms, per_sm;
+  };
+  static const Occupancy occ = [] {
+    Occupancy o{cudaFuncSetAttribute(cp_bwd_kernel<FMT>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX),
+                0, 0};
+    int dev = 0;
+    if (o.err == cudaSuccess) o.err = cudaGetDevice(&dev);
+    if (o.err == cudaSuccess)
+      o.err = cudaDeviceGetAttribute(&o.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (o.err == cudaSuccess)
+      o.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o.per_sm, cp_bwd_kernel<FMT>, P::NT,
+                                                            P::SMEM);
+    return o;
+  }();
+  const long long items = 1LL * cdiv(M, P::MT) * B;
+  grid = static_cast<int>(std::min<long long>(items, 1LL * std::max(1, occ.per_sm) * occ.sms));
+  return occ.err;
+}
+
+// floats of f32 workspace: each batch row's dW terms, each block's dU_i and
+// dU_o, and, with several rank chunks, each block's dx partial sums
+template <int FMT>
+long long bwd_workspace(int B, int I, int O, int R, int M, int grid) {
+  using P = BwdTile<typename Fmt<FMT>::T>;
+  const long long i = I, o = O, r = R;
+  return 2LL * B * r * M + 2LL * grid * (i + o) * r +
+         (cdiv(R, P::CH) > 1 ? 2LL * grid * i * P::MT : 0);
+}
+
+template <int FMT>
+int launch_bwd(const void* const* in, void* const* out, float* ws, int B, int I, int O, int R,
+               int M, int IC, int OC, int acc_smem, cudaStream_t stream) {
   using T = typename Fmt<FMT>::T;
-  const size_t smem = bwd_smem_floats(I, O, R, IC, OC, acc_smem) * sizeof(float);
-  if (smem > SMEM_MAX || IC < 1 || OC < 1) return -2;
-  static const cudaError_t opted[2] = {
-      cudaFuncSetAttribute(cp_bwd_kernel<FMT, false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX),
-      cudaFuncSetAttribute(cp_bwd_kernel<FMT, true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX)};
-  if (opted[0] != cudaSuccess) return static_cast<int>(opted[0]);
-  if (opted[1] != cudaSuccess) return static_cast<int>(opted[1]);
-  const int tiles = n_tiles(M, TMB);
+  using P = BwdTile<T>;
+  // the host's plan: chunks of CH channels, dU on chip where one chunk covers every width
+  if (IC != std::min(I, P::CH) || OC != std::min(O, P::CH) ||
+      acc_smem != (std::max(std::max(I, O), R) <= P::CH))
+    return -2;
+  int grid = 0;
+  const cudaError_t err = bwd_grid<FMT>(B, M, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const T* const* a = reinterpret_cast<const T* const*>(in);
   T* const* d = reinterpret_cast<T* const*>(out);
-  auto* kernel = n_chunks(I, IC) > 1 || n_chunks(O, OC) > 1 ? cp_bwd_kernel<FMT, true>
-                                                            : cp_bwd_kernel<FMT, false>;
+  const int um = unit_for<T>(M, {a[0], a[1], a[6], a[7], a[8], a[9]});
+  const int ur = unit_for<T>(R, {a[2], a[3], a[4], a[5]});
+  // dx pairs (m, m + 1) in one store: even rows, and dx aligned to a pair
+  const int pair = M % 2 == 0 && reinterpret_cast<uintptr_t>(d[0]) % (2 * sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(d[1]) % (2 * sizeof(T)) == 0;
+  float* dwp = ws;
+  float* part = dwp + 2LL * B * R * M;
+  float* dxp = part + 2LL * grid * (static_cast<long long>(I) + O) * R;
   // out: dx re/im, dU_i re/im, dU_o re/im, dW re/im
-  kernel<<<tiles, NTB, smem, stream>>>(
-      a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9], d[0], d[1], d[6],
-      d[7], part, B, I, O, R, M, IC, OC, acc_smem);
-  int rc = static_cast<int>(cudaGetLastError());
+  cp_bwd_kernel<FMT><<<grid, P::NT, P::SMEM, stream>>>(
+      a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9], d[0], d[1], dwp, part, dxp, B,
+      I, O, R, M, acc_smem, um, ur, pair);
+  const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  const size_t per = 2 * (static_cast<size_t>(I) * R + static_cast<size_t>(O) * R);
-  const int blocks = static_cast<int>((per + NT - 1) / NT);
-  cp_bwd_reduce_kernel<FMT><<<blocks, NT, 0, stream>>>(part, tiles, I, O, R, d[2], d[3],
-                                                        d[4], d[5]);
+  const long long du = 2LL * (static_cast<long long>(I) + O) * R, dw = 2LL * R * M;
+  const int blocks = static_cast<int>((du + 31) / 32 + (dw + NTR - 1) / NTR);
+  cp_bwd_reduce_kernel<FMT><<<blocks, NTR, 0, stream>>>(
+      part, grid, dwp, B, I, O, R, M, d[2], d[3], d[4], d[5], d[6], d[7]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1045,10 +1369,12 @@ int launch_bwd(const void* const* in, void* const* out, float* part, int B, int 
 
 // C interface, loaded with ctypes.  The launchers launch on `stream`,
 // allocate nothing, and return cudaGetLastError(), -1 for an unknown
-// format code or -2 for a channel plan whose working set exceeds a block's
-// shared memory (the Python wrapper checks both first).  IC and OC are the
-// channel chunks of the host's plan; acc_smem says whether cp_bwd keeps dU_i
-// and dU_o in shared memory.
+// format code or -2 for a plan the kernel does not take (the Python wrapper
+// checks both first).  cp_bwd's IC and OC are the channels its 64-wide
+// chunks cover (min(I, 64), min(O, 64)) and acc_smem says whether dU_i and
+// dU_o stay on chip across a block's items (every width at most 64) or in
+// its slice of the workspace; the workspace holds
+// spectral_contract_cp_bwd_workspace floats.
 
 // bytes of shared memory a cp_fwd block needs in format `fmt` with the factors
 // resident (res) or streamed; -1 for an unknown format code
@@ -1064,15 +1390,38 @@ extern "C" long long spectral_contract_cp_fwd_smem(int fmt, int res) {
   return -1;
 }
 
-extern "C" long long spectral_contract_cp_bwd_smem(int I, int O, int R, int IC, int OC,
-                                                   int acc_smem) {
-  return bwd_smem_floats(I, O, R, IC, OC, acc_smem) * static_cast<long long>(sizeof(float));
+// bytes of shared memory a cp_bwd block needs in format `fmt`; -1 for an
+// unknown format code
+extern "C" long long spectral_contract_cp_bwd_smem(int fmt) {
+  switch (fmt) {
+    case FMT_F32:
+      return BwdTile<float>::SMEM;
+    case FMT_BF16:
+      return BwdTile<__nv_bfloat16>::SMEM;
+    case FMT_F16:
+      return BwdTile<__half>::SMEM;
+  }
+  return -1;
 }
 
-// floats of f32 scratch cp_bwd needs: per mode tile, dU_i and dU_o re/im
-extern "C" long long spectral_contract_cp_bwd_workspace(int I, int O, int R, int M) {
-  return static_cast<long long>(n_tiles(M, TMB)) * 2LL *
-         (static_cast<long long>(I) * R + static_cast<long long>(O) * R);
+// floats of f32 workspace cp_bwd needs at these widths in format `fmt` on
+// the current device (its grid follows the SM count); -1 for an unknown
+// format code or a failed device query
+extern "C" long long spectral_contract_cp_bwd_workspace(int B, int I, int O, int R, int M,
+                                                        int fmt) {
+  int grid = 0;
+  switch (fmt) {
+    case FMT_F32:
+      return bwd_grid<FMT_F32>(B, M, grid) == cudaSuccess
+                 ? bwd_workspace<FMT_F32>(B, I, O, R, M, grid) : -1;
+    case FMT_BF16:
+      return bwd_grid<FMT_BF16>(B, M, grid) == cudaSuccess
+                 ? bwd_workspace<FMT_BF16>(B, I, O, R, M, grid) : -1;
+    case FMT_F16:
+      return bwd_grid<FMT_F16>(B, M, grid) == cudaSuccess
+                 ? bwd_workspace<FMT_F16>(B, I, O, R, M, grid) : -1;
+  }
+  return -1;
 }
 
 extern "C" int spectral_contract_cp_fwd(
@@ -1100,15 +1449,15 @@ extern "C" int spectral_contract_cp_bwd(
     int O, int R, int M, int IC, int OC, int acc_smem, int fmt, void* stream) {
   const void* in[10] = {xr, xi, uir, uii, uor, uoi, wr, wi, gr, gi};
   void* out[8] = {dxr, dxi, duir, duii, duor, duoi, dwr, dwi};
-  float* part = static_cast<float*>(workspace);
+  float* ws = static_cast<float*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
     case FMT_F32:
-      return launch_bwd<FMT_F32>(in, out, part, B, I, O, R, M, IC, OC, acc_smem, s);
+      return launch_bwd<FMT_F32>(in, out, ws, B, I, O, R, M, IC, OC, acc_smem, s);
     case FMT_BF16:
-      return launch_bwd<FMT_BF16>(in, out, part, B, I, O, R, M, IC, OC, acc_smem, s);
+      return launch_bwd<FMT_BF16>(in, out, ws, B, I, O, R, M, IC, OC, acc_smem, s);
     case FMT_F16:
-      return launch_bwd<FMT_F16>(in, out, part, B, I, O, R, M, IC, OC, acc_smem, s);
+      return launch_bwd<FMT_F16>(in, out, ws, B, I, O, R, M, IC, OC, acc_smem, s);
   }
   return -1;
 }

@@ -481,12 +481,6 @@ class CPContract(torch.autograd.Function):
         return _launch_cp_bwd(*ops, gr.contiguous(), gi.contiguous())
 
 
-#: cp_bwd's mode tile and padded rank-tile row (``TMB``, ``TP`` in
-#: ``csrc/spectral_contract_cp.cu``)
-_CP_TMB, _CP_TP = 16, 17
-_SMEM_FLOATS = SMEM_LIMIT // 4
-
-
 def _pad(n: int, k: int) -> int:
     return -(-n // k) * k
 
@@ -532,30 +526,42 @@ def cp_fwd_plan(I: int, O: int, R: int, dtype: torch.dtype) -> CPFwdPlan:
     return CPFwdPlan(resident, _cp_fwd_smem(size, resident))
 
 
-def cp_bwd_plan(I: int, O: int, R: int) -> Tuple[int, int, bool, int]:
-    """``cp_bwd``'s channel chunks: ``(IC, OC, acc_smem, smem bytes)``.
-    The u, dt and dW tiles ([R][16]) stay resident; one chunk covers each
-    channel axis, and dU_i/dU_o stay in shared memory, wherever they fit;
-    else dU_i/dU_o go to the block's slice of the workspace, and then the
-    x/U_i and g/U_o chunks share what is left.  Raises ``ValueError`` for
-    a rank whose tiles leave no room for one channel of each (R > 558)."""
-    resident = 2 * (2 * R * _CP_TP + R * _CP_TMB)
-    per = 2 * (_CP_TMB + R)            # one channel of x and U_i (or g and U_o)
-    acc = 2 * (I + O) * R
-    if resident + (I + O) * per + acc <= _SMEM_FLOATS:
-        IC, OC, acc_smem = max(I, 1), max(O, 1), True
-    else:
-        acc_smem = False
-        c = (_SMEM_FLOATS - resident) // per
-        IC = min(I, max(c // 2, c - O)) if I else 1
-        OC = min(O, c - IC) if O else 1
-    need = 4 * (resident + (IC + OC) * per + (acc if acc_smem else 0))
-    if IC < 1 or OC < 1 or need > SMEM_LIMIT:
-        raise ValueError(
-            f"spectral_contract_cp: cp_bwd keeps the rank tiles of R={R} resident in "
-            f"shared memory, and with one channel of each side beside them a block "
-            f"needs more than its {SMEM_LIMIT} bytes (R <= 558 fits)")
-    return IC, OC, acc_smem, need
+class CPBwdPlan(NamedTuple):
+    """``cp_bwd``'s launch plan: the input and output channels its 64-wide
+    chunks cover, whether dU_i and dU_o stay on chip across a block's items
+    (every width within one chunk: the factors resident too) or go to its
+    slice of the workspace, and the bytes of shared memory a block takes."""
+    IC: int
+    OC: int
+    acc_smem: bool
+    smem: int
+
+
+#: ``cp_bwd``'s tile (``BwdTile`` in ``csrc/spectral_contract_cp.cu``): modes
+#: a tile (halves, f32), channels and ranks a chunk, ring slots
+_CPB_MT, _CPB_CH, _CPB_STAGES = (64, 32), 64, 2
+
+
+def _cp_bwd_smem(size: int) -> int:
+    """Bytes of shared memory a ``cp_bwd`` block takes at operand ``size``
+    (``BwdTile::SMEM``): the ring's x and g tiles, the U_i and U_o chunks,
+    and u and dt as three bf16 pieces each."""
+    mt = _CPB_MT[0] if size == 2 else _CPB_MT[1]
+    pad = 16 // size
+    tile = _CPB_CH * (mt + pad)
+    factors = 4 * _CPB_CH * (_CPB_CH + pad)
+    return (_CPB_STAGES * 4 * tile + factors) * size + 12 * mt * (_CPB_CH + 8) * 2
+
+
+def cp_bwd_plan(I: int, O: int, R: int, dtype: torch.dtype) -> CPBwdPlan:
+    """``cp_bwd``'s plan at operands of ``dtype``.  The kernel walks input
+    and output channels and ranks in 64-wide chunks whose sums carry over,
+    so its shared memory does not grow with any width: there is no limit
+    to refuse.  Where every width fits one chunk (the TFNO path's 64) the
+    factors stay resident and dU_i/dU_o on chip across a block's items."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return CPBwdPlan(min(max(I, 1), _CPB_CH), min(max(O, 1), _CPB_CH),
+                     max(I, O, R) <= _CPB_CH, _cp_bwd_smem(size))
 
 
 def _launch_cp_fwd(xr, xi, uir, uii, uor, uoi, wr, wi):
@@ -582,13 +588,16 @@ def _launch_cp_bwd(xr, xi, uir, uii, uor, uoi, wr, wi, gr, gi):
     grads = [torch.empty_like(t) for t in (xr, xi, uir, uii, uor, uoi, wr, wi)]
     if xr.numel() == 0 or gr.numel() == 0:
         return tuple(g.zero_() for g in grads)
-    IC, OC, acc_smem, _ = cp_bwd_plan(I, O, R)
+    plan = cp_bwd_plan(I, O, R, xr.dtype)
     lib = _library_cp()
-    work = torch.empty(int(lib.spectral_contract_cp_bwd_workspace(I, O, R, M)),
-                       dtype=torch.float32, device=xr.device)
+    with torch.cuda.device(xr.device):
+        floats = int(lib.spectral_contract_cp_bwd_workspace(B, I, O, R, M, _FMT[xr.dtype]))
+    if floats < 0:
+        raise RuntimeError("spectral_contract_cp_bwd: the device query for its grid failed")
+    work = torch.empty(floats, dtype=torch.float32, device=xr.device)
     ptrs = [t.data_ptr() for t in (xr, xi, uir, uii, uor, uoi, wr, wi, gr, gi, *grads, work)]
     _call(lib.spectral_contract_cp_bwd, "spectral_contract_cp_bwd", xr.device,
-          *ptrs, B, I, O, R, M, IC, OC, int(acc_smem), _FMT[xr.dtype])
+          *ptrs, B, I, O, R, M, plan.IC, plan.OC, int(plan.acc_smem), _FMT[xr.dtype])
     launches_cp_bwd += 1
     return tuple(grads)
 
@@ -1305,8 +1314,8 @@ def _library_cp() -> ctypes.CDLL:
     lib = _bind(SOURCE_CP, spectral_contract_cp_fwd=(10, 7),
                 spectral_contract_cp_bwd=(19, 9))
     for name, n_int in (("spectral_contract_cp_fwd_smem", 2),
-                        ("spectral_contract_cp_bwd_smem", 6),
-                        ("spectral_contract_cp_bwd_workspace", 4)):
+                        ("spectral_contract_cp_bwd_smem", 1),
+                        ("spectral_contract_cp_bwd_workspace", 6)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int] * n_int
         fn.restype = ctypes.c_longlong

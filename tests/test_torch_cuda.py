@@ -620,9 +620,10 @@ def test_cp_channel_plans_match_the_kernels_smem(cuda):
             plan = sc.cp_fwd_plan(width, width, width, dtype)
             assert lib.spectral_contract_cp_fwd_smem(sc._FMT[dtype], int(plan.resident)) == \
                 plan.smem
-        IC, OC, acc_smem, need = sc.cp_bwd_plan(width, width, width)
-        assert lib.spectral_contract_cp_bwd_smem(width, width, width, IC, OC,
-                                                 int(acc_smem)) == need
+    for dtype in CP_DTYPES:
+        for R in (16, 64, 76, 160, 559, 784, 2048, 4096):
+            plan = sc.cp_bwd_plan(R, R, R, dtype)
+            assert lib.spectral_contract_cp_bwd_smem(sc._FMT[dtype]) == plan.smem
     lib = sc._library_ls()
     for dtype in CP_DTYPES:
         for K, N in ((1, 1), (64, 64), (139, 139), (140, 140), (192, 192), (200, 200),
@@ -666,6 +667,34 @@ def test_cp_fwd_matches_plain_at_its_edges(cuda, shape, R, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
 
 
+@pytest.mark.parametrize("shape", CP_FWD_EDGES)
+@pytest.mark.parametrize("R", [17, 64, 200, 600, 784])
+@pytest.mark.parametrize("dtype", CP_DTYPES)
+def test_cp_bwd_matches_plain_at_its_edges(cuda, shape, R, dtype):
+    """cp_bwd (tensor cores on exact bf16 pieces of its f32 operands) against
+    its plain version within ``store_budget``, which a zeroed output must
+    exceed: dx, dU_i, dU_o and dW; the rank in one, four, ten and thirteen
+    64-wide chunks (600 and 784 past the old limit of 558), channels in one
+    and two (the workspace path), ragged mode tiles; a rerun bit-identical."""
+    B, I, O, M = shape
+    ops_ = _cp_operands(B, I, O, R, M, dtype, cuda, seed=R + M + 1)
+    before = sc.launches_cp_bwd
+    got = sc._launch_cp_bwd(*ops_)
+    torch.cuda.synchronize()
+    assert sc.launches_cp_bwd == before + 1
+    want = sc.spectral_contract_cp_bwd_plain(*ops_)
+    mags = sc.cp_magnitudes(*ops_)
+    eps = FORMAT_EPS[dtype_name(dtype)]
+    for g, w, name in zip(got, want, ("dx", "dx", "dU_i", "dU_i", "dU_o", "dU_o", "dW", "dW"),
+                          strict=True):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert _cp_budget_ok(g, w, mags[name], eps), name
+        assert not _cp_budget_ok(torch.zeros_like(w), w, mags[name], eps), name
+    again = sc._launch_cp_bwd(*ops_)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
+
+
 #: (I, O, M) where dense_bwd_w's design has edges: channels off its 16-wide
 #: tiles, the last mode tile ragged, rows off 16 bytes (M = 1023)
 DENSE_BWD_W_EDGES = [(24, 40, 300), (76, 105, 1023), (105, 76, 1764)]
@@ -697,6 +726,36 @@ def test_dense_bwd_w_matches_plain_at_its_edges(cuda, B, shape, cast_to, out_dty
     else:
         assert not bool((torch.hypot(pr, pi) <= budget).all())
     again = sc._launch_bwd_w(xr, xi, gr, gi, cast_to)
+    torch.cuda.synchronize()
+    assert torch.equal(kr, again[0]) and torch.equal(ki, again[1])
+
+
+@pytest.mark.parametrize("B", [0, 1, 3, 9, 17])
+@pytest.mark.parametrize("shape", DENSE_BWD_W_EDGES)
+@pytest.mark.parametrize("cast_to,out_dtype", MODES)
+def test_dense_fwd_matches_plain_at_its_edges(cuda, B, shape, cast_to, out_dtype):
+    """dense_fwd (a cp.async ring of 4-channel slots, 8-row batch tiles,
+    16-byte copies where rows allow) against its plain version within
+    ``contract_budget``, which a zeroed output must exceed; B in one and
+    several batch tiles, and B = 0; channels off its 8-wide output and
+    4-wide input tiles, rows off 16 bytes (M = 1023); a rerun
+    bit-identical."""
+    I, O, M = shape
+    xr, xi, wr, wi = _operands(B, I, O, M, cuda, seed=B + M + 2)
+    before = sc.launches
+    kr, ki = sc.spectral_contract_dense(xr, xi, wr, wi, cast_to=cast_to, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    pr, pi = sc.spectral_contract_plain(xr, xi, wr, wi, cast_to=cast_to, out_dtype=out_dtype)
+    assert kr.dtype == out_dtype and kr.shape == pr.shape == (B, O, M)
+    if B == 0:
+        return
+    assert sc.launches == before + 1
+    budget = contract_budget(FORMAT_EPS[dtype_name(out_dtype)],
+                             sc.contract_magnitude(xr, xi, wr, wi))
+    diff = torch.hypot(kr.float() - pr.float(), ki.float() - pi.float())
+    assert bool((diff <= budget).all()), float((diff - budget).max())
+    assert not bool((torch.hypot(pr.float(), pi.float()) <= budget).all())
+    again = sc.spectral_contract_dense(xr, xi, wr, wi, cast_to=cast_to, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert torch.equal(kr, again[0]) and torch.equal(ki, again[1])
 
@@ -771,11 +830,9 @@ def test_cp_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     # block held before, launches and agrees with the plain versions
     wide = _cp_operands(1, 160, 160, 160, 4, torch.float32, cuda)
     _check_cp_kernels(wide, torch.float32)
-    # what remains is a limit on the rank, refused before launch
-    before = sc.launches_cp_bwd
-    with pytest.raises(ValueError, match="R <= 558"):
-        sc._launch_cp_bwd(*_cp_operands(1, 2, 2, 600, 4, torch.float32, cuda))
-    assert sc.launches_cp_bwd == before
+    # cp_bwd walks the rank in chunks too: R = 600, past its old limit of
+    # 558, launches and agrees with the plain versions
+    _check_cp_kernels(_cp_operands(1, 2, 2, 600, 4, torch.float32, cuda), torch.float32)
 
 
 @pytest.mark.parametrize("policy_name", ["full", "mixed_fno_bf16"])

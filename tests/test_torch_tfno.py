@@ -387,30 +387,34 @@ def test_tfno_engine_serves_batched_as_solo_and_refuses_small_grids():
 # -- the CP kernels' channel plans -----------------------------------------------------
 @pytest.mark.parametrize("width", [1, 16, 64, 75, 76, 104, 105, 128, 160, 256, 558])
 def test_cp_channel_plans_fit_a_block_at_every_width(width):
-    """``cp_fwd`` and ``cp_bwd`` tile the channel axes, so every width up to
-    the rank limit fits a block's shared memory.  cp_fwd keeps its factors
-    resident up to the path's widths (I = O = R = 64) and streams them a
-    chunk at a time past them, in every operand dtype; below the old limits
-    one chunk covers both of cp_bwd's axes and it keeps dU_i/dU_o in shared
-    memory (the one-chunk layout)."""
+    """``cp_fwd`` and ``cp_bwd`` tile the channel axes, so every width fits a
+    block's shared memory.  cp_fwd keeps its factors resident up to the
+    path's widths (I = O = R = 64) and streams them a chunk at a time past
+    them, in every operand dtype; cp_bwd walks 64-wide chunks of every axis,
+    so its block is one size at any width, and where every width fits one
+    chunk it keeps dU_i/dU_o on chip across its items."""
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         plan = sc.cp_fwd_plan(width, width, width, dtype)
         assert plan.smem <= sc.SMEM_LIMIT and plan.resident == (width <= 64)
-    IC, OC, acc_smem, need = sc.cp_bwd_plan(width, width, width)
-    assert need <= sc.SMEM_LIMIT and 1 <= IC <= width and 1 <= OC <= width
-    assert acc_smem == (width <= 75)
-    assert ((IC, OC) == (width, width)) == (width <= 101)
+        bwd = sc.cp_bwd_plan(width, width, width, dtype)
+        assert bwd.smem <= sc.SMEM_LIMIT
+        assert bwd.smem == sc.cp_bwd_plan(1, 1, 1, dtype).smem
+        assert (bwd.IC, bwd.OC) == (min(width, 64), min(width, 64))
+        assert bwd.acc_smem == (width <= 64)
 
 
-def test_cp_plans_refuse_only_ranks_whose_tiles_leave_no_room():
-    """What remains after the channel tiling is a limit on cp_bwd's rank: its
-    resident tiles and one channel of each side must fit in 227 KB.  cp_fwd
-    walks the rank in chunks too, so it refuses no rank: past its old limit
-    (R <= 784) its plan still fits."""
+@pytest.mark.parametrize("R", [559, 784, 2048, 4096])
+def test_cp_plans_take_any_rank(R):
+    """Both CP kernels walk the rank in 64-wide chunks whose sums carry over,
+    so neither refuses a rank: past cp_bwd's old limit (R <= 558) and
+    cp_fwd's (R <= 784) each plan fits 227 KB, and cp_bwd's bytes are the
+    library's (``spectral_contract_cp_bwd_smem``, the formula
+    ``_cp_bwd_smem`` restates and the card test holds it to), at any
+    channel widths beside the rank."""
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for R in (784, 785, 4096):
-            assert sc.cp_fwd_plan(3000, 2000, R, dtype).smem <= sc.SMEM_LIMIT
-            assert sc.cp_fwd_plan(1, 1, R, dtype).smem <= sc.SMEM_LIMIT
-    assert sc.cp_bwd_plan(3000, 2000, 558)[3] <= sc.SMEM_LIMIT
-    with pytest.raises(ValueError, match="R <= 558"):
-        sc.cp_bwd_plan(1, 1, 559)
+        size = torch.empty((), dtype=dtype).element_size()
+        for I, O in ((1, 1), (64, 64), (3000, 2000)):
+            assert sc.cp_fwd_plan(I, O, R, dtype).smem <= sc.SMEM_LIMIT
+            plan = sc.cp_bwd_plan(I, O, R, dtype)
+            assert plan.smem == sc._cp_bwd_smem(size) <= sc.SMEM_LIMIT
+            assert (plan.IC, plan.OC, plan.acc_smem) == (min(I, 64), min(O, 64), False)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Try variants of hand-written kernels beside the shipped ones on one GPU.
 
-    python3 tools/kernel_trials.py [--only flash,ls_bwd_w,ls_mix,rmsnorm,cp_fwd,dense_bwd_w,fused]
+    python3 tools/kernel_trials.py [--only flash,ls_bwd_w,ls_mix,rmsnorm,cp_fwd,dense_bwd_w,fused,
+                                           cp_bwd,dense_fwd]
 
 Each variant is the shipped source with a few lines replaced (``VARIANTS``;
 one puts a block of its own in front of a line),
@@ -66,6 +67,7 @@ reverse).  Prints one JSON line per shape and mode:
 Needs one card.
 """
 import argparse
+import ctypes
 import json
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -251,6 +253,40 @@ VARIANTS = {
          "        for (int ks = 0; ks < nk && M < 0; ks += 16) {")]),
     "cp_fwd_diag_no_rank_expand": ("spectral_contract_cp.cu", [
         ("            if (16 * kk < nr) {", "            if (16 * kk < nr && M < 0) {")]),
+    "cp_bwd_all_piece_products": ("spectral_contract_cp.cu", [
+        ("      if (p + q > 2) continue;", "      if (p + q > 4) continue;")]),
+    "cp_bwd_32_mode_tiles": ("spectral_contract_cp.cu", [
+        ("static constexpr int MT = HALF ? 64 : 32;     // modes a tile",
+         "static constexpr int MT = 32;     // modes a tile")]),
+    "cp_bwd_diag_no_phase_1_products": ("spectral_contract_cp.cu", [
+        ("            tr, ti, cdiv(min(CH, I - ic * CH), 16),", "            tr, ti, M < 0,"),
+        ("            dr, di, cdiv(min(CH, O - oc * CH), 16),", "            dr, di, M < 0,")]),
+    "cp_bwd_diag_no_phase_2_products": ("spectral_contract_cp.cu", [
+        ("            xr_, xi_, cdiv(nr, 16),", "            xr_, xi_, M < 0,"),
+        ("            duir, duii, mk,", "            duir, duii, M < 0,"),
+        ("            duor, duoi, mk,", "            duor, duoi, M < 0,")]),
+    "cp_bwd_diag_no_reduction": ("spectral_contract_cp.cu", [
+        ("  cp_bwd_reduce_kernel<FMT><<<", "  if (M < 0) cp_bwd_reduce_kernel<FMT><<<")]),
+    "cp_bwd_diag_no_dw_terms": ("spectral_contract_cp.cu", [
+        ("          if (in) {\n            dwpr[", "          if (in && M < 0) {\n            dwpr[")]),
+    "cp_bwd_diag_no_dx_stores": ("spectral_contract_cp.cu", [
+        ("            if (i >= ni || m >= nm) continue;",
+         "            if (i >= ni || m >= nm || M > 0) continue;")]),
+    "cp_bwd_diag_no_loads": ("spectral_contract_cp.cu", [
+        ("    if (k < mine) {", "    if (k < mine && M < 0) {")]),
+    "dense_fwd_2_stages": ("spectral_contract.cu", [
+        ("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")]),
+    "dense_fwd_4_channel_slots": ("spectral_contract.cu", [
+        ("constexpr int ICH = 8;", "constexpr int ICH = 4;"),
+        ("constexpr int STAGES = 3;", "constexpr int STAGES = 4;")]),
+    "dense_fwd_4_channel_slots_6_stages": ("spectral_contract.cu", [
+        ("constexpr int ICH = 8;", "constexpr int ICH = 4;"),
+        ("constexpr int STAGES = 3;", "constexpr int STAGES = 6;")]),
+    "dense_fwd_diag_no_rounding": ("spectral_contract.cu", [
+        ("    return __bfloat162float(__float2bfloat16_rn(v));", "    return v;"),
+        ("    return __bfloat1622float2(__floats2bfloat162_rn(a, b));", "    return make_float2(a, b);")]),
+    "dense_fwd_diag_no_sums": ("spectral_contract.cu", [
+        ("    for (int k = 0; k < ICH; ++k) {", "    for (int k = 0; k < ICH && M < 0; ++k) {")]),
     "dense_bwd_w_64_mode_tiles": ("spectral_contract_bwd.cu", [
         ("constexpr int WTM = 16;", "constexpr int WTM = 64;"),
         ("constexpr int WTI = 32;", "constexpr int WTI = 16;"),
@@ -610,6 +646,92 @@ def dense_bwd_w_trials():
         print(json.dumps(row), flush=True)
 
 
+def kernel_profile(fn, reps=10):
+    """{kernel name: mean device µs a launch} of ``fn``'s launches under
+    ``torch.profiler`` (each kernel of a two-launch wrapper apart)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if t and e.count:
+            out[e.key[:60]] = t / e.count
+    return out
+
+
+def cp_bwd_trials():
+    libs = libraries("cp_bwd", "spectral_contract_cp.cu", {"spectral_contract_cp_bwd": (19, 9)})
+    for lib in libs.values():
+        lib.spectral_contract_cp_bwd_workspace.argtypes = [ctypes.c_int] * 6
+        lib.spectral_contract_cp_bwd_workspace.restype = ctypes.c_longlong
+    B, I, O, R, M = cs.CP_PATH_SHAPE
+    order = list(libs) + list(reversed(libs))
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        sets = [cs.cp_operands(cs.CP_PATH_SHAPE, dtype, 300 + k) for k in range(8)]
+        plan = sc.cp_bwd_plan(I, O, R, dtype)
+        work = {n: torch.empty(int(lib.spectral_contract_cp_bwd_workspace(
+            B, I, O, R, M, sc._FMT[dtype])), device="cuda") for n, lib in libs.items()}
+
+        def run(name, *ops, dtype=dtype, plan=plan):
+            grads = [torch.empty_like(t) for t in ops[:8]]
+            build._call(libs[name].spectral_contract_cp_bwd, "spectral_contract_cp_bwd",
+                        ops[0].device, *(t.data_ptr() for t in (*ops, *grads, work[name])),
+                        B, I, O, R, M, plan.IC, plan.OC, int(plan.acc_smem), sc._FMT[dtype])
+            return grads
+
+        want = sc.spectral_contract_cp_bwd_plain(*sets[0])
+        mags = sc.cp_magnitudes(*sets[0])
+        names = ("dx", "dx", "dU_i", "dU_i", "dU_o", "dU_o", "dW", "dW")
+        eps = FORMAT_EPS[dtype_name(dtype)]
+        row = {"kernel": "spectral_contract_cp_bwd", "shape": list(cs.CP_PATH_SHAPE),
+               "dtype": str(dtype), "us": {}, "excess_over_budget": {}}
+        for name in order:
+            got = run(name, *sets[0])
+            row["excess_over_budget"][name] = max(
+                ((a.float() - b.float()).abs()
+                 - store_budget(eps, b.float(), mags[k])).max().item()
+                for a, b, k in zip(got, want, names, strict=True))
+            row["us"].setdefault(name, []).append(
+                1e3 * cs.graph_ms(lambda *a, n=name: run(n, *a), sets))
+        row["profile_us"] = kernel_profile(lambda: run("shipped", *sets[0]))
+        print(json.dumps(row), flush=True)
+        del sets, work
+        torch.cuda.empty_cache()
+
+
+def dense_fwd_trials():
+    libs = libraries("dense_fwd", "spectral_contract.cu", {"spectral_contract_dense_fwd": (6, 6)})
+    B, I, O, M = cs.PATH_SHAPE
+    order = list(libs) + list(reversed(libs))
+    sets = [cs.operands(cs.PATH_SHAPE, 100 + k) for k in range(4)]
+    for cast_to, dt in ((torch.bfloat16, torch.bfloat16), (None, torch.float32)):
+
+        def run(name, xr, xi, wr, wi, cast_to=cast_to, dt=dt):
+            out = [torch.empty((B, O, M), dtype=dt, device="cuda") for _ in range(2)]
+            build._call(libs[name].spectral_contract_dense_fwd, "spectral_contract_dense_fwd",
+                        xr.device, *(t.data_ptr() for t in (xr, xi, wr, wi, *out)),
+                        B, I, O, M, sc._FMT[cast_to or torch.float32], sc._FMT[dt])
+            return out
+
+        want = sc.spectral_contract_plain(*sets[0], cast_to=cast_to, out_dtype=dt)
+        row = {"kernel": "spectral_contract_dense_fwd", "shape": list(cs.PATH_SHAPE),
+               "mode": str(dt), "us": {}, "max_abs_diff": {}, "bits_equal_shipped": {}}
+        first = run("shipped", *sets[0])
+        for name in order:
+            got = run(name, *sets[0])
+            row["max_abs_diff"][name] = max((a.float() - b.float()).abs().max().item()
+                                            for a, b in zip(got, want, strict=True))
+            row["bits_equal_shipped"][name] = all(
+                torch.equal(a, b) for a, b in zip(got, first, strict=True))
+            row["us"].setdefault(name, []).append(
+                1e3 * cs.graph_ms(lambda *a, n=name: run(n, *a), sets))
+        print(json.dumps(row), flush=True)
+
+
 def fused_trials():
     libs = libraries("fused", "spectral_fused.cu",
                      {"spectral_fused_fwd": (6, 12), "spectral_fused_bwd": (9, 13)})
@@ -672,7 +794,7 @@ def fused_trials():
 
 TRIALS = {"flash": flash_trials, "ls_bwd_w": ls_bwd_w_trials, "ls_mix": ls_mix_trials,
           "rmsnorm": rmsnorm_trials, "cp_fwd": cp_fwd_trials, "dense_bwd_w": dense_bwd_w_trials,
-          "fused": fused_trials}
+          "fused": fused_trials, "cp_bwd": cp_bwd_trials, "dense_fwd": dense_fwd_trials}
 
 
 def main():
