@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    dense backward source, the CP source, the order-shared source, the
    fused source, the RMSNorm source and the flash attention source, one
    ``nvcc`` each, started together) for ``sm_90a`` from the sources in
-   this checkout; print each ptxas report.
+   this checkout; print each ptxas report.  ``dense_fwd`` and
+   ``dense_bwd_x`` are one streaming design (``csrc/dense_stream.cuh``)
+   that sums the weight over its input or its output channels.
 3. Kernels vs plain: the dense forward kernel and its two backward
    kernels, the CP kernels ``cp_fwd`` and ``cp_bwd``, and the order-shared
    kernels ``ls_fwd``, ``ls_bwd_x`` and ``ls_bwd_w``, against their plain

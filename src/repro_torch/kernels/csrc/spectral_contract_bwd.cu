@@ -31,20 +31,23 @@
 // 268 MFLOP on the f32 cores: both are memory-bound, and the (I, O, M)
 // weight or weight-gradient stream is 84 % of the bytes.
 //
-// What the designs do about it.  dense_bwd_x is the forward kernel with
-// the roles of I and O swapped: a thread owns one (i, m) and BT complex
-// batch accumulators, reads each w element once (for B <= BT), coalesced
-// along M, and the g values of its block are staged in shared memory one
-// chunk of OC output channels at a time.  dense_bwd_w is a write-streaming
+// What the designs do about it.  dense_bwd_x sums the other channel axis of
+// the forward's weight, so it shares dense_fwd's streaming design
+// (csrc/dense_stream.cuh): one persistent block an SM streams the weight
+// through a cp.async ring of 8-output-channel slabs, g beside it at its own
+// width, every operand rounded once by its copier, each output summed over
+// o ascending with the same FMAs a term as the kernel before it.  A half g
+// is widened into f32 planes once a slot, and rounded there only onto the
+// other half format.  dense_bwd_w is a write-streaming
 // kernel: one persistent block an SM walks (16-mode, 32-input, 32-output
 // channel) tiles, its x and g batch rows coming in through a cp.async ring
 // while the previous tile's dw drains as 16-byte stores straight from
 // registers (a thread owns a 4 x 4 x 4 (i, o, m) tile, so 16 shared loads
-// feed 256 FMAs).  Its 268 MFLOP take 4 us on the f32 cores against the
-// 11.9 us of bytes, so they run on the CUDA cores in every mode: the
+// feed 256 FMAs).  Their 268 MFLOP take 4 us on the f32 cores against the
+// 11.9 us of bytes, so both run on the CUDA cores in every mode: the
 // products of two rounded values are exact in f32 as on the tensor cores,
 // whose per-mode (i, o) fragments would have to be transposed back to the
-// m-contiguous write stream.  Neither kernel uses atomics: every output is
+// m-contiguous streams.  Neither kernel uses atomics: every output is
 // reduced by one thread in a fixed order, so a rerun is bit-identical.
 
 #include <algorithm>
@@ -54,17 +57,11 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
-#include "mma_sync.cuh"
+#include "dense_stream.cuh"
 
 namespace {
 
-using namespace mma_sync;
-
-// dense_bwd_x
-constexpr int TM = 32;  // modes per block: one warp along M
-constexpr int TY = 8;   // threadIdx.y: input channels per block
-constexpr int BT = 8;   // batch rows per pass
-constexpr int OC = 16;  // output channels staged per pass
+using namespace dense_stream;
 
 // dense_bwd_w: a thread sums a 4 x 4 x 4 (input channel, output channel,
 // mode) tile, so the block tile is WTI x WTO x WTM with WNT = (WTI / 4) *
@@ -77,121 +74,16 @@ constexpr int WSTAGES = 3;    // ring slots
 constexpr int WXP = WTM + 4;  // x rows' pitch (floats): 16 bytes of padding
 static_assert(WNT == (WTI / 4) * (WTO / 4) * (WTM / 4), "a thread sums a 4 x 4 x 4 tile");
 
-enum { FMT_F32 = 0, FMT_BF16 = 1, FMT_F16 = 2 };
-
-template <int FMT>
-__device__ __forceinline__ float round_to(float v) {
-  if constexpr (FMT == FMT_BF16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else if constexpr (FMT == FMT_F16) {
-    return __half2float(__float2half_rn(v));
-  } else {
-    return v;
-  }
-}
-
-template <int FMT>
-struct Load;
-
-template <>
-struct Load<FMT_F32> {
-  using T = float;
-  __device__ static float cvt(T v) { return v; }
-};
-
-template <>
-struct Load<FMT_BF16> {
-  using T = __nv_bfloat16;
-  __device__ static float cvt(T v) { return __bfloat162float(v); }
-};
-
-template <>
-struct Load<FMT_F16> {
-  using T = __half;
-  __device__ static float cvt(T v) { return __half2float(v); }
-};
-
-// dx[b,i,m] = sum_o g[b,o,m] * conj(w[i,o,m]).  Block (TM, TY): modes
-// m0..m0+TM of input channels i0..i0+TY, batch rows b0..b0+BT.
+// dx[b,i,m] = sum_o g[b,o,m] * conj(w[i,o,m]): the streaming design with g
+// (B, O, M) as the summed data operand and the input channels kept
 template <int CAST, int G>
-__global__ void __launch_bounds__(TM * TY)
-dense_bwd_x_kernel(const typename Load<G>::T* __restrict__ gr,
-                   const typename Load<G>::T* __restrict__ gi,
+__global__ void __launch_bounds__(NT, 1)
+dense_bwd_x_kernel(const typename Fmt<G>::T* __restrict__ gr,
+                   const typename Fmt<G>::T* __restrict__ gi,
                    const float* __restrict__ wr, const float* __restrict__ wi,
                    float* __restrict__ dxr, float* __restrict__ dxi,
-                   int B, int I, int O, int M) {
-  __shared__ float sgr[OC][BT][TM];
-  __shared__ float sgi[OC][BT][TM];
-
-  const int tx = threadIdx.x;
-  const int m0 = blockIdx.x * TM;
-  const int m = m0 + tx;
-  const int i = blockIdx.y * TY + threadIdx.y;
-  const int b0 = blockIdx.z * BT;
-  const bool live = (m < M) && (i < I);
-  const int tid = threadIdx.y * TM + tx;
-
-  float accr[BT], acci[BT];
-#pragma unroll
-  for (int b = 0; b < BT; ++b) {
-    accr[b] = 0.f;
-    acci[b] = 0.f;
-  }
-
-  for (int o0 = 0; o0 < O; o0 += OC) {
-    // this thread's weights for the chunk, issued before the g staging so
-    // the loads overlap it
-    float wrv[OC], wiv[OC];
-#pragma unroll
-    for (int k = 0; k < OC; ++k) {
-      wrv[k] = 0.f;
-      wiv[k] = 0.f;
-      if (live && o0 + k < O) {
-        const size_t off = (static_cast<size_t>(i) * O + o0 + k) * M + m;
-        wrv[k] = round_to<CAST>(wr[off]);
-        wiv[k] = round_to<CAST>(wi[off]);
-      }
-    }
-    // stage g[b0:b0+BT, o0:o0+OC, m0:m0+TM], zero outside the tensor
-    for (int t = tid; t < OC * BT * TM; t += TM * TY) {
-      const int mm = t % TM;
-      const int bb = (t / TM) % BT;
-      const int oo = t / (TM * BT);
-      const int gm = m0 + mm, gb = b0 + bb, go = o0 + oo;
-      float vr = 0.f, vi = 0.f;
-      if (gm < M && gb < B && go < O) {
-        const size_t off = (static_cast<size_t>(gb) * O + go) * M + gm;
-        vr = round_to<CAST>(Load<G>::cvt(gr[off]));
-        vi = round_to<CAST>(Load<G>::cvt(gi[off]));
-      }
-      sgr[oo][bb][mm] = vr;
-      sgi[oo][bb][mm] = vi;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < OC; ++k) {
-      const float a = wrv[k], c = wiv[k];
-#pragma unroll
-      for (int b = 0; b < BT; ++b) {
-        const float p = sgr[k][b][tx], q = sgi[k][b][tx];
-        accr[b] = fmaf(p, a, accr[b]);
-        accr[b] = fmaf(q, c, accr[b]);
-        acci[b] = fmaf(q, a, acci[b]);
-        acci[b] = fmaf(-p, c, acci[b]);
-      }
-    }
-    __syncthreads();
-  }
-
-  if (!live) return;
-#pragma unroll
-  for (int b = 0; b < BT; ++b) {
-    if (b0 + b < B) {
-      const size_t off = (static_cast<size_t>(b0 + b) * I + i) * M + m;
-      dxr[off] = accr[b];
-      dxi[off] = acci[b];
-    }
-  }
+                   int B, int I, int O, int M, int vec, int vecg) {
+  contract_stream<CAST, G, FMT_F32, true>(gr, gi, wr, wi, dxr, dxi, B, I, O, M, vec, vecg);
 }
 
 // a 16-byte store of dw (`tools/kernel_trials.py` tries st.global.cs)
@@ -216,7 +108,7 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
 // as 16-byte stores along m, straight from registers.
 template <int G>
 struct WRing {
-  using T = typename Load<G>::T;
+  using T = typename Fmt<G>::T;
   static constexpr int BT = sizeof(T) == 2 ? 8 : 4;   // batch rows a ring slot
   static constexpr int GP = WTM + 16 / static_cast<int>(sizeof(T));   // g rows' pitch
   static constexpr int X_PLANE = BT * WTI * WXP;       // floats
@@ -229,11 +121,11 @@ struct WRing {
 template <int CAST, int G>
 __global__ void __launch_bounds__(WNT, 1)   // one block an SM: 128 accumulators a thread
 dense_bwd_w_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                   const typename Load<G>::T* __restrict__ gr,
-                   const typename Load<G>::T* __restrict__ gi,
+                   const typename Fmt<G>::T* __restrict__ gr,
+                   const typename Fmt<G>::T* __restrict__ gi,
                    float* __restrict__ dwr, float* __restrict__ dwi,
                    int B, int I, int O, int M, int vec) {
-  using T = typename Load<G>::T;
+  using T = typename Fmt<G>::T;
   using R = WRing<G>;
   // g needs rounding where its grid is not already inside CAST's; a half g
   // rounded onto the other half format is kept in CAST's own type (SG), which
@@ -241,7 +133,7 @@ dense_bwd_w_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   constexpr bool ROUND_X = CAST != FMT_F32;
   constexpr bool ROUND_G = CAST != FMT_F32 && G != CAST;
   constexpr int SG = ROUND_G && sizeof(T) == 2 ? CAST : G;
-  using S = typename Load<SG>::T;
+  using S = typename Fmt<SG>::T;
   static_assert(sizeof(S) == sizeof(T), "a staged g fills its slot's element");
   constexpr int UPR = WTM / 4;   // 4-mode units a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -311,7 +203,7 @@ dense_bwd_w_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
         if (ROUND_G && vec) {
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
-            const float v = Load<G>::cvt(reinterpret_cast<const T*>(dst)[k]);
+            const float v = Fmt<G>::ld(reinterpret_cast<const T*>(dst)[k]);
             dst[k] = S(round_to<CAST>(v));
           }
         }
@@ -329,7 +221,7 @@ dense_bwd_w_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       } else {
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          dst[k] = ok && m0 + c + k < M ? S(round_to<CAST>(Load<G>::cvt(src[off + k]))) : S(0.f);
+          dst[k] = ok && m0 + c + k < M ? S(round_to<CAST>(Fmt<G>::ld(src[off + k]))) : S(0.f);
       }
     }
   };
@@ -390,8 +282,8 @@ dense_bwd_w_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
           const S* hb = reinterpret_cast<const S*>(&b);
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            u[c] = Load<SG>::cvt(ha[c]);
-            v[c] = Load<SG>::cvt(hb[c]);
+            u[c] = Fmt<SG>::ld(ha[c]);
+            v[c] = Fmt<SG>::ld(hb[c]);
           }
         }
 #pragma unroll
@@ -442,21 +334,9 @@ dense_bwd_w_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 }
 
 template <int CAST, int G>
-void launch_x(const void* gr, const void* gi, const float* wr, const float* wi,
-              float* dxr, float* dxi, int B, int I, int O, int M,
-              cudaStream_t stream) {
-  using T = typename Load<G>::T;
-  const dim3 block(TM, TY, 1);
-  const dim3 grid((M + TM - 1) / TM, (I + TY - 1) / TY, (B + BT - 1) / BT);
-  dense_bwd_x_kernel<CAST, G><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(gr), static_cast<const T*>(gi), wr, wi, dxr, dxi,
-      B, I, O, M);
-}
-
-template <int CAST, int G>
 int launch_w(const float* xr, const float* xi, const void* gr, const void* gi, float* dwr,
              float* dwi, int B, int I, int O, int M, cudaStream_t stream) {
-  using T = typename Load<G>::T;
+  using T = typename Fmt<G>::T;
   // opt in to more than 48 KB of dynamic shared memory, and count the SMs,
   // once, at the first launch (never inside a CUDA graph capture, which
   // follows a warm-up)
@@ -509,8 +389,8 @@ struct RunX {
   static int run(const void* gr, const void* gi, const float* wr,
                  const float* wi, float* dxr, float* dxi, int B, int I, int O,
                  int M, cudaStream_t s) {
-    launch_x<C, G>(gr, gi, wr, wi, dxr, dxi, B, I, O, M, s);
-    return 0;
+    return launch_stream<&dense_bwd_x_kernel<C, G>, G, FMT_F32>(gr, gi, wr, wi, dxr, dxi, B, I,
+                                                                O, M, s);
   }
 };
 

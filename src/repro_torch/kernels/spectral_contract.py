@@ -54,7 +54,9 @@ The kernels replace the TPU kernels ``_dense_fwd_kernel``,
 of ``repro.kernels.spectral_contract``; their sources
 (``csrc/spectral_contract.cu``, ``csrc/spectral_contract_bwd.cu``,
 ``csrc/spectral_contract_cp.cu``, ``csrc/spectral_contract_lshared.cu``,
-``csrc/spectral_fused.cu``) state their bounds and designs.
+``csrc/spectral_fused.cu``, and ``csrc/dense_stream.cuh``, the streaming
+design ``dense_fwd`` and ``dense_bwd_x`` share) state their bounds and
+designs.
 
 Dispatch follows the tensors' device: CPU tensors take the plain
 versions, CUDA tensors launch the kernels or raise.  Each source is

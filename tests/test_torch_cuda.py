@@ -695,8 +695,10 @@ def test_cp_bwd_matches_plain_at_its_edges(cuda, shape, R, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
 
 
-#: (I, O, M) where dense_bwd_w's design has edges: channels off its 16-wide
-#: tiles, the last mode tile ragged, rows off 16 bytes (M = 1023)
+#: (I, O, M) where the dense kernels' designs have edges: channels off
+#: dense_bwd_w's 32-wide tiles and off the 8-wide channel tiles and ring
+#: slots of dense_fwd and dense_bwd_x, the last mode tile ragged, rows off 16
+#: bytes (M = 1023; M = 300 with a half g)
 DENSE_BWD_W_EDGES = [(24, 40, 300), (76, 105, 1023), (105, 76, 1764)]
 
 
@@ -734,11 +736,11 @@ def test_dense_bwd_w_matches_plain_at_its_edges(cuda, B, shape, cast_to, out_dty
 @pytest.mark.parametrize("shape", DENSE_BWD_W_EDGES)
 @pytest.mark.parametrize("cast_to,out_dtype", MODES)
 def test_dense_fwd_matches_plain_at_its_edges(cuda, B, shape, cast_to, out_dtype):
-    """dense_fwd (a cp.async ring of 4-channel slots, 8-row batch tiles,
+    """dense_fwd (a cp.async ring of 8-channel slots, 8-row batch tiles,
     16-byte copies where rows allow) against its plain version within
     ``contract_budget``, which a zeroed output must exceed; B in one and
-    several batch tiles, and B = 0; channels off its 8-wide output and
-    4-wide input tiles, rows off 16 bytes (M = 1023); a rerun
+    several batch tiles, and B = 0; channels off its 8-wide output tiles
+    and 8-channel input slots, rows off 16 bytes (M = 1023); a rerun
     bit-identical."""
     I, O, M = shape
     xr, xi, wr, wi = _operands(B, I, O, M, cuda, seed=B + M + 2)
@@ -760,28 +762,84 @@ def test_dense_fwd_matches_plain_at_its_edges(cuda, B, shape, cast_to, out_dtype
     assert torch.equal(kr, again[0]) and torch.equal(ki, again[1])
 
 
+@pytest.mark.parametrize("B", [0, 1, 3, 9, 17])
+@pytest.mark.parametrize("shape", DENSE_BWD_W_EDGES)
+@pytest.mark.parametrize("cast_to,out_dtype", MODES)
+def test_dense_bwd_x_matches_plain_at_its_edges(cuda, B, shape, cast_to, out_dtype):
+    """dense_bwd_x (dense_fwd's streaming design summing over o: a cp.async
+    ring of 8-channel slots, g at its own width, 8-row batch tiles) against
+    its plain version within ``contract_budget`` at ε_f32 of Σ_o |g||w|,
+    which a zeroed output must exceed; B in one and several batch tiles, and
+    B = 0; input channels off its 8-wide tiles, output channels off its
+    8-channel slots, rows off 16 bytes (M = 1023, and M = 300 with a half
+    g); a rerun bit-identical."""
+    I, O, M = shape
+    _, _, wr, wi = _operands(1, I, O, M, cuda, seed=B + M + 3)
+    gr, gi = _cotangent(B, O, M, out_dtype, cuda, seed=B + M + 4)
+    before = sc.launches_bwd_x
+    kr, ki = sc._launch_bwd_x(gr, gi, wr, wi, cast_to)
+    torch.cuda.synchronize()
+    pr, pi = sc.spectral_contract_bwd_x_plain(gr, gi, wr, wi, cast_to=cast_to)
+    assert kr.dtype == torch.float32 and kr.shape == pr.shape == (B, I, M)
+    if B == 0:
+        return
+    assert sc.launches_bwd_x == before + 1
+    mag = torch.einsum("bom,iom->bim", torch.hypot(gr.float(), gi.float()), torch.hypot(wr, wi))
+    budget = contract_budget(FORMAT_EPS["float32"], mag)
+    diff = torch.hypot(kr - pr, ki - pi)
+    assert bool((diff <= budget).all()), float((diff - budget).max())
+    assert not bool((torch.hypot(pr, pi) <= budget).all())
+    again = sc._launch_bwd_x(gr, gi, wr, wi, cast_to)
+    torch.cuda.synchronize()
+    assert torch.equal(kr, again[0]) and torch.equal(ki, again[1])
+
+
+@pytest.mark.parametrize("cast_to,out_dtype", MODES)
+def test_dense_kernels_store_zeros_for_an_empty_sum(cuda, cast_to, out_dtype):
+    """dense_fwd with I = 0 and dense_bwd_x with O = 0 sum nothing: their
+    outputs are zeros, as the plain versions' are."""
+    B, M = 3, 300
+    xr, xi, wr, wi = _operands(B, 0, 5, M, cuda)
+    out = sc.spectral_contract_dense(xr, xi, wr, wi, cast_to=cast_to, out_dtype=out_dtype)
+    _, _, wr, wi = _operands(B, 5, 0, M, cuda)
+    gr, gi = _cotangent(B, 0, M, out_dtype, cuda)
+    dx = sc._launch_bwd_x(gr, gi, wr, wi, cast_to)
+    torch.cuda.synchronize()
+    assert [tuple(t.shape) for t in (*out, *dx)] == [(B, 5, M)] * 4
+    assert not any(bool(t.any()) for t in (*out, *dx))
+
+
+@pytest.mark.parametrize("kernel", ["bwd_x", "bwd_w"])
 @pytest.mark.parametrize("M", [1024, 301])
 @pytest.mark.parametrize("cast_to,g_dtype,edge", [
     (torch.bfloat16, torch.float16, [65504.0, -65440.0, 65472.0, 65409.0]),
     (torch.float16, torch.bfloat16, [65280.0, -65024.0, 257.0, 3.0e-5])])
-def test_dense_bwd_w_rounds_a_half_g_onto_the_other_half(cuda, M, cast_to, g_dtype, edge):
-    """A g stored in one half format, rounded onto the other: an fp16 g in
-    (65408, 65504] rounds to bf16 65536, which the kernel must keep finite,
-    as the plain version does (a bf16 g onto fp16: the largest values fp16
-    holds, and one in its subnormal range); staged by cp.async (M = 1024)
-    and element by element (M = 301)."""
+def test_dense_bwd_w_rounds_a_half_g_onto_the_other_half(cuda, kernel, M, cast_to, g_dtype,
+                                                          edge):
+    """A g stored in one half format, rounded onto the other, in each
+    backward kernel: an fp16 g in (65408, 65504] rounds to bf16 65536,
+    which the kernel must keep finite, as the plain version does (a bf16 g
+    onto fp16: the largest values fp16 holds, and one in its subnormal
+    range); staged by cp.async (M = 1024) and element by element (M =
+    301)."""
     B, I, O = 9, 24, 40
-    xr, xi, _, _ = _operands(B, I, 1, M, cuda, seed=M)
+    xr, xi, wr, wi = _operands(B, I, O, M, cuda, seed=M)
     gr, gi = _cotangent(B, O, M, g_dtype, cuda, seed=M + 1)
     big = torch.tensor(edge).to(g_dtype)
     gr[:, :, :4] = big.to(cuda)
     gi[:, 3:5, 7:11] = big.flip(0).to(cuda)
-    kr, ki = sc._launch_bwd_w(xr, xi, gr, gi, cast_to)
+    absg = torch.hypot(gr.float(), gi.float())
+    if kernel == "bwd_x":
+        kr, ki = sc._launch_bwd_x(gr, gi, wr, wi, cast_to)
+        pr, pi = sc.spectral_contract_bwd_x_plain(gr, gi, wr, wi, cast_to=cast_to)
+        mag = torch.einsum("bom,iom->bim", absg, torch.hypot(wr, wi))
+    else:
+        kr, ki = sc._launch_bwd_w(xr, xi, gr, gi, cast_to)
+        pr, pi = sc.spectral_contract_bwd_w_plain(xr, xi, gr, gi, cast_to=cast_to)
+        mag = torch.einsum("bim,bom->iom", torch.hypot(xr, xi), absg)
     torch.cuda.synchronize()
-    pr, pi = sc.spectral_contract_bwd_w_plain(xr, xi, gr, gi, cast_to=cast_to)
     assert bool(torch.isfinite(pr).all() and torch.isfinite(pi).all())
     assert bool(torch.isfinite(kr).all() and torch.isfinite(ki).all())
-    mag = torch.einsum("bim,bom->iom", torch.hypot(xr, xi), torch.hypot(gr.float(), gi.float()))
     budget = contract_budget(FORMAT_EPS["float32"], mag)
     diff = torch.hypot(kr - pr, ki - pi)
     assert bool((diff <= budget).all()), float((diff - budget).max())

@@ -45,8 +45,9 @@ Phases, each a function of the checkout's own ``chip_smoke.py``:
 - ``darcy_fused_train``: ``darcy_data``, then ``fused_train_phase``, the
   fused Darcy FNO's 12 training steps with their checks and profiles;
 - ``bits``: a digest of each dense, CP and fused kernel's outputs at its
-  path's shape in each mode (the fused ones in their five modes, with one
-  batch tile and with two), from the same seeded operands in every turn;
+  path's shape in each mode (the dense ones also at ``RAGGED_SHAPE`` and at
+  the path's shape with B = 17; the fused ones in their five modes, with
+  one batch tile and with two), from the same seeded operands in every turn;
   after the turns a ``bits_compare`` line names the kernels and modes whose
   digests agree between the two checkouts and those that differ.
 
@@ -79,13 +80,18 @@ def bits(cs, sc):
         return h.hexdigest()[:16]
 
     out = {}
-    ops = cs.operands(cs.PATH_SHAPE, 500)
-    for cast_to, dt in cs.MODES:
-        g = cs.cotangent(cs.PATH_SHAPE, dt, 501)
-        out[f"dense_fwd/{dt}"] = digest(
-            sc.spectral_contract_dense(*ops, cast_to=cast_to, out_dtype=dt))
-        out[f"dense_bwd_x/{dt}"] = digest(sc._launch_bwd_x(*g, ops[2], ops[3], cast_to))
-        out[f"dense_bwd_w/{dt}"] = digest(sc._launch_bwd_w(ops[0], ops[1], *g, cast_to))
+    # the path's shape, the ragged one (staged element by element where a
+    # half g's rows are off 16 bytes) and the path's with three batch tiles
+    B, I, O, M = cs.PATH_SHAPE
+    for shape in (cs.PATH_SHAPE, cs.RAGGED_SHAPE, (17, I, O, M)):
+        ops = cs.operands(shape, 500)
+        at = "" if shape == cs.PATH_SHAPE else "/" + "x".join(map(str, shape))
+        for cast_to, dt in cs.MODES:
+            g = cs.cotangent(shape, dt, 501)
+            out[f"dense_fwd/{dt}{at}"] = digest(
+                sc.spectral_contract_dense(*ops, cast_to=cast_to, out_dtype=dt))
+            out[f"dense_bwd_x/{dt}{at}"] = digest(sc._launch_bwd_x(*g, ops[2], ops[3], cast_to))
+            out[f"dense_bwd_w/{dt}{at}"] = digest(sc._launch_bwd_w(ops[0], ops[1], *g, cast_to))
     for dtype in cs.CP_DTYPES:
         cops = cs.cp_operands(cs.CP_PATH_SHAPE, dtype, 502)
         out[f"cp_fwd/{dtype}"] = digest(sc._launch_cp_fwd(*cops[:8]))

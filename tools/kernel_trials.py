@@ -2,10 +2,11 @@
 """Try variants of hand-written kernels beside the shipped ones on one GPU.
 
     python3 tools/kernel_trials.py [--only flash,ls_bwd_w,ls_mix,rmsnorm,cp_fwd,dense_bwd_w,fused,
-                                           cp_bwd,dense_fwd]
+                                           cp_bwd,dense_fwd,dense_bwd_x]
 
-Each variant is the shipped source with a few lines replaced (``VARIANTS``;
-one puts a block of its own in front of a line),
+Each variant is the shipped source, with the ``csrc/`` headers it includes
+written out in place, and a few lines of either replaced (``VARIANTS``; one
+puts a block of its own in front of a line),
 or the shipped library called with another plan than the host's.
 Every library is built with the port's nvcc flags into
 ``build/kernel_trials/`` and called through the same C interface as the
@@ -60,7 +61,18 @@ reverse).  Prints one JSON line per shape and mode:
   loads, the data's loads, the transforms' stores or only the y/dx stores;
   each library's
   largest excess over ``chip_smoke.py``'s envelope budget (and in the half
-  modes over its quarter-gap limit; negative: inside).  Variants named ``diag``
+  modes over its quarter-gap limit; negative: inside);
+- ``spectral_contract_dense_fwd`` and ``_dense_bwd_x`` (the streaming design
+  they share, ``csrc/dense_stream.cuh``) at the Darcy path's shape, CUDA
+  graphs of 40 launches cycling operands larger than L2, ``dense_fwd`` in bf16
+  and f32 mode, ``dense_bwd_x`` in bf16, fp16 and f32 mode (g at the mode's
+  dtype): rings of 2 slots instead of 3, 4-channel slots with 4 or 6 stages,
+  (``dense_bwd_x``) tiles walked modes first instead of channels first and
+  a widened g stored in the same order by every thread (2-way bank
+  conflicts), and diagnostics without rounding, without the sums and
+  (``dense_bwd_x``) without widening a half g; each library's largest difference from the plain
+  version and whether its output is bit-identical to the shipped one's, and
+  for ``dense_bwd_x`` the complex64 ``torch.einsum``.  Variants named ``diag``
   switch a part off (the sums, the stores, a contraction) to show what it
   costs; their answers are wrong by design.
 
@@ -69,6 +81,7 @@ Needs one card.
 import argparse
 import ctypes
 import json
+import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -141,6 +154,19 @@ _CP_CUDA_CORE_RANK_EXPAND = """      {
         continue;
       }
 """
+#: variants of the streaming design that dense_fwd and dense_bwd_x share
+#: (csrc/dense_stream.cuh), tried on each
+_DENSE_STREAM_VARIANTS = {
+    "2_stages": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
+    "4_channel_slots": [("constexpr int KCH = 8;", "constexpr int KCH = 4;"),
+                        ("constexpr int STAGES = 3;", "constexpr int STAGES = 4;")],
+    "4_channel_slots_6_stages": [("constexpr int KCH = 8;", "constexpr int KCH = 4;"),
+                                 ("constexpr int STAGES = 3;", "constexpr int STAGES = 6;")],
+    "diag_no_rounding": [
+        ("    return __bfloat162float(__float2bfloat16_rn(v));", "    return v;"),
+        ("    return __bfloat1622float2(__floats2bfloat162_rn(a, b));", "    return make_float2(a, b);")],
+    "diag_no_sums": [("    for (int k = 0; k < KCH; ++k) {", "    for (int k = 0; k < KCH && M < 0; ++k) {")],
+}
 #: the fused transforms' products as 3xTF32, put in front of the shipped
 #: ``run_step``: A split into hi/lo tf32 in registers, B rebuilt in f32 from
 #: the pack's three bf16 pieces (exact) and split the same way; per k half,
@@ -274,19 +300,21 @@ VARIANTS = {
          "            if (i >= ni || m >= nm || M > 0) continue;")]),
     "cp_bwd_diag_no_loads": ("spectral_contract_cp.cu", [
         ("    if (k < mine) {", "    if (k < mine && M < 0) {")]),
-    "dense_fwd_2_stages": ("spectral_contract.cu", [
-        ("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")]),
-    "dense_fwd_4_channel_slots": ("spectral_contract.cu", [
-        ("constexpr int ICH = 8;", "constexpr int ICH = 4;"),
-        ("constexpr int STAGES = 3;", "constexpr int STAGES = 4;")]),
-    "dense_fwd_4_channel_slots_6_stages": ("spectral_contract.cu", [
-        ("constexpr int ICH = 8;", "constexpr int ICH = 4;"),
-        ("constexpr int STAGES = 3;", "constexpr int STAGES = 6;")]),
-    "dense_fwd_diag_no_rounding": ("spectral_contract.cu", [
-        ("    return __bfloat162float(__float2bfloat16_rn(v));", "    return v;"),
-        ("    return __bfloat1622float2(__floats2bfloat162_rn(a, b));", "    return make_float2(a, b);")]),
-    "dense_fwd_diag_no_sums": ("spectral_contract.cu", [
-        ("    for (int k = 0; k < ICH; ++k) {", "    for (int k = 0; k < ICH && M < 0; ++k) {")]),
+    **{f"dense_{k}_{name}": (src, edits) for k, src in (("fwd", "spectral_contract.cu"),
+                                                         ("bwd_x", "spectral_contract_bwd.cu"))
+       for name, edits in _DENSE_STREAM_VARIANTS.items()},
+    "dense_bwd_x_modes_fastest": ("spectral_contract_bwd.cu", [
+        ("    n0 = (t % nnt) * TN;", "    m0 = (t % nmt) * TMD;"),
+        ("    m0 = ((t / nnt) % nmt) * TMD;", "    n0 = ((t / nmt) % nnt) * TN;")]),
+    "dense_bwd_x_unstaggered_widen_stores": ("spectral_contract_bwd.cu", [
+        ("        *reinterpret_cast<float4*>(to + (s4 ? 4 : 0)) = s4 ? hi : lo;\n"
+         "        *reinterpret_cast<float4*>(to + (s4 ? 0 : 4)) = s4 ? lo : hi;",
+         "        *reinterpret_cast<float4*>(to) = lo;\n"
+         "        *reinterpret_cast<float4*>(to + 4) = hi;")]),
+    "dense_bwd_x_diag_no_widening": ("spectral_contract_bwd.cu", [
+        ("        const uint4 v = *reinterpret_cast<const uint4*>(ddst(slot, j));",
+         "        if (M > 0) continue;\n"
+         "        const uint4 v = *reinterpret_cast<const uint4*>(ddst(slot, j));")]),
     "dense_bwd_w_64_mode_tiles": ("spectral_contract_bwd.cu", [
         ("constexpr int WTM = 16;", "constexpr int WTM = 64;"),
         ("constexpr int WTI = 32;", "constexpr int WTI = 16;"),
@@ -372,17 +400,26 @@ VARIANTS = {
 }
 
 
+def inlined(text, seen):
+    """``text`` with each ``csrc/`` header it includes written out in its
+    place, once."""
+    def put(m):
+        if m[1] in seen:
+            return ""
+        seen.add(m[1])
+        return inlined((build.CSRC / m[1]).read_text().replace("#pragma once\n", ""), seen)
+    return re.sub(r'^#include "(\w+\.cuh)"\n', put, text, flags=re.M)
+
+
 def variant_source(name):
     shipped, edits = VARIANTS[name]
-    text = (build.CSRC / shipped).read_text()
+    text = inlined((build.CSRC / shipped).read_text(), set())
     for old, new in edits:
         if old not in text:
             raise SystemExit(f"{name}: the shipped {shipped} has no line {old!r}")
         text = text.replace(old, new)
     path = OUT / f"{name}.cu"
     path.write_text(text)
-    for header in build.CSRC.glob("*.cuh"):
-        (OUT / header.name).write_text(header.read_text())
     return path
 
 
@@ -732,6 +769,43 @@ def dense_fwd_trials():
         print(json.dumps(row), flush=True)
 
 
+def dense_bwd_x_trials():
+    libs = libraries("dense_bwd_x", "spectral_contract_bwd.cu",
+                     {"spectral_contract_dense_bwd_x": (6, 6)})
+    B, I, O, M = cs.PATH_SHAPE
+    order = list(libs) + list(reversed(libs))
+    sets = [cs.operands(cs.PATH_SHAPE, 100 + k) for k in range(4)]
+    for cast_to, dt in ((torch.bfloat16, torch.bfloat16), (torch.float16, torch.float16),
+                        (None, torch.float32)):
+        full = [(*cs.cotangent(cs.PATH_SHAPE, dt, 200 + k), wr, wi)
+                for k, (_, _, wr, wi) in enumerate(sets)]
+
+        def run(name, gr, gi, wr, wi, cast_to=cast_to):
+            dx = [torch.empty((B, I, M), device="cuda") for _ in range(2)]
+            build._call(libs[name].spectral_contract_dense_bwd_x, "spectral_contract_dense_bwd_x",
+                        gr.device, *(t.data_ptr() for t in (gr, gi, wr, wi, *dx)),
+                        B, I, O, M, sc._FMT[cast_to or torch.float32], sc._FMT[gr.dtype])
+            return dx
+
+        want = sc.spectral_contract_bwd_x_plain(*full[0], cast_to=cast_to)
+        row = {"kernel": "spectral_contract_dense_bwd_x", "shape": list(cs.PATH_SHAPE),
+               "mode": str(dt), "us": {}, "max_abs_diff": {}, "bits_equal_shipped": {}}
+        first = run("shipped", *full[0])
+        for name in order:
+            got = run(name, *full[0])
+            row["max_abs_diff"][name] = max((a - b).abs().max().item()
+                                            for a, b in zip(got, want, strict=True))
+            row["bits_equal_shipped"][name] = all(
+                torch.equal(a, b) for a, b in zip(got, first, strict=True))
+            row["us"].setdefault(name, []).append(
+                1e3 * cs.graph_ms(lambda *a, n=name: run(n, *a), full))
+        gc = [torch.complex(*(g.float() for g in gs[:2])) for gs in full]
+        ws = [torch.complex(wr, wi) for _, _, wr, wi in sets]
+        row["library_us"] = 1e3 * cs.graph_ms(
+            lambda g, w: torch.einsum("bom,iom->bim", g, w.conj()), list(zip(gc, ws)))
+        print(json.dumps(row), flush=True)
+
+
 def fused_trials():
     libs = libraries("fused", "spectral_fused.cu",
                      {"spectral_fused_fwd": (6, 12), "spectral_fused_bwd": (9, 13)})
@@ -794,7 +868,8 @@ def fused_trials():
 
 TRIALS = {"flash": flash_trials, "ls_bwd_w": ls_bwd_w_trials, "ls_mix": ls_mix_trials,
           "rmsnorm": rmsnorm_trials, "cp_fwd": cp_fwd_trials, "dense_bwd_w": dense_bwd_w_trials,
-          "fused": fused_trials, "cp_bwd": cp_bwd_trials, "dense_fwd": dense_fwd_trials}
+          "fused": fused_trials, "cp_bwd": cp_bwd_trials, "dense_fwd": dense_fwd_trials,
+          "dense_bwd_x": dense_bwd_x_trials}
 
 
 def main():
