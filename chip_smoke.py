@@ -90,6 +90,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    everywhere, and through 4 layers of half roundings that alone moves
    the answer by ~0.3 of the gap (the CPU moves as far from itself when
    its input moves by one f32 ulp; the phase prints that spread).
+8b. GINO: ``GINO_CAR`` at full width (226.5 M latent FNO parameters,
+   random from a seed) on car batches of 4 from the device sampler (3586
+   surface points a shape, the reference's k = 8 and radius 0.35), whose
+   KNN equals the CPU's on 2 shapes; the forward under ``full``, fused
+   (one ``fused_fwd`` launch per layer and batch tile of ``pick_block_b``
+   rows, 2 tiles of 2 here, no dense launch; the CPU told
+   ``fuse_spectral=True``)
+   and staged (``fuse_spectral=False`` on both: 16 dense forward launches,
+   4 corners a layer), card vs CPU within 1e-5 on 2 shapes; each shape
+   alone against its batched answer (within 1e-6 under ``full``, a quarter
+   of the batched run's gap to ``full`` under ``mixed_fno_bf16``; not bit
+   for bit: cuBLAS picks its GEMM by the row count); one step's gradients card vs CPU under ``full``
+   within 1e-4 per leaf on both paths (the staged one launches kernels 1–3
+   at 3-D); 12 steps of ``examples.gino_car_cfd``'s loop (AdamW(lr=2e-3),
+   ``mixed_fno_bf16``, fresh shapes each step): 8 ``fused_fwd`` and 8
+   ``fused_bwd`` launches a step, losses finite and falling, ms a step,
+   fields/s and peak memory; one step run twice from one state,
+   bit-identical parameters (the decoder's gather has a sorted,
+   deterministic backward on CUDA); a profiled step.
+8c. The U-Net baseline: ``UNET_BASELINE`` on 8 Darcy fields at 128² (CG
+   on the card), card vs CPU under ``full`` within 1e-5, then 30
+   AdamW(lr=2e-3, no weight decay) steps under ``amp_bf16`` on the whole
+   set, as ``benchmarks/bench_paper_tables.py`` trains it: losses finite,
+   the last quarter's mean below the first (at that rate the loss spikes
+   on the way down), ms a step, peak memory.
 9. Numbers: each kernel's time (CUDA graph of many launches, operands
    cycled through more than L2 holds) beside its bound (bytes at the HBM
    rate; half x half products at the bf16/fp16 tensor-core rate, the rest
@@ -101,7 +126,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    breakdowns of serving micro-batches and of a ``mixed_fno_bf16`` and a
    ``full`` training step of each model (the fused Darcy path too).  The
    fused kernels at 128² and 421² in their five modes are timed with CUDA
-   events over 40 back-to-back launches (20 at 421²), not as a CUDA graph,
+   events over 40 back-to-back launches (20 at 421² and at GINO_CAR's
+   latent FNO, batch 4 at 32³ with modes 12³), not as a CUDA graph,
    beside their plain versions and the fused and the staged layer's
    forward and forward + backward at the same shape and policy; no single
    PyTorch call computes the fused layer, so their library time is null.
@@ -194,6 +220,19 @@ FUSED_MODES = ((None, None), (torch.bfloat16, None), (torch.float16, None),
 #: the policy each fused mode stands for, for the layer timings
 FUSED_MODE_POLICY = {"f32": "full", "bf16": "mixed_fno_bf16", "fp16": "mixed_fno_fp16",
                      "fp8_e4m3": "sim_fp8_e4m3", "fp8_e5m2": "sim_fp8_e5m2"}
+#: GINO_CAR's path: car batches of 4 from the device sampler, 3586 surface
+#: points a shape (the order of Shape-Net Car's meshes), the reference's
+#: k = 8 and radius 0.35; 12 steps of the example's loop
+GINO_BATCH, GINO_POINTS, GINO_STEPS = 4, 3586, 12
+#: the U-Net baseline: 8 Darcy fields at 128², 30 AdamW steps under amp_bf16
+#: (the paper-table benchmark's count: at its lr of 2e-3 the loss spikes
+#: over the first dozen steps, on the CPU too, and falls after)
+UNET_FIELDS, UNET_GRID, UNET_STEPS = 8, 128, 30
+#: (B, I, O, spatial, modes, operand sets, launches timed) of the fused
+#: kernels' timings: the Darcy path at 128² and 421², GINO_CAR's latent FNO
+FUSED_TIMED = ((8, 64, 64, (128, 128), (32, 32), 4, 40),
+               (8, 64, 64, (421, 421), (32, 32), 2, 20),
+               (GINO_BATCH, 64, 64, (32, 32, 32), (12, 12, 12), 2, 20))
 #: every kernel's launch count on ``repro_torch.kernels.spectral_contract``
 LAUNCH_COUNTERS = ("launches", "launches_bwd_x", "launches_bwd_w",
                    "launches_cp_fwd", "launches_cp_bwd", "launches_ls_fwd",
@@ -1235,6 +1274,244 @@ def sfno_train_phase(sc, data):
             "ls_bwd_w": launched["launches_ls_bwd_w"]}
 
 
+# -- phase 8b: GINO on the car shapes ----------------------------------------------
+def gino_twin(net, cfg, device="cpu"):
+    """A GINO of ``cfg`` (another ``fuse_spectral``) holding ``net``'s
+    weights, on ``device``."""
+    from repro_torch.models import GINO
+
+    twin = GINO(cfg)
+    twin.load_state_dict({k: v.detach().cpu() for k, v in net.state_dict().items()})
+    return twin.to(device)
+
+
+def gino_phase(sc):
+    """GINO_CAR at full width on car batches from the device sampler: the
+    KNN card vs CPU, the forward's launches and card vs CPU under full,
+    fused (the CPU told ``fuse_spectral=True``) and staged (both
+    ``fuse_spectral=False``), batched == per-sample, one step's gradients
+    card vs CPU on both paths, 12 steps of the example's loop, one step
+    run twice, a profiled step.  Returns the launches of each kernel on
+    the GINO path."""
+    import dataclasses
+
+    from repro_torch.configs.fno_paper import GINO_CAR
+    from repro_torch.core.schedule import PrecisionSchedule
+    from repro_torch.examples import gino_car_cfd as ex
+    from repro_torch.models import gino_apply, init_gino, param_count
+    from repro_torch.optim import AdamW
+    from repro_torch.precision import get_policy
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = GINO_CAR
+    staged = dataclasses.replace(cfg, fno=dataclasses.replace(cfg.fno, fuse_spectral=False))
+    fused_cpu = dataclasses.replace(cfg, fno=dataclasses.replace(cfg.fno, fuse_spectral=True))
+    full, mixed = get_policy("full"), get_policy("mixed_fno_bf16")
+    layers, corners = cfg.fno.n_layers, 2 ** (cfg.fno.ndim - 1)
+    H, grid = cfg.fno.hidden_channels, (cfg.latent_grid,) * 3
+
+    def fused_per_layer(B):
+        """Fused launches per layer: one per batch tile of ``pick_block_b``."""
+        return -(-B // sc.pick_block_b(B, H, H, grid, cfg.fno.modes))
+
+    path_launches = dict.fromkeys(LAUNCH_COUNTERS, 0)
+
+    def run(fn):
+        """``fn()`` as a piece of the GINO path: counts from 0, read after."""
+        zero_counts(sc)
+        out = fn()
+        torch.cuda.synchronize()
+        got = counts(sc)
+        for name, n in got.items():
+            path_launches[name] += n
+        return out, got
+
+    def expect(got, tag, **want):
+        want = {name: want.get(name, 0) for name in LAUNCH_COUNTERS}
+        if got != want:
+            fail(f"gino {tag}: launches {got}, want {want}")
+
+    # the data: the device sampler, its KNN against the CPU's on 2 shapes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = ex.car_batch(SEED + 20, cfg, GINO_POINTS, GINO_BATCH)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two_cpu = ex.car_batch(SEED + 20, cfg, GINO_POINTS, 2, device="cpu")
+    cpu_seconds = time.perf_counter() - t0
+    differ = [k for k, v in two_cpu.items() if not torch.equal(batch[k][:2].cpu(), v)]
+    emit("gino_data", batch=GINO_BATCH, points=GINO_POINTS, latent_grid=cfg.latent_grid,
+         k=cfg.k_neighbors, radius=0.35, seconds=seconds, cpu_seconds_two_shapes=cpu_seconds,
+         enc_mask_mean=float(batch["enc_mask"].mean()),
+         dec_mask_mean=float(batch["dec_mask"].mean()),
+         knn_card_equals_cpu=not differ, differing=differ)
+    if differ:
+        fail(f"gino: the card's car batch differs from the CPU's in {differ}")
+
+    t0 = time.perf_counter()
+    net = init_gino(torch.Generator().manual_seed(SEED + 21), cfg)
+    nets = {"fused": net, "staged": gino_twin(net, staged, "cuda")}
+    cpu_nets = {"fused": gino_twin(net, fused_cpu), "staged": gino_twin(net, staged)}
+    emit("gino_setup", params=param_count(net), latent_fno_params=param_count(net.fno),
+         fuse_spectral=cfg.fno.fuse_spectral, seconds=time.perf_counter() - t0)
+    if param_count(net.fno) != 226_521_568:
+        fail(f"gino: the latent FNO holds {param_count(net.fno)} parameters")
+
+    # the forward on both paths, card vs CPU under full on 2 shapes
+    two = {k: v[:2] for k, v in batch.items()}
+    per_fwd = {"fused": {"launches_fused_fwd": layers * fused_per_layer(GINO_BATCH)},
+               "staged": {"launches": layers * corners}}
+    parity = {}
+    for path, card_net in nets.items():
+        with torch.no_grad():
+            y, got = run(lambda card_net=card_net: gino_apply(card_net, batch, full))
+            expect(got, f"{path} forward", **per_fwd[path])
+            y_cpu = gino_apply(cpu_nets[path], two_cpu, full).numpy()
+        if y.shape != (GINO_BATCH, GINO_POINTS, 1) or not bool(torch.isfinite(y).all()):
+            fail(f"gino {path}: output {tuple(y.shape)}, finite {bool(torch.isfinite(y).all())}")
+        parity[path] = rel_l2(y[:2].cpu().numpy(), y_cpu)
+    emit("gino_card_vs_cpu", policy="full", rel_l2=parity, limit=1e-5,
+         launches_per_forward=per_fwd)
+    for path, err in parity.items():
+        if not err <= 1e-5:
+            fail(f"gino {path}: card vs CPU relative L2 {err:.3e} > 1e-5")
+
+    # batched against per-sample on the card: each shape alone gets its
+    # batched answer up to the order of f32 sums.  Not bit for bit: cuBLAS
+    # picks its GEMM by the row count, so the pointwise layers' sums run in
+    # another order at batch 1 (the FFTs and the spectral kernels do not
+    # depend on the batch); the operator engine pads to a fixed width for
+    # that reason.  Within 1e-6 relative L2 under full, a quarter of the
+    # batched run's own gap to full under mixed_fno_bf16.
+    alone_equal, alone_err, outs = {}, {}, {}
+    for pname, policy in (("full", full), ("mixed_fno_bf16", mixed)):
+        with torch.no_grad():
+            together, _ = run(lambda policy=policy: gino_apply(net, batch, policy))
+            alone = [run(lambda b=b, policy=policy: gino_apply(
+                net, {k: v[b:b + 1] for k, v in batch.items()}, policy))[0][0]
+                for b in range(GINO_BATCH)]
+        alone_equal[pname] = [bool(torch.equal(a, together[b])) for b, a in enumerate(alone)]
+        alone_err[pname] = rel_l2(torch.stack(alone).cpu().numpy(), together.cpu().numpy())
+        outs[pname] = together.cpu().numpy()
+    limits = {"full": 1e-6, "mixed_fno_bf16": 0.25 * rel_l2(outs["mixed_fno_bf16"], outs["full"])}
+    emit("gino_batched_vs_alone", bit_identical=alone_equal, rel_l2=alone_err, limits=limits)
+    for pname, err in alone_err.items():
+        if not err <= limits[pname]:
+            fail(f"gino {pname}: shapes alone differ from their batched answers by {err:.3e} "
+                 f"> {limits[pname]:.3e}")
+
+    # one step's gradients, card vs CPU under full, on both paths
+    per_grad = {"fused": {"launches_fused_fwd": layers * fused_per_layer(2),
+                          "launches_fused_bwd": layers * fused_per_layer(2)},
+                "staged": {"launches": layers * corners, "launches_bwd_x": layers * corners,
+                           "launches_bwd_w": layers * corners}}
+    grad_err = {}
+    for path, card_net in nets.items():
+        g, got = run(lambda card_net=card_net: leaf_grads(ex.loss_fn, card_net, two, full))
+        expect(got, f"{path} gradient", **per_grad[path])
+        want = leaf_grads(ex.loss_fn, cpu_nets[path], two_cpu, full)
+        grad_err[path] = {leaf: rel_l2(g[leaf], w) for leaf, w in want.items()}
+    emit("gino_train_grad_card_vs_cpu", policy="full", rel_l2=grad_err, limit=1e-4)
+    for path, errs in grad_err.items():
+        for leaf, err in errs.items():
+            if not err <= 1e-4:
+                fail(f"gino {path} {leaf}: card vs CPU gradient relative L2 {err:.3e} > 1e-4")
+    del cpu_nets, nets["staged"], two_cpu
+
+    # 12 steps of the example's loop at full width under mixed_fno_bf16
+    torch.cuda.reset_peak_memory_stats()
+    trainer, got = run(lambda: ex.train(cfg, GINO_STEPS, GINO_POINTS, GINO_BATCH, model=net))
+    peak = torch.cuda.max_memory_allocated()
+    per_step = layers * fused_per_layer(GINO_BATCH)
+    expect(got, "training", launches_fused_fwd=per_step * GINO_STEPS,
+           launches_fused_bwd=per_step * GINO_STEPS)
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    for h in hist:
+        emit("gino_train_step", step=h["step"], policy=h["policy"], loss=h["loss"],
+             ms=h["dt"] * 1e3, fields_per_s=GINO_BATCH / h["dt"])
+    ms = float(np.median([h["dt"] * 1e3 for h in hist[1:]]))
+    emit("gino_train", steps=len(hist), policy="mixed_fno_bf16", losses=losses,
+         median_ms_per_step=ms, fields_per_s=GINO_BATCH / (ms / 1e3), peak_mem_bytes=peak,
+         batch_tile=sc.pick_block_b(GINO_BATCH, H, H, grid, cfg.fno.modes),
+         fused_launches_per_step=per_step, launches=got)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"gino: losses not finite and falling: {losses}")
+
+    # one step twice from the same state: bit-identical parameters
+    step_batch = ex.car_batch(SEED + 22, cfg, GINO_POINTS, GINO_BATCH)
+    tcfg = TrainerConfig(total_steps=2, schedule=PrecisionSchedule.constant("mixed_fno_bf16"),
+                         optimizer=AdamW(lr=2e-3))
+    after = []
+    for _ in range(2):
+        tt = Trainer(ex.loss_fn, trainer.model, tcfg)
+        run(lambda tt=tt: tt.run(lambda s: step_batch, steps=1))
+        after.append({k: p.detach().clone() for k, p in tt.params.items()})
+    differ = [k for k in after[0] if not torch.equal(after[0][k], after[1][k])]
+    emit("gino_step_rerun", bit_identical=not differ, differing_leaves=differ)
+    if differ:
+        fail(f"gino: one step run twice differs in {differ}")
+    del after
+
+    prof = profiled(lambda: run(lambda: tt.run(lambda s: step_batch, steps=2)))
+    prof["step_ms_unprofiled"] = ms
+    prof["idle_share_unprofiled"] = max(0.0, 1.0 - prof["device_busy_ms"] / ms)
+    emit("gino_train_profile", policy="mixed_fno_bf16", **prof)
+    return {"fwd": path_launches["launches"], "bwd_x": path_launches["launches_bwd_x"],
+            "bwd_w": path_launches["launches_bwd_w"],
+            "fused_fwd": path_launches["launches_fused_fwd"],
+            "fused_bwd": path_launches["launches_fused_bwd"]}
+
+
+# -- phase 8c: the U-Net baseline ------------------------------------------------------
+def unet_phase():
+    """UNET_BASELINE on 8 Darcy fields at 128²: the forward card vs CPU
+    under full, then 30 AdamW(lr=2e-3, no weight decay) steps under
+    amp_bf16 on the whole set, as the paper-table benchmark trains it; the
+    loss spikes on the way down, so its last quarter, on average, must be
+    below the first step's."""
+    from repro_torch.configs.fno_paper import UNET_BASELINE
+    from repro_torch.core.schedule import PrecisionSchedule
+    from repro_torch.data import sample_darcy_batch
+    from repro_torch.models import init_unet, param_count, unet_apply
+    from repro_torch.optim import AdamW
+    from repro_torch.precision import get_policy
+    from repro_torch.train import Trainer, TrainerConfig, relative_l2
+
+    a, u = sample_darcy_batch(torch.Generator().manual_seed(SEED + 30), UNET_GRID, UNET_FIELDS,
+                              maxiter=CG_MAXITER)
+    net = init_unet(torch.Generator().manual_seed(SEED + 31), UNET_BASELINE)
+    net_cpu = init_unet(torch.Generator().manual_seed(SEED + 31), UNET_BASELINE, device="cpu")
+    with torch.no_grad():
+        y = unet_apply(net, a, get_policy("full"))
+        y_cpu = unet_apply(net_cpu, a.cpu(), get_policy("full")).numpy()
+    err = rel_l2(y.cpu().numpy(), y_cpu)
+    emit("unet_card_vs_cpu", params=param_count(net), fields=UNET_FIELDS, grid=UNET_GRID,
+         policy="full", rel_l2=err, limit=1e-5)
+    if y.shape != (UNET_FIELDS, 1, UNET_GRID, UNET_GRID) or not err <= 1e-5:
+        fail(f"unet: output {tuple(y.shape)}, card vs CPU relative L2 {err:.3e} > 1e-5")
+
+    def loss_fn(model, batch, policy):
+        return relative_l2(unet_apply(model, batch["a"], policy), batch["u"])
+
+    trainer = Trainer(loss_fn, net, TrainerConfig(
+        total_steps=UNET_STEPS, schedule=PrecisionSchedule.constant("amp_bf16"),
+        optimizer=AdamW(lr=2e-3, weight_decay=0.0)))
+    torch.cuda.reset_peak_memory_stats()
+    trainer.run(lambda s: {"a": a, "u": u})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in trainer.history]
+    ms = float(np.median([h["dt"] * 1e3 for h in trainer.history[1:]]))
+    emit("unet_train", steps=len(losses), policy="amp_bf16", losses=losses,
+         median_ms_per_step=ms, fields_per_s=UNET_FIELDS / (ms / 1e3), peak_mem_bytes=peak,
+         skipped_steps=trainer.stats["skipped_steps"])
+    tail = losses[-(len(losses) // 4):]
+    if not np.isfinite(losses).all() or not float(np.mean(tail)) < losses[0]:
+        fail(f"unet: losses not finite, or their last quarter not below the first: {losses}")
+
+
 # -- phase 9 ------------------------------------------------------------------
 def graph_ms(fn, sets, iters=40):
     """Device ms per call of ``fn``: ``iters`` calls cycling through
@@ -1521,8 +1798,9 @@ def fused_work(B, I, O, spatial, modes):
 
 
 def fused_timing_phase(sc, max_err, launches):
-    """fused_fwd and fused_bwd at the Darcy path's shape at 128² and 421² in
-    the five modes, beside their bounds (bytes: x, y and the f32 weight in
+    """fused_fwd and fused_bwd at the Darcy path's shape at 128² and 421²
+    and at GINO_CAR's latent FNO (batch 4, 32³, modes 12³) in the five
+    modes (``FUSED_TIMED``), beside their bounds (bytes: x, y and the f32 weight in
     the forward; x, g, dx, the weight and dw in the backward; operations:
     ``fused_work``'s transforms at the CUDA cores' f32 rate, the
     contraction's half x half products at the tensor cores' rate in the
@@ -1534,12 +1812,14 @@ def fused_timing_phase(sc, max_err, launches):
     from repro_torch.precision import get_policy
 
     rows = {"fused_fwd": {}, "fused_bwd": {}}
-    for grid, nsets, iters in ((128, 4, 40), (421, 2, 20)):
-        B, I, O, spatial, modes = shape = (8, 64, 64, (grid, grid), (32, 32))
+    for B, I, O, spatial, modes, nsets, iters in FUSED_TIMED:
+        shape = (B, I, O, spatial, modes)
+        grid = spatial if len(spatial) == 3 else spatial[0]
         # 4 operand sets of 134 MB at 128² (x, g and the weight), 2 of 793 MB
-        # at 421²: consecutive calls find their operands outside the L2
+        # at 421², 2 of 294 MB at GINO's 32³: consecutive calls find their
+        # operands outside the L2
         sets = [fused_operands(shape, 500 + k) for k in range(nsets)]
-        N, Mh = grid * grid, int(np.prod(fused_rows(spatial, modes)))
+        N, Mh = int(np.prod(spatial)), int(np.prod(fused_rows(spatial, modes)))
         T, C = fused_work(*shape)
         nbytes = {"fused_fwd": 4 * (B * I * N + B * O * N) + 8 * I * O * Mh,
                   "fused_bwd": 4 * (2 * B * I * N + B * O * N) + 16 * I * O * Mh}
@@ -1586,7 +1866,9 @@ def fused_timing_phase(sc, max_err, launches):
     entries = []
     for key, by in rows.items():
         for (grid, mode), t in by.items():
-            emit("kernel_time", kernel=key, shape=[8, 64, 64, [grid, grid], [32, 32]], mode=mode,
+            shape = ([GINO_BATCH, 64, 64, list(grid), [12, 12, 12]] if isinstance(grid, tuple)
+                     else [8, 64, 64, [grid, grid], [32, 32]])
+            emit("kernel_time", kernel=key, shape=shape, mode=mode,
                  timing="cuda events, back-to-back launches", library_ms=None, **t)
         t = by[(128, "bf16")]
         name, replaces = meta[key]
@@ -1597,6 +1879,8 @@ def fused_timing_phase(sc, max_err, launches):
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "ms_f32_mode": by[(128, "f32")]["ms"], "ms_421_bf16": by[(421, "bf16")]["ms"],
+            "ms_gino_32cubed_bf16": by[((32, 32, 32), "bf16")]["ms"],
+            "bound_ms_gino_32cubed_bf16": by[((32, 32, 32), "bf16")]["bound_ms"],
             "staged_layer_fwd_ms": t["staged_layer_fwd_ms"],
             "staged_layer_fwd_bwd_ms": t["staged_layer_fwd_bwd_ms"]})
     return entries
@@ -1813,17 +2097,21 @@ def main():
     sfno_served = sfno_serve_phase(sc, swe)
     sfno_trained = sfno_train_phase(sc, swe)
     swe_solver_parity(swe)
-    launches = {"fwd": served + trained["fwd"], "bwd_x": trained["bwd_x"],
-                "bwd_w": trained["bwd_w"], "cp_fwd": tfno_served + tfno_trained["cp_fwd"],
+    del swe
+    gino = gino_phase(sc)
+    unet_phase()
+    launches = {"fwd": served + trained["fwd"] + gino["fwd"],
+                "bwd_x": trained["bwd_x"] + gino["bwd_x"],
+                "bwd_w": trained["bwd_w"] + gino["bwd_w"],
+                "cp_fwd": tfno_served + tfno_trained["cp_fwd"],
                 "cp_bwd": tfno_trained["cp_bwd"], "ls_fwd": sfno_served + sfno_trained["ls_fwd"],
                 "ls_bwd_x": sfno_trained["ls_bwd_x"], "ls_bwd_w": sfno_trained["ls_bwd_w"],
-                "fused_fwd": fused_served + fused_trained["fused_fwd"],
-                "fused_bwd": fused_trained["fused_bwd"]}
+                "fused_fwd": fused_served + fused_trained["fused_fwd"] + gino["fused_fwd"],
+                "fused_bwd": fused_trained["fused_bwd"] + gino["fused_bwd"]}
     emit("launches_by_path", serve={"fwd": served}, train=trained,
          fused_serve={"fused_fwd": fused_served}, fused_train=fused_trained,
          tfno_serve={"cp_fwd": tfno_served}, tfno_train=tfno_trained,
-         sfno_serve={"ls_fwd": sfno_served}, sfno_train=sfno_trained)
-    del swe
+         sfno_serve={"ls_fwd": sfno_served}, sfno_train=sfno_trained, gino=gino)
     entries = (timing_phase(sc, max_err, launches) + cp_timing_phase(sc, max_err, launches)
                + ls_timing_phase(sc, max_err, launches)
                + fused_timing_phase(sc, max_err, launches) + lm_kernel_phase())

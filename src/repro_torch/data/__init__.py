@@ -1,4 +1,5 @@
 """Data generators and loaders of the port."""
+from .carshapes import latent_grid_coords, sample_car_batch  # noqa: F401
 from .darcy import darcy_matvec, sample_darcy_batch, solve_darcy  # noqa: F401
 from .grf import grf_2d, grf_sphere, sphere_field  # noqa: F401
 from .loader import CachedDataset, StatelessLoader  # noqa: F401

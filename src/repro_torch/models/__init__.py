@@ -9,6 +9,14 @@ from .fno import (  # noqa: F401
     params_from_jax,
     params_from_jax_checkpoint,
 )
+from .gino import (  # noqa: F401
+    GINO,
+    GINOConfig,
+    gino_apply,
+    gino_params_from_jax,
+    init_gino,
+    latent_coords,
+)
 from .sfno import (  # noqa: F401
     SFNO,
     SFNOConfig,
@@ -18,3 +26,4 @@ from .sfno import (  # noqa: F401
     sfno_params_from_jax,
 )
 from .sht import legendre_matrices, sht_forward, sht_inverse  # noqa: F401
+from .unet import UNet, UNetConfig, init_unet, unet_apply, unet_params_from_jax  # noqa: F401

@@ -112,9 +112,20 @@ def _affine(d_in: int, d_out: int) -> nn.ParameterDict:
                              "b": nn.Parameter(torch.zeros(d_out))})
 
 
+def linspace01(n: int, device=None) -> torch.Tensor:
+    """``jnp.linspace(0, 1, n)`` in f32, bit for bit: ``i · f32(1/(n-1))``
+    for i < n - 1 (XLA multiplies by the reciprocal), then exactly 1.
+    ``torch.linspace`` differs from it by an ulp at some points (4 of 128,
+    137 of 421), and so does ``i · f32(1/(n-1))`` at i = n - 1 for some n."""
+    if n <= 1:
+        return torch.zeros(n, dtype=torch.float32, device=device)
+    step = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(n - 1.0, dtype=torch.float32)
+    head = torch.arange(n - 1, dtype=torch.float32, device=device) * step
+    return torch.cat([head, torch.ones(1, dtype=torch.float32, device=device)])
+
+
 def _positional_grid(spatial: Sequence[int], dtype, device) -> torch.Tensor:
-    axes = [torch.linspace(0.0, 1.0, s, dtype=torch.float32, device=device)
-            for s in spatial]
+    axes = [linspace01(s, device) for s in spatial]
     grids = torch.meshgrid(*axes, indexing="ij")
     return torch.stack(grids, dim=0).to(dtype)  # (ndim, *spatial)
 

@@ -1456,3 +1456,103 @@ def test_lm_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="operands on"):
         rn.rmsnorm(x, w.cpu())
     assert (fa.launches_flash, rn.launches_rmsnorm) == before
+
+
+# -- GINO: the car shapes' KNN, the 3-D latent FNO, the decoder's gather --------------
+def _gino_cfgs():
+    from repro_torch.configs.fno_paper import GINO_CAR_SMOKE
+
+    fno = GINO_CAR_SMOKE.fno
+    return {"staged": (dataclasses.replace(GINO_CAR_SMOKE, fno=dataclasses.replace(
+                           fno, fuse_spectral=False)),) * 2,
+            "fused": (GINO_CAR_SMOKE, dataclasses.replace(GINO_CAR_SMOKE, fno=dataclasses.replace(
+                          fno, fuse_spectral=True)))}
+
+
+def test_car_knn_cuda_equals_cpu(cuda):
+    """The car sampler's brute-force KNN on the card against the same
+    function on the CPU: indices and masks equal, every other array too."""
+    from repro_torch.data import sample_car_batch
+
+    got, labels = sample_car_batch(3, 2, n_points=700, latent_grid=16, k=8, device=cuda)
+    want, want_labels = sample_car_batch(3, 2, n_points=700, latent_grid=16, k=8, device="cpu")
+    for name, w in want.items():
+        assert got[name].device.type == "cuda" and torch.equal(got[name].cpu(), w), name
+    assert torch.equal(labels.cpu(), want_labels)
+
+
+@pytest.mark.parametrize("path", ["staged", "fused"])
+@pytest.mark.parametrize("policy_name", ["full", "mixed_fno_bf16"])
+def test_gino_cuda_matches_cpu(cuda, path, policy_name):
+    """GINO_CAR_SMOKE on the card against the CPU, the same weights and
+    car shapes, staged on both devices or fused on both (the CPU told
+    ``fuse_spectral=True``): 1e-5 relative L2 under full, a quarter of the
+    CPU's own gap to full under mixed_fno_bf16; the card launches one
+    ``fused_fwd`` per layer and batch tile, or one dense forward per corner
+    and layer, and nothing else; a sample alone gets its batched answer
+    within 1e-6 under full, a quarter of the gap under mixed_fno_bf16 (not
+    bit for bit: cuBLAS picks its GEMM by the row count, so the pointwise
+    layers sum in another order at batch 1)."""
+    from repro_torch.data import sample_car_batch
+    from repro_torch.models import gino_apply, init_gino
+
+    gpu_cfg, cpu_cfg = _gino_cfgs()[path]
+    policy = get_policy(policy_name)
+    batch, _ = sample_car_batch(4, 3, n_points=96, latent_grid=gpu_cfg.latent_grid,
+                                k=gpu_cfg.k_neighbors, device="cpu")
+    net_gpu = init_gino(torch.Generator().manual_seed(6), gpu_cfg, device=cuda)
+    net_cpu = init_gino(torch.Generator().manual_seed(6), cpu_cfg, device="cpu")
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    counters = ("launches", "launches_fused_fwd", "launches_fused_bwd", "launches_bwd_x",
+                "launches_bwd_w")
+    before = [getattr(sc, n) for n in counters]
+    with torch.no_grad():
+        y_gpu = gino_apply(net_gpu, on_card, policy)
+        torch.cuda.synchronize()
+        moved = [getattr(sc, n) - b for n, b in zip(counters, before, strict=True)]
+        layers, grid = gpu_cfg.fno.n_layers, (gpu_cfg.latent_grid,) * 3
+        C = gpu_cfg.fno.hidden_channels
+        tiles = -(-3 // sc.pick_block_b(3, C, C, grid, gpu_cfg.fno.modes))
+        assert moved == ([4 * layers, 0, 0, 0, 0] if path == "staged"
+                         else [0, tiles * layers, 0, 0, 0])
+        y_cpu = gino_apply(net_cpu, batch, policy).numpy()
+        err = _rel_l2(y_gpu.cpu().numpy(), y_cpu)
+        if policy_name == "full":
+            assert err <= 1e-5, err
+        else:
+            full = gino_apply(net_cpu, batch, get_policy("full")).numpy()
+            assert err <= 0.25 * _rel_l2(y_cpu, full), err
+        alone = torch.cat([gino_apply(net_gpu, {k: v[b:b + 1] for k, v in on_card.items()},
+                                      policy) for b in range(3)])
+        gap = _rel_l2(y_gpu.cpu().numpy(),
+                      gino_apply(net_gpu, on_card, get_policy("full")).cpu().numpy())
+        limit = 1e-6 if policy_name == "full" else 0.25 * gap
+        assert _rel_l2(alone.cpu().numpy(), y_gpu.cpu().numpy()) <= limit
+
+
+@pytest.mark.parametrize("path", ["staged", "fused"])
+def test_gino_backward_is_bit_reproducible(cuda, path):
+    """Two identical backward passes of GINO on the card give bit-identical
+    gradients: the decoder's gather, whose backward accumulates each latent
+    node's cotangent from its query points (``index_put_`` with
+    ``accumulate=True``, sorted on CUDA), and the spectral kernels' VJPs.
+    A 6³ latent grid of 16 channels, 8 neighbours per point, 600 points:
+    each latent node gathers from many points."""
+    from repro_torch.data import sample_car_batch
+    from repro_torch.models import FNOConfig, GINOConfig, gino_apply, init_gino
+    from repro_torch.train import relative_l2
+
+    cfg = GINOConfig(hidden=16, latent_grid=6, k_neighbors=8, fno=FNOConfig(
+        in_channels=16, out_channels=16, hidden_channels=16, lifting_channels=16,
+        projection_channels=16, n_layers=2, modes=(3, 3, 3), positional_embedding=False,
+        fuse_spectral=path == "fused"))
+    batch, labels = sample_car_batch(8, 2, n_points=600, latent_grid=6, k=8, device=cuda)
+    net = init_gino(torch.Generator().manual_seed(7), cfg, device=cuda)
+    params = list(net.parameters())
+    grads = []
+    for _ in range(2):
+        loss = relative_l2(gino_apply(net, batch, get_policy("mixed_fno_bf16")), labels)
+        grads.append(torch.autograd.grad(loss, params))
+    torch.cuda.synchronize()
+    for (name, _), a, b in zip(net.named_parameters(), *grads, strict=True):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b), name

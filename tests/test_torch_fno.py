@@ -115,10 +115,14 @@ def test_full_width_config_matches_the_reference():
         assert getattr(FNO_DARCY, f.name) == getattr(J_DARCY, f.name), f.name
 
 
-def test_positional_grid_matches_reference():
-    want = np.asarray(j_positional_grid((7, 5), jnp.float32))
-    got = _positional_grid((7, 5), torch.float32, "cpu").numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-7)
+@pytest.mark.parametrize("spatial", [(7, 5), (128, 128), (421, 421), (32, 32, 32)])
+def test_positional_grid_matches_reference(spatial):
+    """Bit for bit: the reference's ``jnp.linspace`` grid.  ``torch.linspace``
+    differs from it by an ulp at 4 of 128 points and 137 of 421."""
+    want = np.asarray(j_positional_grid(spatial, jnp.float32))
+    got = _positional_grid(spatial, torch.float32, "cpu").numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
 
 
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):

@@ -115,7 +115,7 @@ def test_host_wrapper_matches_reference(policy_name):
                          label=f"spectral_contract {policy_name}")
 
 
-@pytest.mark.parametrize("ndim", [1, 2])
+@pytest.mark.parametrize("ndim", [1, 2, 3])
 @pytest.mark.parametrize("policy_name", POLICY_NAMES)
 def test_spectral_conv_matches_reference_staged_path(policy_name, ndim):
     modes, spatial = MODES_BY_NDIM[ndim], SPATIAL_BY_NDIM[ndim]
