@@ -114,7 +114,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    AdamW(lr=2e-3, no weight decay) steps under ``amp_bf16`` on the whole
    set, as ``benchmarks/bench_paper_tables.py`` trains it: losses finite,
    the last quarter's mean below the first (at that rate the loss spikes
-   on the way down), ms a step, peak memory.
+   on the way down), ms a step, peak memory; the 30 steps run again from
+   the same state give bit-identical losses and parameters (the
+   convolutions' backward runs with cuDNN's deterministic algorithms).
+8d. Auto-precision: ``FNO_DARCY`` at its default config (fused on the
+   card) under a telemetry collector, which keeps every layer on the
+   staged dense kernels.  Trained 16 steps on phase 5's Darcy pairs at
+   128² with ``PrecisionSchedule.auto("full", grid_points=128²)`` and an
+   ``AutoPrecisionController(interval=4)``: ``full+auto0`` for steps 0–7,
+   ``full+auto1`` after the second update, every ``fno/layer<i>/spectral``
+   group at bf16, one policy change, no overflow, finite losses; 8 launches
+   of each dense kernel a step and no fused launch in each half.  The
+   first step's telemetry against the CPU's forward of the same batch: one
+   site set, equal n, overflow and underflow, amax within 1e-4 relative and
+   qerr within 1e-4 · amax.  Served through ``OperatorEngine(autoprec=...,
+   autoprec_every=4)``, 16 micro-batches of 8 GRF fields: ``full+auto1``
+   with bf16 groups, 8 ``dense_fwd`` launches a micro-batch and no fused
+   one, a field served alone bit-identical to its batched answer with
+   telemetry on, and its answer no farther from ``full`` than
+   ``mixed_fno_bf16``'s.  Then telemetry's cost: the median step and tick
+   under one fixed policy, staged with telemetry on and off, and the
+   default config (fused) with it off.
 9. Numbers: each kernel's time (CUDA graph of many launches, operands
    cycled through more than L2 holds) beside its bound (bytes at the HBM
    rate; half x half products at the bf16/fp16 tensor-core rate, the rest
@@ -228,6 +248,9 @@ GINO_BATCH, GINO_POINTS, GINO_STEPS = 4, 3586, 12
 #: (the paper-table benchmark's count: at its lr of 2e-3 the loss spikes
 #: over the first dozen steps, on the CPU too, and falls after)
 UNET_FIELDS, UNET_GRID, UNET_STEPS = 8, 128, 30
+#: auto-precision at FNO_DARCY, 128²: 16 training steps (controller interval
+#: 4, patience 2: the update after step 7 demotes) and 16 served micro-batches
+AUTOPREC_STEPS, AUTOPREC_BATCHES = 16, 16
 #: (B, I, O, spatial, modes, operand sets, launches timed) of the fused
 #: kernels' timings: the Darcy path at 128² and 421², GINO_CAR's latent FNO
 FUSED_TIMED = ((8, 64, 64, (128, 128), (32, 32), 4, 40),
@@ -644,7 +667,8 @@ def profiled(fn):
     busy = sum(by_name.values())
     spectral = {k: sum(v for n, v in by_name.items() if k in n) for k in KERNEL_NAMES}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"wall_ms": wall, "device_busy_ms": busy,
+    launched = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return {"wall_ms": wall, "device_busy_ms": busy, "device_events": launched,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "spectral_kernel_ms": {k: v for k, v in spectral.items() if v},
             "top": [[name[:90], ms] for name, ms in top]}
@@ -1470,7 +1494,8 @@ def unet_phase():
     under full, then 30 AdamW(lr=2e-3, no weight decay) steps under
     amp_bf16 on the whole set, as the paper-table benchmark trains it; the
     loss spikes on the way down, so its last quarter, on average, must be
-    below the first step's."""
+    below the first step's; the 30 steps again from the same state must
+    give the same losses and parameters bit for bit."""
     from repro_torch.configs.fno_paper import UNET_BASELINE
     from repro_torch.core.schedule import PrecisionSchedule
     from repro_torch.data import sample_darcy_batch
@@ -1495,21 +1520,247 @@ def unet_phase():
     def loss_fn(model, batch, policy):
         return relative_l2(unet_apply(model, batch["a"], policy), batch["u"])
 
-    trainer = Trainer(loss_fn, net, TrainerConfig(
-        total_steps=UNET_STEPS, schedule=PrecisionSchedule.constant("amp_bf16"),
-        optimizer=AdamW(lr=2e-3, weight_decay=0.0)))
+    tcfg = TrainerConfig(total_steps=UNET_STEPS, schedule=PrecisionSchedule.constant("amp_bf16"),
+                         optimizer=AdamW(lr=2e-3, weight_decay=0.0))
+    trainer = Trainer(loss_fn, net, tcfg)
     torch.cuda.reset_peak_memory_stats()
     trainer.run(lambda s: {"a": a, "u": u})
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in trainer.history]
+
+    # the same 30 steps again from the same state: bit-identical losses and
+    # parameters (the convolutions' backward is deterministic on the card)
+    again = Trainer(loss_fn, net, tcfg)
+    again.run(lambda s: {"a": a, "u": u})
+    differ = [k for k, p in trainer.params.items() if not torch.equal(p, again.params[k])]
+    same_losses = [h["loss"] for h in again.history] == losses
+    emit("unet_train_rerun", steps=UNET_STEPS, bit_identical=not differ and same_losses,
+         same_losses=same_losses, differing_leaves=differ)
+    if differ or not same_losses:
+        fail(f"unet: 30 steps run twice differ (losses equal: {same_losses}; leaves {differ})")
     ms = float(np.median([h["dt"] * 1e3 for h in trainer.history[1:]]))
     emit("unet_train", steps=len(losses), policy="amp_bf16", losses=losses,
          median_ms_per_step=ms, fields_per_s=UNET_FIELDS / (ms / 1e3), peak_mem_bytes=peak,
          skipped_steps=trainer.stats["skipped_steps"])
     tail = losses[-(len(losses) // 4):]
+    emit("unet_train_gate", first=losses[0], last_quarter_mean=float(np.mean(tail)))
     if not np.isfinite(losses).all() or not float(np.mean(tail)) < losses[0]:
         fail(f"unet: losses not finite, or their last quarter not below the first: {losses}")
+
+
+# -- phase 8d: auto-precision -----------------------------------------------------------
+def autoprec_snapshot_card_vs_cpu(card, cpu_totals):
+    """The first training step's telemetry on the card against the CPU's
+    forward of the same batch: one site set, equal n, overflow and
+    underflow, amax within 1e-4 relative and qerr within 1e-4 · amax (cuFFT
+    and pocketfft differ in the last bits)."""
+    rows, bad = {}, []
+    if set(card) != set(cpu_totals):
+        fail(f"autoprec: card sites {sorted(card)} != CPU sites {sorted(cpu_totals)}")
+    for site, w in sorted(card.items()):
+        c = cpu_totals[site]
+        rows[site] = {"n": w.n, "amax": w.amax, "cpu_amax": c.amax, "qerr": w.qerr,
+                      "cpu_qerr": c.qerr, "overflow": w.overflow, "underflow": w.underflow,
+                      "hist_l1_diff": float(np.abs(w.hist - c.hist).sum()),
+                      "hist_mass": float(c.hist.sum())}
+        if (w.n, w.overflow, w.underflow) != (c.n, c.overflow, c.underflow) or \
+                not abs(w.amax - c.amax) <= 1e-4 * c.amax or \
+                not abs(w.qerr - c.qerr) <= 1e-4 * c.amax:
+            bad.append(site)
+    emit("autoprec_card_vs_cpu", sites=rows, amax_rel_limit=1e-4, qerr_limit="1e-4*amax")
+    if bad:
+        fail(f"autoprec: the card's first snapshot differs from the CPU's at {bad}")
+
+
+def telemetry_cost(data, rules):
+    """Median ms a step (6 steps, step 0 left out) and a tick (7 ticks of 8
+    fields at 128², the first left out), then a seventh step and an eighth
+    tick under the profiler (device busy ms and device events), under one
+    fixed policy, ``rules``
+    over ``full`` (the trained controller's overlay): staged with
+    telemetry on, staged with it off (the taps' cost), and FNO_DARCY's
+    default config with it off (fused on the card: what a collector's veto
+    gives up)."""
+    import dataclasses
+
+    from repro_torch.configs.fno_paper import FNO_DARCY
+    from repro_torch.core.schedule import PrecisionSchedule
+    from repro_torch.data import CachedDataset, grf_2d
+    from repro_torch.models import init_fno
+    from repro_torch.serve import FieldRequest, OperatorEngine
+    from repro_torch.train import Trainer, TrainerConfig
+
+    schedule = PrecisionSchedule(phases=((1.0, rules),), base="full")
+    policy = schedule.policy_at(0, 1)
+    loader = CachedDataset(data, TRAIN_BATCH, seed=SEED)
+    fields = list(grf_2d(torch.Generator().manual_seed(SEED + 40), TRAIN_GRID,
+                         batch=8 * MAX_BATCH).numpy()[:, None])
+    out = {}
+    for label, fuse, telemetry in (("staged_telemetry_on", False, True),
+                                   ("staged_telemetry_off", False, False),
+                                   ("default_config_telemetry_off", None, False)):
+        cfg = dataclasses.replace(FNO_DARCY, fuse_spectral=fuse)
+        trainer = Trainer(loss_l2, init_fno(torch.Generator().manual_seed(SEED + 1), cfg,
+                                            device="cpu"),
+                          TrainerConfig(total_steps=6, schedule=schedule, telemetry=telemetry))
+        trainer.run(loader.batch_at)
+        step_ms = [h["dt"] * 1e3 for h in trainer.history[1:]]
+        net = init_fno(torch.Generator().manual_seed(SEED), cfg)
+        engine = OperatorEngine(net, policy=policy, max_batch=MAX_BATCH, telemetry=telemetry)
+        for i, x in enumerate(fields):
+            engine.submit(FieldRequest(uid=i, x=x))
+        tick_ms = []
+        while engine.scheduler.depth > MAX_BATCH:
+            t0 = time.perf_counter()
+            engine.tick()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+        tick_prof = profiled(engine.tick)
+        step_prof = profiled(lambda trainer=trainer: trainer.run(loader.batch_at, steps=7))
+        out[label] = {"median_step_ms": float(np.median(step_ms)), "step_ms": step_ms,
+                      "median_tick_ms": float(np.median(tick_ms[1:])), "tick_ms": tick_ms,
+                      "profiled_step": {k: step_prof[k] for k in (
+                          "wall_ms", "device_busy_ms", "device_events", "top")},
+                      "profiled_tick": {k: tick_prof[k] for k in (
+                          "wall_ms", "device_busy_ms", "device_events", "top")}}
+        del trainer, net, engine
+    on, off = out["staged_telemetry_on"], out["staged_telemetry_off"]
+    emit("autoprec_telemetry_cost", policy=policy.name, grid=TRAIN_GRID, batch=TRAIN_BATCH,
+         step_overhead=on["median_step_ms"] / off["median_step_ms"] - 1.0,
+         tick_overhead=on["median_tick_ms"] / off["median_tick_ms"] - 1.0, **out)
+
+
+def autoprec_phase(sc, data):
+    """FNO_DARCY at its default config (fused on the card), staged by the
+    telemetry veto, under auto-precision at 128²: 16 training steps and
+    16 served micro-batches, each path's launches counted; the first
+    step's telemetry against the CPU; telemetry's cost.  Returns the dense
+    kernels' launches on these paths."""
+    import copy
+
+    from repro_torch.autoprec import AutoPrecisionController, TelemetryAggregator, \
+        TraceCollector, collecting
+    from repro_torch.configs.fno_paper import FNO_DARCY
+    from repro_torch.core.schedule import PrecisionSchedule
+    from repro_torch.data import CachedDataset, grf_2d
+    from repro_torch.models import fno_apply, fno_infer, init_fno
+    from repro_torch.precision import get_policy
+    from repro_torch.serve import FieldRequest, OperatorEngine
+    from repro_torch.train import Trainer, TrainerConfig
+
+    n2 = TRAIN_GRID ** 2
+    groups = [f"fno/layer{i}/spectral" for i in range(FNO_DARCY.n_layers)]
+    per_step = FNO_DARCY.n_layers * 2 ** (FNO_DARCY.ndim - 1)
+    dense = ("launches", "launches_bwd_x", "launches_bwd_w")
+    loader = CachedDataset(data, TRAIN_BATCH, seed=SEED)
+    net_cpu = init_fno(torch.Generator().manual_seed(SEED + 1), FNO_DARCY, device="cpu")
+    ctl = AutoPrecisionController(base="full", grid_points=n2, interval=4)
+    trainer = Trainer(loss_l2, net_cpu, TrainerConfig(
+        total_steps=AUTOPREC_STEPS, schedule=PrecisionSchedule.auto("full", grid_points=n2),
+        autoprec=ctl))
+    halves = {}
+    zero_counts(sc)                                   # the training path starts
+    trainer.run(loader.batch_at, steps=1)
+    first = copy.deepcopy(trainer.telemetry.totals)
+    trainer.run(loader.batch_at, steps=AUTOPREC_STEPS // 2)
+    torch.cuda.synchronize()
+    halves["steps_0_7"] = counts(sc)
+    zero_counts(sc)
+    trainer.run(loader.batch_at)
+    torch.cuda.synchronize()
+    halves["steps_8_15"] = counts(sc)                 # the training path ends
+    hist = trainer.history
+    policies = [h["policy"] for h in hist]
+    losses = [h["loss"] for h in hist]
+    decisions = ctl.describe()
+    numerics = trainer.telemetry.counters()
+    emit("autoprec_train", steps=len(hist), policies=policies, losses=losses,
+         policy_changes=trainer.stats["policy_changes"],
+         overflow_total=numerics["overflow_total"], underflow_total=numerics["underflow_total"],
+         launches=halves, step_ms=[h["dt"] * 1e3 for h in hist],
+         decisions={g: {k: st[k] for k in ("fmt", "eps_budget", "amax")}
+                    for g, st in decisions["sites"].items()},
+         eps_budget_128=ctl.eps_budget(n2))
+    half = AUTOPREC_STEPS // 2
+    if policies != ["full+auto0"] * half + ["full+auto1"] * half:
+        fail(f"autoprec: policies {policies}")
+    if {g: st["fmt"] for g, st in decisions["sites"].items()} != dict.fromkeys(groups,
+                                                                               "bfloat16"):
+        fail(f"autoprec: decisions {decisions['sites']}")
+    if trainer.stats["policy_changes"] != 1 or numerics["overflow_total"] != 0 or \
+            not np.isfinite(losses).all():
+        fail(f"autoprec: {trainer.stats}, overflows {numerics['overflow_total']}, "
+             f"losses {losses}")
+    for name, got in halves.items():
+        want = {k: (per_step * half if k in dense else 0) for k in LAUNCH_COUNTERS}
+        if got != want:
+            fail(f"autoprec: {name} launched {got}, want {want}")
+
+    # the card's first snapshot against the CPU's forward of the same batch
+    cpu_col = TraceCollector()
+    with torch.no_grad(), collecting(cpu_col):
+        fno_apply(init_fno(torch.Generator().manual_seed(SEED + 1), FNO_DARCY, device="cpu"),
+                  torch.from_numpy(loader.batch_at(0)["a"]),
+                  AutoPrecisionController(base="full").policy())
+    cpu_agg = TelemetryAggregator()
+    cpu_agg.update(cpu_col.snapshot())
+    autoprec_snapshot_card_vs_cpu(first, cpu_agg.totals)
+
+    # serving: the controller owns the engine's policy
+    net = init_fno(torch.Generator().manual_seed(SEED), FNO_DARCY)
+    sctl = AutoPrecisionController(base="full", grid_points=n2)
+    engine = OperatorEngine(net, autoprec=sctl, autoprec_every=4, max_batch=MAX_BATCH)
+    fields = list(grf_2d(torch.Generator().manual_seed(SEED + 41), TRAIN_GRID,
+                         batch=AUTOPREC_BATCHES * MAX_BATCH).numpy()[:, None])
+    reqs = [FieldRequest(uid=i, x=x) for i, x in enumerate(fields)]
+    for r in reqs:
+        engine.submit(r)
+    zero_counts(sc)                                   # the serving path starts
+    tick_policy, tick_ms = [], []
+    while engine.scheduler.depth:
+        tick_policy.append(engine.policy.name)
+        t0 = time.perf_counter()
+        engine.tick()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    served = counts(sc)                               # the serving path ends
+    check_outputs(reqs, FNO_DARCY)
+    stats = engine.stats()
+    emit("autoprec_serve", micro_batches=len(tick_ms), tick_policy=tick_policy, tick_ms=tick_ms,
+         launches=served, policy=stats["policy"],
+         decisions={g: {k: st[k] for k in ("fmt", "eps_budget", "amax")}
+                    for g, st in stats["autoprec"]["sites"].items()},
+         overflow_total=stats["numerics"]["overflow_total"])
+    want = {k: (per_step * AUTOPREC_BATCHES if k == "launches" else 0) for k in LAUNCH_COUNTERS}
+    if served != want:
+        fail(f"autoprec serving launched {served}, want {want}")
+    if stats["policy"] != "full+auto1" or {g: st["fmt"] for g, st in stats["autoprec"][
+            "sites"].items()} != dict.fromkeys(groups, "bfloat16"):
+        fail(f"autoprec serving: policy {stats['policy']}, {stats['autoprec']['sites']}")
+    # after the switch: solo == batched with telemetry on, and the answer
+    # within mixed_fno_bf16's own distance of the full one
+    last = reqs[-3]
+    solo = OperatorEngine(net, policy=sctl.policy(), telemetry=True, max_batch=MAX_BATCH)
+    alone = FieldRequest(uid=0, x=last.x)
+    solo.submit(alone)
+    solo.drain()
+    x = last.x[None]
+    y_full = fno_infer(net, x, get_policy("full")).cpu().numpy()[0]
+    y_mixed = fno_infer(net, x, get_policy("mixed_fno_bf16")).cpu().numpy()[0]
+    auto_gap, mixed_gap = rel_l2(last.y, y_full), rel_l2(y_mixed, y_full)
+    emit("autoprec_serve_checks", solo_bit_identical=bool(np.array_equal(alone.y, last.y)),
+         auto_vs_full_rel_l2=auto_gap, mixed_fno_bf16_vs_full_rel_l2=mixed_gap)
+    if not np.array_equal(alone.y, last.y):
+        fail("autoprec serving: a field served alone differs from its batched answer")
+    if not auto_gap <= mixed_gap:
+        fail(f"autoprec serving: {auto_gap:.3e} from full, beyond mixed_fno_bf16's {mixed_gap:.3e}")
+    del trainer, engine, solo, net
+    telemetry_cost(data, ctl.overlay())
+    return {"fwd": halves["steps_0_7"]["launches"] + halves["steps_8_15"]["launches"]
+            + served["launches"],
+            "bwd_x": halves["steps_0_7"]["launches_bwd_x"] + halves["steps_8_15"]["launches_bwd_x"],
+            "bwd_w": halves["steps_0_7"]["launches_bwd_w"] + halves["steps_8_15"]["launches_bwd_w"],
+            "fused_fwd": 0, "fused_bwd": 0}
 
 
 # -- phase 9 ------------------------------------------------------------------
@@ -2090,7 +2341,6 @@ def main():
     fused_trained, fused_train = fused_train_phase(sc, darcy)
     fused_vs_staged({"staged": staged_serve, "fused": fused_serve},
                     {"staged": staged_train, "fused": fused_train})
-    del darcy
     tfno_served = tfno_serve_phase(sc)
     tfno_trained = tfno_train_phase(sc)
     swe = swe_data()
@@ -2100,9 +2350,11 @@ def main():
     del swe
     gino = gino_phase(sc)
     unet_phase()
-    launches = {"fwd": served + trained["fwd"] + gino["fwd"],
-                "bwd_x": trained["bwd_x"] + gino["bwd_x"],
-                "bwd_w": trained["bwd_w"] + gino["bwd_w"],
+    auto = autoprec_phase(sc, darcy)
+    del darcy
+    launches = {"fwd": served + trained["fwd"] + gino["fwd"] + auto["fwd"],
+                "bwd_x": trained["bwd_x"] + gino["bwd_x"] + auto["bwd_x"],
+                "bwd_w": trained["bwd_w"] + gino["bwd_w"] + auto["bwd_w"],
                 "cp_fwd": tfno_served + tfno_trained["cp_fwd"],
                 "cp_bwd": tfno_trained["cp_bwd"], "ls_fwd": sfno_served + sfno_trained["ls_fwd"],
                 "ls_bwd_x": sfno_trained["ls_bwd_x"], "ls_bwd_w": sfno_trained["ls_bwd_w"],
@@ -2111,7 +2363,8 @@ def main():
     emit("launches_by_path", serve={"fwd": served}, train=trained,
          fused_serve={"fused_fwd": fused_served}, fused_train=fused_trained,
          tfno_serve={"cp_fwd": tfno_served}, tfno_train=tfno_trained,
-         sfno_serve={"ls_fwd": sfno_served}, sfno_train=sfno_trained, gino=gino)
+         sfno_serve={"ls_fwd": sfno_served}, sfno_train=sfno_trained, gino=gino,
+         autoprec=auto)
     entries = (timing_phase(sc, max_err, launches) + cp_timing_phase(sc, max_err, launches)
                + ls_timing_phase(sc, max_err, launches)
                + fused_timing_phase(sc, max_err, launches) + lm_kernel_phase())

@@ -9,7 +9,8 @@ A schedule is a piecewise-constant stack of rule overlays over a base
 policy: each phase is either a registry rule-set name
 (``"mixed_fno_fp16"``) or a raw tuple of ``(site_pattern, SiteRule)``
 entries layered onto ``base``.  Phase policies carry stable, distinct
-names, so a trainer can key per-phase state by them.
+names, so a trainer can key per-phase state by them.  ``auto`` hands the
+formats to the auto-precision controller instead.
 """
 from __future__ import annotations
 
@@ -33,8 +34,20 @@ class PrecisionSchedule:
 
     phases: Tuple[Tuple[float, Overlay], ...]
     base: str = "full"
+    #: ``"static"``: the piecewise-constant phases above; ``"auto"``: the
+    #: trainer supersedes the phases with an
+    #: ``repro_torch.autoprec.AutoPrecisionController`` over ``base``, so
+    #: per-site formats follow runtime telemetry and the Thm 3.1/3.2 budgets.
+    mode: str = "static"
+    #: Auto mode only: the grid size n the Thm 3.1 budget is evaluated at
+    #: (the training resolution, e.g. 128 * 128); the trainer cannot infer
+    #: it from an opaque loss_fn, and the controller's fallback is a 64^d
+    #: grid.
+    grid_points: Optional[int] = None
 
     def __post_init__(self):
+        if self.mode not in ("static", "auto"):
+            raise ValueError(f"mode must be 'static' or 'auto', got {self.mode!r}")
         ends = [e for e, _ in self.phases]
         if sorted(ends) != ends or ends[-1] != 1.0:
             raise ValueError(f"phase ends must increase to 1.0, got {ends}")
@@ -80,6 +93,9 @@ class PrecisionSchedule:
     @classmethod
     def auto(cls, base: str = "full",
              grid_points: Optional[int] = None) -> "PrecisionSchedule":
-        raise NotImplementedError(
-            "PrecisionSchedule.auto needs the auto-precision controller, which "
-            "is not ported yet (ROADMAP: auto-precision slice)")
+        """Auto-precision: instead of fixed phases, the trainer measures
+        per-site numerics at runtime and a controller demotes and promotes
+        sites against the theory budgets.  Pass ``grid_points`` (the
+        training resolution) so the Thm 3.1 budget is evaluated at the
+        real grid.  ``policy_at`` outside a trainer gives the base policy."""
+        return cls(phases=((1.0, base),), base=base, mode="auto", grid_points=grid_points)

@@ -11,7 +11,9 @@ CP kernel (Tucker: the memory-greedy einsum path of ``core.contraction``)
 → complex64 scatter → ``irfftn`` → ``fft_out`` storage cast → input
 dtype.  Each stage resolves its precision through
 the rule table at ``{site}/fft_in``, ``{site}/contract`` and
-``{site}/fft_out``.
+``{site}/fft_out``, and the autoprec taps read ``fft_in`` (through its
+quantiser), ``contract`` (in the contraction wrappers) and ``fft_out``
+(before its storage cast); a collector keeps a layer off the fused path.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.autoprec.telemetry import fmt_of, tap
 from repro_torch.precision import FULL, PrecisionPolicy
 
 
@@ -244,6 +247,7 @@ def spectral_conv_apply(
     edge = [0, n // 2] if n % 2 == 0 else [0]
     y.imag[..., edge] = 0.0
     y = torch.fft.irfft(y, n=n, dim=-1)
+    tap(f"{site}/fft_out", y, fmt=fmt_of(fft_out))
     if fft_out.spectral_is_half:
         # the iFFT output also lives at half precision in the paper's pipeline
         y = y.to(fft_out.compute_dtype)

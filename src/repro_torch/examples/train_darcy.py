@@ -4,9 +4,12 @@ Generates the dataset with the port's CG solver, trains with the paper's
 precision schedule (25 % mixed / 50 % AMP / 25 % full), dynamic loss
 scaling where fp16 is involved, checkpoints and restarts, and evaluates
 zero-shot super-resolution: the paper's Table 1 protocol at a small size.
+``--auto-precision`` replaces the schedule with the telemetry-driven
+controller and prints its decisions and the telemetry counters.
 
     PYTHONPATH=src python -m repro_torch.examples.train_darcy [--steps 60] [--n 32]
     PYTHONPATH=src python -m repro_torch.examples.train_darcy --device cpu --steps 8 --n 16
+    PYTHONPATH=src python -m repro_torch.examples.train_darcy --auto-precision [--device cpu]
 """
 import argparse
 import tempfile
@@ -14,6 +17,7 @@ import tempfile
 import numpy as np
 import torch
 
+from repro_torch.autoprec import AutoPrecisionController
 from repro_torch.core.schedule import PrecisionSchedule
 from repro_torch.data import sample_darcy_batch
 from repro_torch.models import FNOConfig, fno_apply, init_fno
@@ -27,6 +31,10 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--n", type=int, default=32)
     ap.add_argument("--half", default="bf16", choices=["bf16", "fp16"])
+    ap.add_argument("--auto-precision", action="store_true",
+                    help="replace the static 25/50/25 schedule with the telemetry-driven "
+                         "controller: per-site formats follow runtime amax/overflow "
+                         "counters and the Thm 3.1/3.2 budgets")
     ap.add_argument("--device", default=None, help="torch device (default: the GPU)")
     args = ap.parse_args(argv)
     dev = args.device
@@ -53,19 +61,41 @@ def main(argv=None):
         return {"a": a_np[idx], "u": u_np[idx]}
 
     with tempfile.TemporaryDirectory() as ckpt_dir:
+        if args.auto_precision:
+            # the taps measure per-site numerics in each forward; the
+            # controller demotes spectral sites only while the Thm 3.2
+            # budget stays inside the discretisation error at this grid,
+            # and promotes them back on overflow streaks
+            autoprec = AutoPrecisionController(base="full", grid_points=args.n ** 2,
+                                               interval=5)
+            schedule = PrecisionSchedule.auto("full", grid_points=args.n ** 2)
+        else:
+            autoprec = None
+            schedule = PrecisionSchedule.paper_default(args.half)
         tcfg = TrainerConfig(
             total_steps=args.steps,
-            schedule=PrecisionSchedule.paper_default(args.half),
+            schedule=schedule, autoprec=autoprec,
             optimizer=AdamW(lr=2e-3, weight_decay=1e-5),
             ckpt_dir=ckpt_dir, ckpt_every=20,
         )
         trainer = Trainer(loss_fn, model, tcfg, device=dev)
         trainer.install_preemption_handler()
-        print(f"training {args.steps} steps with the paper schedule "
-              f"(25% mixed / 50% AMP / 25% full, half={args.half}) on {trainer.device}...")
+        if args.auto_precision:
+            print(f"training {args.steps} steps with bound-guided auto-precision "
+                  f"(base=full) on {trainer.device}...")
+        else:
+            print(f"training {args.steps} steps with the paper schedule "
+                  f"(25% mixed / 50% AMP / 25% full, half={args.half}) on {trainer.device}...")
         hist = trainer.run(batch_fn)
         for h in hist[:: max(1, len(hist) // 8)]:
             print(f"  step {h['step']:4d} policy={h['policy']:<16s} loss={h['loss']:.4f}")
+        decisions = None
+        if trainer.controller is not None:
+            decisions = {g: s["fmt"] for g, s in trainer.controller.describe()["sites"].items()}
+            print("auto-precision decisions:", decisions)
+            counters = trainer.telemetry.counters()
+            print(f"telemetry: {counters['steps']} steps, "
+                  f"overflows={counters['overflow_total']:.0f}")
 
         # restart check from a checkpoint of the last step
         trainer.save(wait=True)
@@ -91,7 +121,7 @@ def main(argv=None):
             print(f"mixed eval rel-L2:                 {e_mixed:.4f}")
             print(f"mixed, last layer full (override): {e_lastfull:.4f}")
     return {"history": hist, "test": e_test, "super": e_super,
-            "mixed": e_mixed, "mixed_last_full": e_lastfull}
+            "mixed": e_mixed, "mixed_last_full": e_lastfull, "decisions": decisions}
 
 
 if __name__ == "__main__":

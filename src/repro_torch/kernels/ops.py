@@ -13,9 +13,11 @@ SFNO's order-shared contraction and ``LSharedContract``.
 ``spectral_conv_fused`` runs a dense Fourier layer's whole rFFT ->
 contract -> irFFT pipeline through ``FusedSpectral``, on the weight that
 ``gather_corner_weights`` lays out; ``resolve_fuse_spectral`` and
-``fused_spectral_viable`` decide, from the device, shapes and policy
-alone, when ``core.spectral`` takes it.  ``flash_attention`` and
-``rmsnorm`` are the LM pool's substrate kernels behind the reference's
+``fused_spectral_viable`` decide, from the device, shapes, policy and
+whether an autoprec collector is active, when ``core.spectral`` takes it.
+The three contraction wrappers tap their spectrum at the contract site, as
+``SitePrecision.contract`` does on the einsum path.  ``flash_attention``
+and ``rmsnorm`` are the LM pool's substrate kernels behind the reference's
 entry points; no model calls them.
 """
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.autoprec.telemetry import fmt_of, tap, telemetry_active
 from repro_torch.precision import FULL, PrecisionPolicy
 
 from . import flash_attention as _flash
@@ -70,6 +73,7 @@ def spectral_contract(
     (B, O, *modes).
     """
     policy = _site_of(policy, site)
+    tap(policy.site, x, fmt=fmt_of(policy))
     if not torch.is_complex(x) or x.ndim < 3 or w_re.ndim != x.ndim:
         raise ValueError(
             f"spectral_contract is dense-only: expected complex x (B, I, *modes) "
@@ -128,6 +132,7 @@ def spectral_contract_cp(
     storage dtype.  Returns complex64 (B, O, *modes).
     """
     policy = _site_of(policy, site)
+    tap(policy.site, x, fmt=fmt_of(policy))
     half = policy.spectral_dtype if policy.spectral_is_half else torch.float32
     B, I, *modes = x.shape
     if len(mode_factors) != len(modes):
@@ -162,6 +167,7 @@ def spectral_contract_lshared(
     at that dtype.  Returns complex64 (B, O, L, M).
     """
     policy = _site_of(policy, site)
+    tap(policy.site, x, fmt=fmt_of(policy))
     if x.ndim != 4 or w.ndim != 3:
         raise ValueError(
             f"spectral_contract_lshared: expected x (B, I, L, M) and w (I, O, L), "
@@ -193,9 +199,13 @@ def fused_spectral_viable(fft_in, ctr, I: int, O: int, spatial: Sequence[int],
     the floor tile's truncated spectra (``fused_scratch_bytes(1, ...)``)
     must fit in the L2 and a slab's partial transform in a block's shared
     memory, and ``fft_in`` and ``contract`` must quantise to one format
-    (and one compute dtype when they quantise).  Decided from shapes and
-    policy alone, before any launch; the batch does not enter (the kernels
-    tile it)."""
+    (and one compute dtype when they quantise).  An active autoprec
+    collector vetoes it, as in the reference: the staged path owns
+    telemetry, since its taps read the spectrum the fused kernels never
+    write.  Decided before any launch; the batch does not enter (the
+    kernels tile it)."""
+    if telemetry_active():
+        return False
     spatial, modes = tuple(spatial), tuple(modes)
     if not fused_supported(spatial, modes) or len(modes) > 3:
         return False
@@ -268,6 +278,8 @@ def spectral_conv_fused(x: torch.Tensor, w_re: torch.Tensor, w_im: torch.Tensor,
     if not isinstance(policy, PrecisionPolicy):
         raise ValueError("spectral_conv_fused resolves fft_in/contract/fft_out sites "
                          "itself: pass the PrecisionPolicy, not a SitePrecision")
+    # no tap here: ``fused_spectral_viable`` keeps this path from running
+    # while a collector is active
     fft_in = policy.at(f"{site}/fft_in")
     ctr = policy.at(f"{site}/contract")
     fft_out = policy.at(f"{site}/fft_out")

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.autoprec.telemetry import fmt_of, tap
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.precision import FULL, PrecisionPolicy
@@ -60,6 +61,7 @@ def _spherical_conv(h: torch.Tensor, w_re: torch.Tensor, w_im: torch.Tensor,
                          precision=fft_in)                          # (B, C, l, m)
     out = kops.spectral_contract_lshared(coeffs, torch.complex(w_re, w_im), policy=ctr)
     y = sht_inverse(out, cfg.nlat, cfg.nlon)
+    tap(f"{site}/fft_out", y, fmt=fmt_of(fft_out))
     if fft_out.spectral_is_half:
         y = y.to(fft_out.compute_dtype)
     return y

@@ -4,7 +4,9 @@ A standard 2-D conv U-Net used as the non-operator PDE surrogate
 baseline, written as the reference writes it: per level two 3x3 ``SAME``
 convolutions with GELU, a 2x2 max pool down, a nearest x2 upsample and a
 skip concatenation up, and a 1x1 head.  No TPU kernel lies on its path:
-the convolutions are ``F.conv2d``.
+the convolutions are ``F.conv2d``.  Their backward runs with cuDNN's
+deterministic algorithms (:class:`_SameConv2d`), so one step from one
+state gives the same parameters every time on the card.
 
 Precision: the convolutions and activations resolve ``unet/dense``, the
 head ``unet/proj_out``; parameters are f32 masters.  A convolution adds
@@ -16,6 +18,7 @@ parameter tree loads as it is (:func:`unet_params_from_jax`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Iterator, Mapping, Tuple
 
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.precision import FULL, PrecisionPolicy
@@ -43,10 +47,47 @@ def _conv_params(cin: int, cout: int, k: int = 3) -> nn.ParameterDict:
                              "b": nn.Parameter(torch.zeros(cout))})
 
 
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+class _SameConv2d(torch.autograd.Function):
+    """``F.conv2d(x, w, padding=pad)`` whose backward is the same
+    ``convolution_backward`` autograd would call, run with cuDNN's
+    deterministic algorithms.  With the algorithms cuDNN picks by default,
+    two identical backward passes of ``UNET_BASELINE`` on an H100 gave
+    different f32 gradients (every leaf under ``full``; the f32 head's
+    weight under ``amp_bf16``), and 30 ``amp_bf16`` steps from one state
+    ended in different places.  The forward is reproducible as it is;
+    on the CPU the result is the same as autograd's own."""
+
+    @staticmethod
+    def forward(ctx, x, w, pad):
+        ctx.save_for_backward(x, w)
+        ctx.pad = pad
+        return F.conv2d(x, w, padding=pad)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False]
+        with _deterministic_cudnn():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [1, 1], [ctx.pad, ctx.pad], [1, 1], False, [0, 0], 1, mask)
+        return gx, gw, None
+
+
 def _conv(p, x: torch.Tensor, dtype) -> torch.Tensor:
     """A stride-1 ``SAME`` convolution in ``dtype``, its bias added after."""
     w = p["w"]
-    y = F.conv2d(x.to(dtype), w.to(dtype), padding=w.shape[-1] // 2)
+    y = _SameConv2d.apply(x.to(dtype), w.to(dtype), w.shape[-1] // 2)
     return y + p["b"].to(dtype)[None, :, None, None]
 
 

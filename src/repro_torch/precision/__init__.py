@@ -4,6 +4,7 @@
   SitePrecision                             a resolved site
   SiteRule / FULL_PRECISION / DEFAULT_RULES rule-table entries
   precision_rules(...)                      scoped overrides
+  describe / CANONICAL_SITES                a policy's site table
 """
 from .rules import (  # noqa: F401
     DEFAULT_RULES,
@@ -16,6 +17,7 @@ from .rules import (  # noqa: F401
 from .policy import (  # noqa: F401
     AMP_BF16,
     AMP_FP16,
+    CANONICAL_SITES,
     FULL,
     HALF_FNO_ONLY,
     MIXED_FNO_BF16,
@@ -25,5 +27,6 @@ from .policy import (  # noqa: F401
     SIM_FP8_E5M2,
     PrecisionPolicy,
     SitePrecision,
+    describe,
     get_policy,
 )

@@ -23,6 +23,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.core.precision import dtype_name
+
 from .rules import Entry, SiteRule, normalize_entries, resolve_fields
 
 
@@ -63,23 +65,36 @@ class SitePrecision:
     def quantize(self, c: torch.Tensor) -> torch.Tensor:
         """Round a complex tensor onto this site's storage grid: the half
         round trip (Thm 3.2's representation error) or the simulated fp8
-        grid (Appendix B.11).  Identity when the site is full precision."""
+        grid (Appendix B.11).  Identity when the site is full precision.
+
+        Feeds the autoprec tap either way (a no-op without a collector):
+        the values before quantisation carry the site's range, also while
+        the site runs at f32, which is what the controller needs to decide
+        a demotion; the values after it give the measured Thm 3.2 error."""
+        from repro_torch.autoprec.telemetry import fmt_of, tap
+
         if self.quantize_fmt is None:
+            tap(self.site, c, fmt=fmt_of(self))
             return c
         from repro_torch.core.precision import quantize_complex, simulate_fp8
 
         if self.quantize_fmt == "half":
-            return quantize_complex(c, self.compute)
-        re = simulate_fp8(c.real, self.quantize_fmt)
-        im = simulate_fp8(c.imag, self.quantize_fmt)
-        return torch.complex(re, im)
-
+            q = quantize_complex(c, self.compute)
+        else:
+            q = torch.complex(simulate_fp8(c.real, self.quantize_fmt),
+                              simulate_fp8(c.imag, self.quantize_fmt))
+        tap(self.site, c, fmt=fmt_of(self), quantized=q)
+        return q
 
     def contract(self, expr: str, *operands, objective: str = "memory", cache=None):
         """Memory-greedy contraction at this site's storage and
-        accumulation dtypes (:func:`repro_torch.core.contraction.contract`)."""
+        accumulation dtypes (:func:`repro_torch.core.contraction.contract`).
+        Taps the activation operand against the site's storage format."""
+        from repro_torch.autoprec.telemetry import fmt_of, tap
         from repro_torch.core.contraction import contract
 
+        if operands:
+            tap(self.site, operands[0], fmt=fmt_of(self))
         return contract(expr, *operands, policy=self, objective=objective, cache=cache)
 
 
@@ -178,3 +193,37 @@ def get_policy(name: str) -> PrecisionPolicy:
         raise KeyError(
             f"unknown precision policy {name!r}; have {sorted(POLICIES)}"
         ) from None
+
+
+#: Sites worth surfacing in reports.
+CANONICAL_SITES = (
+    "params",
+    "model/dense",
+    "model/spectral/fft_in",
+    "model/spectral/contract",
+    "model/spectral/fft_out",
+    "model/proj_out",
+    "lm/router",
+    "serve/kv_cache",
+    "serve/paged/kv_blocks",
+    "serve/paged/pool",
+    "serve/sampler",
+    "serve/operator",
+    "train/loss_scale",
+)
+
+
+def describe(policy: PrecisionPolicy) -> dict:
+    """A JSON-friendly site table of ``policy``: which canonical site runs
+    at which formats (dtype names as ``"bfloat16"``, ``"float32"``)."""
+    out = {}
+    for site in CANONICAL_SITES:
+        s = policy.at(site)
+        out[site] = {
+            "compute": None if s.compute is None else dtype_name(s.compute),
+            "accum": dtype_name(s.accum),
+            "stabilize": s.stabilizer,
+            "quantize": s.quantize_fmt,
+            "loss_scaling": s.loss_scaling,
+        }
+    return out

@@ -12,6 +12,15 @@ Every op in the forward is per-sample independent and every micro-batch
 has the same width, so a field's answer does not depend on what it was
 batched with: batched output is bit-identical to serving the field alone
 under the same precision policy.
+
+Online auto-precision: with ``telemetry`` (or an ``autoprec``
+controller) each micro-batch's forward runs under a telemetry collector,
+on the padded batch as it is computed (its zero rows count in ``n``).
+Every ``autoprec_every`` batches the controller consumes the window,
+budgeted at the finest grid the window saw; when its overlay changes, the
+engine serves under the new policy and clears the memo.  ``stats()`` then
+carries ``numerics`` (the telemetry counters) and ``autoprec`` (the
+controller's decisions).
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.autoprec import TelemetryAggregator, TraceCollector, collecting
 from repro_torch.core.spectral import check_grid
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.fno import FNO, FNOConfig, fno_infer
@@ -76,7 +86,10 @@ class OperatorEngine(EngineBase):
     ``max_batch`` is the micro-batch width: each tick fills up to ``max_batch``
     same-resolution requests into one batched forward.  ``memo_window``
     > 0 keeps an LRU of that many distinct fields' outputs, keyed by
-    content, so a repeated field is answered without compute.
+    content, so a repeated field is answered without compute.  ``autoprec``:
+    an ``repro_torch.autoprec.AutoPrecisionController`` that owns the
+    policy (``policy`` is then ignored), updated every ``autoprec_every``
+    micro-batches; ``telemetry`` collects without one.
     """
 
     kind = "operator"
@@ -92,6 +105,7 @@ class OperatorEngine(EngineBase):
         device: DeviceLike = None,
         telemetry: bool = False,
         autoprec=None,
+        autoprec_every: int = 4,
         calibration_state: Optional[str] = None,
     ):
         kinds = {"fno": FNOConfig, "sfno": SFNOConfig}
@@ -100,9 +114,6 @@ class OperatorEngine(EngineBase):
         if not isinstance(net.cfg, kinds[model]):
             raise ValueError(f"model={model!r} needs a {kinds[model].__name__} network, "
                              f"got one of {type(net.cfg).__name__}")
-        if telemetry or autoprec is not None:
-            raise NotImplementedError(
-                "telemetry/autoprec are not ported yet (ROADMAP: auto-precision slice)")
         if calibration_state is not None:
             raise NotImplementedError(
                 "calibration_state is not ported yet (ROADMAP: tuning slice)")
@@ -124,7 +135,14 @@ class OperatorEngine(EngineBase):
         self.cfg = net.cfg
         self.model = model
         self._infer = fno_infer if model == "fno" else sfno_infer
-        self.policy = policy
+        # online auto-precision: the controller owns the policy
+        self.controller = autoprec
+        self.policy = autoprec.policy() if autoprec is not None else policy
+        self.autoprec_every = autoprec_every
+        self._telem = None
+        self._window_max_points = 0
+        if telemetry or autoprec is not None:
+            self._telem = TelemetryAggregator()
         self.max_batch = max_batch
         # content-hash memo: identical input fields (by value, under the
         # engine's policy) reuse the computed output.  Sound because
@@ -204,10 +222,14 @@ class OperatorEngine(EngineBase):
             xb = np.zeros((self.max_batch, *np.shape(batch[0].x)), np.float32)
             for pos, j in enumerate(compute):
                 xb[pos] = np.asarray(batch[j].x, np.float32)
-            yb = self._infer(self.net, torch.from_numpy(xb), self.policy,
-                             device=self.device)
+            yb = self._run(xb)
             yb = yb.cpu().numpy()[:len(compute)]
             self._n_batches += 1
+            if self._telem is not None:
+                self._window_max_points = max(self._window_max_points,
+                                              int(np.prod(res, dtype=np.int64)))
+            if self.controller is not None and self._n_batches % self.autoprec_every == 0:
+                self._retune()
             names = [str(j) for j in compute] if keys is None else [keys[j] for j in compute]
             computed = dict(zip(names, yb, strict=True))
         key = "x".join(map(str, res))
@@ -228,6 +250,30 @@ class OperatorEngine(EngineBase):
                 self._memo.popitem(last=False)
                 self._memo_evictions += 1
         return list(batch)
+
+    def _run(self, xb: np.ndarray) -> torch.Tensor:
+        """One padded micro-batch through the forward, under a telemetry
+        collector when telemetry is on."""
+        x = torch.from_numpy(xb)
+        if self._telem is None:
+            return self._infer(self.net, x, self.policy, device=self.device)
+        col = TraceCollector()
+        with collecting(col):
+            yb = self._infer(self.net, x, self.policy, device=self.device)
+        self._telem.update(col.snapshot())
+        return yb
+
+    def _retune(self) -> None:
+        """Hand the window to the controller, budgeted at the finest grid it
+        saw (with mixed resolution buckets the finest field's Thm 3.1 bound
+        binds); on a change, serve under the new policy and drop the memo,
+        whose entries were computed under the old formats."""
+        changed = self.controller.update(self._telem.take_window(),
+                                         grid_points=self._window_max_points or None)
+        self._window_max_points = 0
+        if changed:
+            self.policy = self.controller.policy()
+            self._memo.clear()
 
     def _extra_stats(self) -> Dict[str, Any]:
         out = {
@@ -256,6 +302,10 @@ class OperatorEngine(EngineBase):
                 "hit_rate": round(self._memo_hits / seen, 4) if seen else 0.0,
                 "evictions": self._memo_evictions,
             }
+        if self._telem is not None:
+            out["numerics"] = self._telem.counters()
+        if self.controller is not None:
+            out["autoprec"] = self.controller.describe()
         return out
 
     def _reset_extra_counters(self) -> None:

@@ -19,7 +19,16 @@ One Trainer drives any model through a user-supplied
   * **straggler monitor**: an EWMA of the step wall time; steps slower
     than ``straggler_factor`` times it are counted in ``stats``;
   * **gradient accumulation** over ``microbatches`` slices of the batch's
-    leading axis, their gradients averaged.
+    leading axis, their gradients averaged;
+  * **auto-precision** (``TrainerConfig.autoprec``, or a schedule built by
+    ``PrecisionSchedule.auto``): the controller's policy replaces the
+    schedule's, each microbatch's forward runs under one telemetry
+    collector (their snapshots merged as ``merge_stacked`` does), and
+    every ``interval`` steps the controller consumes the telemetry window;
+    ``stats["policy_changes"]`` counts the overlays it changed.
+    ``TrainerConfig.telemetry`` collects without a controller.  The port
+    compiles no step, so a policy change rebuilds nothing and there is no
+    ``recompiles`` counter; the loss-scale state carries across changes.
 """
 from __future__ import annotations
 
@@ -32,6 +41,13 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import torch
 from torch import nn
 
+from repro_torch.autoprec import AutoPrecisionController, TelemetryAggregator
+from repro_torch.autoprec.telemetry import (
+    TraceCollector,
+    collecting,
+    merge_stacked,
+    stack_snapshots,
+)
 from repro_torch.core.schedule import PrecisionSchedule
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.optim import (
@@ -59,19 +75,19 @@ class TrainerConfig:
     keep_last_k: int = 3
     microbatches: int = 1
     straggler_factor: float = 3.0
-    #: not ported yet: setting any of these raises (ROADMAP slices named
-    #: in the error)
+    #: an ``repro_torch.autoprec.AutoPrecisionController`` that supersedes
+    #: the schedule; ``PrecisionSchedule.auto(...)`` creates one implicitly
     autoprec: Optional[Any] = None
+    #: collect numerics telemetry (amax / overflow / underflow taps) without
+    #: a controller
     telemetry: bool = False
+    #: not ported yet: setting either raises (ROADMAP slices named in the
+    #: error)
     calibration_state: Optional[str] = None
     obs: bool = False
 
 
 def _unported(config: TrainerConfig) -> None:
-    if config.autoprec is not None or config.telemetry:
-        raise NotImplementedError(
-            "TrainerConfig autoprec/telemetry are not ported yet "
-            "(ROADMAP: auto-precision slice)")
     if config.calibration_state is not None:
         raise NotImplementedError(
             "TrainerConfig.calibration_state is not ported yet (ROADMAP: tuning slice)")
@@ -120,7 +136,16 @@ class Trainer:
         self.scale_state = init_loss_scale(device=self.device)
         self.step = 0
         self.history: list = []
-        self.stats = {"straggler_steps": 0, "skipped_steps": 0}
+        self.stats = {"straggler_steps": 0, "skipped_steps": 0, "policy_changes": 0}
+        # auto-precision: an explicit controller wins; a schedule in auto
+        # mode gets a default controller over its base policy
+        self.controller = config.autoprec
+        if config.schedule.mode == "auto" and self.controller is None:
+            self.controller = AutoPrecisionController(
+                base=config.schedule.base, grid_points=config.schedule.grid_points)
+        self.telemetry = None
+        if config.telemetry or self.controller is not None:
+            self.telemetry = TelemetryAggregator()
         self._preempted = False
         self._ckptr = (ckpt_lib.AsyncCheckpointer(config.ckpt_dir, config.keep_last_k)
                        if config.ckpt_dir else None)
@@ -169,13 +194,22 @@ class Trainer:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
 
     def _grads(self, batch, policy, use_scaling):
-        """(loss, grads) of one step: the (scaled) loss and its gradients,
-        averaged over the micro-batches."""
+        """(loss, grads, telemetry) of one step: the (scaled) loss and its
+        gradients, averaged over the micro-batches, and the step's telemetry
+        snapshot (``{}`` when telemetry is off).  Only the forward runs
+        under the collector."""
         names = list(self.params)
         leaves = [self.params[k] for k in names]
+        snapshots = []
 
         def micro(b):
-            loss = self.loss_fn(self.model, b, policy)
+            if self.telemetry is not None:
+                col = TraceCollector()
+                with collecting(col):
+                    loss = self.loss_fn(self.model, b, policy)
+                snapshots.append(col.snapshot())
+            else:
+                loss = self.loss_fn(self.model, b, policy)
             if use_scaling:
                 loss = scale_loss(loss, self.scale_state)
             grads = torch.autograd.grad(loss, leaves)
@@ -183,7 +217,8 @@ class Trainer:
 
         nmicro = self.cfg.microbatches
         if nmicro == 1:
-            return micro(batch)
+            loss, grads = micro(batch)
+            return loss, grads, snapshots[0] if snapshots else {}
         sizes = {k: v.shape[0] for k, v in batch.items()}
         if any(s % nmicro for s in sizes.values()):
             raise ValueError(f"batch sizes {sizes} do not split into {nmicro} micro-batches")
@@ -196,11 +231,12 @@ class Trainer:
             acc = {k: acc[k] + g[k] for k in names}
             acc_loss = acc_loss + loss
         inv = 1.0 / nmicro
-        return acc_loss * inv, {k: g * inv for k, g in acc.items()}
+        telem = merge_stacked(stack_snapshots(snapshots)) if snapshots else {}
+        return acc_loss * inv, {k: g * inv for k, g in acc.items()}, telem
 
     def _train_step(self, policy: PrecisionPolicy, batch) -> tuple:
         use_scaling = loss_scaling_required(policy)
-        loss, grads = self._grads(batch, policy, use_scaling)
+        loss, grads, telem = self._grads(batch, policy, use_scaling)
         if use_scaling:
             grads = unscale_grads(grads, self.scale_state)
             loss = loss / self.scale_state.scale
@@ -213,7 +249,7 @@ class Trainer:
                     p.copy_(new_params[k])
         if use_scaling:
             self.scale_state = update_loss_scale(self.scale_state, finite)
-        return float(loss), finite
+        return float(loss), finite, telem
 
     # -- the loop -------------------------------------------------------------
     def run(self, batch_fn: Callable[[int], Mapping], steps: Optional[int] = None):
@@ -222,19 +258,29 @@ class Trainer:
         total = steps if steps is not None else self.cfg.total_steps
         ewma = None
         while self.step < total and not self._preempted:
-            policy = self.cfg.schedule.policy_at(self.step, self.cfg.total_steps)
+            if self.controller is not None:
+                # auto mode: the controller's overlay decides the formats
+                policy = self.controller.policy()
+            else:
+                policy = self.cfg.schedule.policy_at(self.step, self.cfg.total_steps)
             batch = self._to_device(batch_fn(self.step))
             t0 = time.perf_counter()
-            loss, finite = self._train_step(policy, batch)
+            loss, finite, telem = self._train_step(policy, batch)
             dt = time.perf_counter() - t0
             if not finite:
                 self.stats["skipped_steps"] += 1
             if ewma is not None and dt > self.cfg.straggler_factor * ewma:
                 self.stats["straggler_steps"] += 1
             ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
+            if self.telemetry is not None:
+                self.telemetry.update(telem)
             self.history.append({"step": self.step, "loss": loss,
                                  "policy": policy.name, "dt": dt, "finite": finite})
             self.step += 1
+            if (self.controller is not None
+                    and self.step % self.controller.config.interval == 0):
+                if self.controller.update(self.telemetry.take_window(), step=self.step):
+                    self.stats["policy_changes"] += 1
             if self._ckptr is not None and self.step % self.cfg.ckpt_every == 0:
                 self.save()
         if self._preempted and self._ckptr is not None:

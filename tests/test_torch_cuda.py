@@ -1556,3 +1556,157 @@ def test_gino_backward_is_bit_reproducible(cuda, path):
     torch.cuda.synchronize()
     for (name, _), a, b in zip(net.named_parameters(), *grads, strict=True):
         assert bool(torch.isfinite(a).all()) and torch.equal(a, b), name
+
+
+
+@pytest.mark.parametrize("policy_name", ["full", "amp_bf16"])
+def test_unet_backward_is_bit_reproducible(cuda, policy_name):
+    """Two identical backward passes of ``UNET_BASELINE`` on the card give
+    bit-identical gradients (the convolutions' backward runs with cuDNN's
+    deterministic algorithms; by default the f32 ones differed), and the
+    global ``cudnn.deterministic`` flag is as it was.  4 Darcy-sized
+    fields at 128²."""
+    from repro_torch.configs.fno_paper import UNET_BASELINE
+    from repro_torch.models import init_unet, unet_apply
+    from repro_torch.train import relative_l2
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand(4, 1, 128, 128, generator=g).to(cuda)
+    y = torch.randn(4, 1, 128, 128, generator=g).to(cuda)
+    net = init_unet(torch.Generator().manual_seed(4), UNET_BASELINE, device=cuda)
+    params = list(net.parameters())
+    flag = torch.backends.cudnn.deterministic
+    grads = []
+    for _ in range(2):
+        loss = relative_l2(unet_apply(net, x, get_policy(policy_name)), y)
+        grads.append(torch.autograd.grad(loss, params))
+    torch.cuda.synchronize()
+    assert torch.backends.cudnn.deterministic == flag
+    for (name, _), a, b in zip(net.named_parameters(), *grads, strict=True):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b), name
+
+# -- auto-precision ----------------------------------------------------------------------
+def _counts():
+    return {k: getattr(sc, k) for k in ("launches", "launches_bwd_x", "launches_bwd_w",
+                                        "launches_fused_fwd", "launches_fused_bwd")}
+
+
+def _zero_counts():
+    for k in _counts():
+        setattr(sc, k, 0)
+
+
+@pytest.mark.parametrize("fuse", [None, True])
+def test_collector_vetoes_the_fused_kernels(cuda, fuse):
+    """FNO_DARCY_SMOKE on the card with ``fuse_spectral`` None (fused by
+    default) or True: a forward and backward under a collector launch no
+    fused kernel and the staged dense ones; without it the layer fuses."""
+    from repro_torch.autoprec import TraceCollector, collecting
+    from repro_torch.models import fno_apply
+
+    cfg = dataclasses.replace(FNO_DARCY_SMOKE, fuse_spectral=fuse)
+    net = init_fno(torch.Generator().manual_seed(1), cfg, device=cuda)
+    x = torch.from_numpy(np.stack(_fields(24, 2, 9))).to(cuda)
+    params = list(net.parameters())
+    pol = get_policy("mixed_fno_bf16")
+    col = TraceCollector()
+    _zero_counts()
+    with collecting(col):
+        y = fno_apply(net, x, pol)
+    torch.autograd.grad(y.square().mean(), params)
+    torch.cuda.synchronize()
+    under = _counts()
+    _zero_counts()
+    y = fno_apply(net, x, pol)
+    torch.autograd.grad(y.square().mean(), params)
+    torch.cuda.synchronize()
+    without = _counts()
+    per = cfg.n_layers * 2 ** (cfg.ndim - 1)
+    assert under == {"launches": per, "launches_bwd_x": per, "launches_bwd_w": per,
+                     "launches_fused_fwd": 0, "launches_fused_bwd": 0}
+    assert without["launches_fused_fwd"] == without["launches_fused_bwd"] == cfg.n_layers
+    assert without["launches"] == 0
+    assert {"fno/layer0/spectral/fft_in", "fno/layer0/spectral/contract"} <= set(col.snapshot())
+
+
+def _card_models():
+    from repro_torch.configs.fno_paper import SFNO_SWE_SMOKE, TFNO_NS_SMOKE
+
+    return {"darcy": (FNO_DARCY_SMOKE, (2, 1, 24, 24)), "tfno": (TFNO_NS_SMOKE, (2, 1, 24, 24)),
+            "sfno": (SFNO_SWE_SMOKE, (2, 3, 16, 32))}
+
+
+def _totals(name, device, policy):
+    from repro_torch.autoprec import TelemetryAggregator, TraceCollector, collecting
+    from repro_torch.models import fno_apply, init_sfno, sfno_apply
+
+    cfg, shape = _card_models()[name]
+    sfno = name == "sfno"
+    net = (init_sfno if sfno else init_fno)(torch.Generator().manual_seed(3), cfg, device=device)
+    x = torch.from_numpy(np.random.RandomState(4).randn(*shape).astype(np.float32)).to(device)
+    col = TraceCollector()
+    with torch.no_grad(), collecting(col):
+        (sfno_apply if sfno else fno_apply)(net, x, get_policy(policy))
+    agg = TelemetryAggregator()
+    agg.update(col.snapshot())
+    return agg.totals
+
+
+@pytest.mark.parametrize("policy_name", ["full", "mixed_fno_bf16"])
+@pytest.mark.parametrize("name", ["darcy", "tfno", "sfno"])
+def test_card_site_stats_match_cpu(cuda, name, policy_name):
+    """Per-site telemetry on the card against the CPU, same weights and
+    input: one site set, equal n and overflow; amax within 1e-5 relative
+    and qerr within 1e-5 · amax under ``full`` (cuFFT and pocketfft differ
+    in the last bits), under ``mixed_fno_bf16`` within 1/4 of the CPU's own
+    mixed-vs-full difference of the same quantity, with those floors;
+    histograms carry the same mass."""
+    got, want = _totals(name, cuda, policy_name), _totals(name, "cpu", policy_name)
+    full = _totals(name, "cpu", "full")
+    assert set(got) == set(want) and len(got) == 3 * _card_models()[name][0].n_layers
+    for site, w in want.items():
+        g = got[site]
+        assert (g.n, g.overflow, g.updates) == (w.n, w.overflow, w.updates), site
+        amax_lim = qerr_lim = 1e-5 * w.amax
+        if policy_name != "full":
+            amax_lim = max(amax_lim, 0.25 * abs(w.amax - full[site].amax))
+            qerr_lim = max(qerr_lim, 0.25 * abs(w.qerr - full[site].qerr))
+        assert abs(g.amax - w.amax) <= amax_lim, (site, g.amax, w.amax)
+        assert abs(g.qerr - w.qerr) <= qerr_lim, (site, g.qerr, w.qerr)
+        assert g.hist.sum() == pytest.approx(w.hist.sum(), rel=1e-3), site
+
+
+def test_controller_decides_alike_from_card_and_cpu_windows(cuda):
+    """The trainer in auto mode on FNO_DARCY_SMOKE (fused by default on the
+    card, staged by the collector), 6 steps from the same weights and
+    batches on each device: the same per-step policies and decisions, and
+    on the card only the staged dense kernels."""
+    from repro_torch.autoprec import AutoPrecisionController
+    from repro_torch.models import fno_apply
+    from repro_torch.train import Trainer, TrainerConfig, relative_l2
+
+    rng = np.random.RandomState(6)
+    batch = {"a": rng.randn(4, 1, 24, 24).astype(np.float32),
+             "u": (0.1 * rng.randn(4, 1, 24, 24)).astype(np.float32)}
+
+    def loss_fn(model, b, policy):
+        return relative_l2(fno_apply(model, b["a"], policy), b["u"])
+
+    out = {}
+    for dev in ("cpu", cuda):
+        net = init_fno(torch.Generator().manual_seed(2), FNO_DARCY_SMOKE, device="cpu")
+        ctl = AutoPrecisionController(base="full", grid_points=24 ** 2, interval=2,
+                                      demote_patience=1, cooldown=0)
+        tr = Trainer(loss_fn, net, TrainerConfig(total_steps=6, autoprec=ctl), device=dev)
+        _zero_counts()
+        tr.run(lambda _s: batch)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        out[str(dev)] = ([h["policy"] for h in tr.history],
+                         {g: s["fmt"] for g, s in ctl.describe()["sites"].items()}, _counts())
+    (cpu_pol, cpu_fmt, _), (card_pol, card_fmt, card_counts) = out["cpu"], out[str(cuda)]
+    assert card_pol == cpu_pol == ["full+auto0"] * 2 + ["full+auto1"] * 4
+    assert card_fmt == cpu_fmt == {f"fno/layer{i}/spectral": "bfloat16" for i in range(2)}
+    per = FNO_DARCY_SMOKE.n_layers * 2 * 6
+    assert card_counts == {"launches": per, "launches_bwd_x": per, "launches_bwd_w": per,
+                           "launches_fused_fwd": 0, "launches_fused_bwd": 0}

@@ -198,9 +198,13 @@ def _sites(pkg_policy, name="contract"):
 
 
 def test_viability_mirrors_the_reference_vetoes():
-    """Every veto of the reference's ``fused_spectral_viable`` but the
-    autoprec collector's (the port has none yet) decides alike where the
-    reference's VMEM budget does not bind."""
+    """Every veto of the reference's ``fused_spectral_viable`` decides alike
+    where the reference's VMEM budget does not bind, the autoprec
+    collector's included."""
+    from repro.autoprec import TraceCollector as JTraceCollector
+    from repro.autoprec import collecting as jcollecting
+    from repro_torch.autoprec import TraceCollector, collecting
+
     small = (3, 4, SPATIAL_BY_NDIM[2], MODES_BY_NDIM[2])
     cases = {
         "every policy": [(get_policy(n), jget_policy(n), (2, *small)) for n in POLICY_NAMES],
@@ -224,6 +228,13 @@ def test_viability_mirrors_the_reference_vetoes():
             assert got == want, (label, tpol.name)
     assert not ops.fused_spectral_viable(*_sites(cases["formats"][0][0]), *small)
     assert not ops.fused_spectral_viable(*_sites(cases["compute"][0][0]), *small)
+    # an active collector vetoes a layer both packages otherwise fuse
+    tpol, jpol = get_policy("mixed_fno_bf16"), jget_policy("mixed_fno_bf16")
+    assert ops.fused_spectral_viable(*_sites(tpol), *small)
+    assert jops.fused_spectral_viable(*_sites(jpol), 2, *small)
+    with collecting(TraceCollector()), jcollecting(JTraceCollector()):
+        assert not ops.fused_spectral_viable(*_sites(tpol), *small)
+        assert not jops.fused_spectral_viable(*_sites(jpol), 2, *small)
 
 
 @pytest.mark.parametrize("grid", [128, 421])

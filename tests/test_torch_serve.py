@@ -160,10 +160,10 @@ def test_scheduler_policies():
 
 
 def test_engine_refuses_what_is_not_ported_or_misplaced(net, monkeypatch):
-    for kw in ({"telemetry": True}, {"autoprec": object()},
-               {"calibration_state": "state.json"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine(net, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _engine(net, calibration_state="state.json")
+    # telemetry is ported: the engine collects it (tests/test_torch_autoprec.py)
+    assert "numerics" in _engine(net, telemetry=True).stats()
     with pytest.raises(ValueError, match="model must be"):
         _engine(net, model="unet")
     # model="sfno" serves an SFNO and refuses an FNO

@@ -530,9 +530,11 @@ def test_sfno_engine_serves_batched_as_solo_and_refuses_other_grids():
 
 def test_sfno_engine_refuses_what_is_not_ported_or_mismatched():
     net = init_sfno(torch.Generator().manual_seed(0), SFNO_SWE_SMOKE, device="cpu")
-    for kw in ({"telemetry": True}, {"autoprec": object()}, {"calibration_state": "s.json"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            OperatorEngine(net, model="sfno", device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        OperatorEngine(net, model="sfno", device="cpu", calibration_state="s.json")
+    # telemetry is ported: the engine collects it (tests/test_torch_autoprec.py)
+    assert "numerics" in OperatorEngine(net, model="sfno", device="cpu",
+                                        telemetry=True).stats()
     with pytest.raises(ValueError, match="needs a FNOConfig network"):
         OperatorEngine(net, model="fno", device="cpu")
 

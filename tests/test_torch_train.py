@@ -434,8 +434,15 @@ def test_schedule_matches_reference(total):
     assert pol.name == "full+overlay1"
     assert pol.at("fno/layer0/spectral/contract").spectral_dtype == torch.bfloat16
     assert pol.at("fno/layer0/spectral/fft_in").spectral_dtype is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PrecisionSchedule.auto()
+    # auto mode hands the formats to the controller; outside a trainer it
+    # gives the base policy, as the reference's does
+    j, t = JSchedule.auto("full", grid_points=128 * 128), PrecisionSchedule.auto(
+        "full", grid_points=128 * 128)
+    assert (t.mode, t.base, t.grid_points) == (j.mode, j.base, j.grid_points) == (
+        "auto", "full", 128 * 128)
+    assert t.policy_at(3, 10).name == j.policy_at(3, 10).name == "full"
+    with pytest.raises(ValueError, match="mode"):
+        PrecisionSchedule(phases=((1.0, "full"),), mode="sometimes")
     with pytest.raises(ValueError):
         PrecisionSchedule(phases=((0.5, "full"),))
 
@@ -624,12 +631,32 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     assert tt.model is not net and all(p.device.type == "cpu" for p in tt.params.values())
 
 
-@pytest.mark.parametrize("option", [{"autoprec": object()}, {"telemetry": True},
-                                    {"calibration_state": "x.json"}, {"obs": True}])
+@pytest.mark.parametrize("option", [{"calibration_state": "x.json"}, {"obs": True}])
 def test_unported_trainer_options_raise(option):
     net = init_fno(torch.Generator().manual_seed(0), FNO_DARCY_SMOKE, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(_tloss, net, TrainerConfig(**option), device="cpu")
+
+
+@pytest.mark.parametrize("option", ["telemetry", "autoprec", "auto_schedule"])
+def test_autoprec_trainer_options_build_their_parts(option):
+    """The options auto-precision ported: telemetry alone, an explicit
+    controller, and an auto schedule's implicit controller over its base."""
+    from repro_torch.autoprec import AutoPrecisionController
+
+    net = init_fno(torch.Generator().manual_seed(0), FNO_DARCY_SMOKE, device="cpu")
+    ctl = AutoPrecisionController(base="amp_bf16")
+    kw = {"telemetry": {"telemetry": True}, "autoprec": {"autoprec": ctl},
+          "auto_schedule": {"schedule": PrecisionSchedule.auto("amp_bf16", grid_points=256)}}
+    tt = Trainer(_tloss, net, TrainerConfig(**kw[option]), device="cpu")
+    assert tt.telemetry is not None and tt.stats["policy_changes"] == 0
+    if option == "telemetry":
+        assert tt.controller is None
+    elif option == "autoprec":
+        assert tt.controller is ctl
+    else:
+        assert tt.controller.base.name == "amp_bf16"
+        assert tt.controller.config.grid_points == 256
 
 
 def test_train_darcy_example_runs_on_cpu(capsys):

@@ -290,3 +290,31 @@ def test_half_policy_output_is_f32_and_finite():
     for name in HALF:
         y = unet_apply(net, x, get_policy(name))
         assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+
+
+@pytest.mark.parametrize("k", [3, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_conv_backward_equals_autograds_own_on_the_cpu(dtype, k):
+    """The convolution's own backward (cuDNN's deterministic algorithms
+    on the card) gives, on the CPU, the gradients autograd gives for
+    ``F.conv2d`` bit for bit, for the input and the weight, and leaves
+    cuDNN's global flag as it found it."""
+    rng = np.random.RandomState(k)
+    x0 = torch.from_numpy(rng.randn(2, 5, 12, 12).astype(np.float32)).to(dtype)
+    w0 = torch.from_numpy(rng.randn(7, 5, k, k).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.randn(2, 7, 12, 12).astype(np.float32)).to(dtype)
+    flag = torch.backends.cudnn.deterministic
+    got, want = [], []
+    for fn, out in ((lambda x, w: tunet._SameConv2d.apply(x, w, k // 2), got),
+                    (lambda x, w: F.conv2d(x, w, padding=k // 2), want)):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        y = fn(x, w)
+        out.append(y.detach())
+        out.extend(torch.autograd.grad(y, (x, w), g))
+    assert torch.backends.cudnn.deterministic == flag
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == dtype and torch.equal(a, b)
+    # the weight alone, as the first layer asks (its input needs no gradient)
+    w = w0.clone().requires_grad_()
+    (gw,) = torch.autograd.grad(tunet._SameConv2d.apply(x0, w, k // 2), (w,), g)
+    assert torch.equal(gw, want[2])
