@@ -135,6 +135,34 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``mixed_fno_bf16``'s.  Then telemetry's cost: the median step and tick
    under one fixed policy, staged with telemetry on and off, and the
    default config (fused) with it off.
+8e. The tuner: ``python -m repro_torch.tune tune`` on the card over its
+   ``DEFAULT_KEYS`` (``FNO_DARCY``'s fused layer at 128² in bf16 and f32
+   and at 421², ``GINO_CAR``'s latent layer, ``SFNO_SWE``'s order-shared
+   layer in bf16 and f32), ``validate`` (every entry passes) and
+   ``validate --perturb 2`` (every entry rejected); each key's heuristic
+   and winning tiles, µs and GB/s beside the card's name and power limit.
+   ``FNO_DARCY`` (fused) served 16 micro-batches of 8 at 128² under
+   ``mixed_fno_bf16`` and trained 12 ``paper_default("bf16")`` steps with
+   ``calibration_state=`` that state, each against the same run with no
+   state: calibrated hits and no stale lookup, the fused launches
+   following the winners' tiles, the served fields bit-identical, the
+   losses finite and falling (their relative difference to the run
+   without state printed) and step 0's gradients within phase 5's
+   card-vs-CPU gates of the run without state.  A state with
+   its ``kernel_version`` altered is served by the heuristic, bit for bit;
+   a state seeded with batch tile 2 at 128² serves 16 fused launches a
+   micro-batch, bit for bit, and trains within the same limits.
+8f. Observability: ``FNO_DARCY`` (fused) trained 12 steps with
+   ``TrainerConfig(obs=True)`` under a caller's span and served 16
+   micro-batches of 8 at 128² with tracing on: the Chrome trace validates,
+   one ``train/step`` and one ``train/data`` span per step under the
+   caller's span, one ``serve/operator/batch`` span per micro-batch in
+   its ``serve/tick``, ``repro_train_steps_total`` the steps, the fused
+   calls counted in ``repro_kernels_calls_total`` equal to those made; 8
+   auto-precision steps with obs on put the controller's demotions on
+   the timeline with its ε budget.  The median step and tick with tracing
+   on and off are printed (no gate); the run log and Chrome trace are
+   written under ``build/``.
 9. Numbers: each kernel's time (CUDA graph of many launches, operands
    cycled through more than L2 holds) beside its bound (bytes at the HBM
    rate; half x half products at the bf16/fp16 tensor-core rate, the rest
@@ -251,6 +279,9 @@ UNET_FIELDS, UNET_GRID, UNET_STEPS = 8, 128, 30
 #: auto-precision at FNO_DARCY, 128²: 16 training steps (controller interval
 #: 4, patience 2: the update after step 7 demotes) and 16 served micro-batches
 AUTOPREC_STEPS, AUTOPREC_BATCHES = 16, 16
+#: the tuner's and the observability phases' served micro-batches of 8 at 128²,
+#: and the batch tile of the tuner phase's seeded (not the heuristic's) state
+TUNE_BATCHES, SEEDED_TILE = 16, 2
 #: (B, I, O, spatial, modes, operand sets, launches timed) of the fused
 #: kernels' timings: the Darcy path at 128² and 421², GINO_CAR's latent FNO
 FUSED_TIMED = ((8, 64, 64, (128, 128), (32, 32), 4, 40),
@@ -1763,6 +1794,369 @@ def autoprec_phase(sc, data):
             "fused_fwd": 0, "fused_bwd": 0}
 
 
+# -- phase 8e: the tuner ---------------------------------------------------------------
+def _tune_cli(*argv):
+    """``python -m repro_torch.tune`` in this process: its exit code and its
+    printed lines (echoed)."""
+    import contextlib
+    import io
+
+    from repro_torch.tune.__main__ import main as tune_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tune_main(list(argv))
+    print(buf.getvalue(), end="", flush=True)
+    return rc, buf.getvalue()
+
+
+def _serve_fields(sc, net, fields, state, policy):
+    """Serve ``fields`` through a fresh engine at micro-batch 8 with
+    ``state`` active (None: none); returns the answers, the fused forward
+    launches, the tile stats and the ms per tick."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import FieldRequest, OperatorEngine
+    from repro_torch.tune import cache
+
+    cache.activate(None)
+    ops.reset_tile_resolution_stats()
+    engine = OperatorEngine(net, policy=policy, max_batch=MAX_BATCH, calibration_state=state)
+    reqs = [FieldRequest(uid=i, x=x) for i, x in enumerate(fields)]
+    for r in reqs:
+        engine.submit(r)
+    before = sc.launches_fused_fwd
+    tick_ms = []
+    while engine.scheduler.depth:
+        t0 = time.perf_counter()
+        engine.tick()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    check_outputs(reqs, net.cfg)
+    return [r.y for r in reqs], sc.launches_fused_fwd - before, engine.stats()["tiles"], tick_ms
+
+
+def _train_steps(sc, data, state, seed=SEED + 1, obs=False, steps=TRAIN_STEPS, schedule=None,
+                 autoprec=None):
+    """``FNO_DARCY`` (fused on the card) trained ``steps`` steps of
+    ``paper_default("bf16")`` on the Darcy pairs with ``state`` active (None:
+    none); returns the trainer and each step's fused launches."""
+    from repro_torch.configs.fno_paper import FNO_DARCY
+    from repro_torch.core.schedule import PrecisionSchedule
+    from repro_torch.data import CachedDataset
+    from repro_torch.models import init_fno
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tune import cache
+
+    cache.activate(None)
+    loader = CachedDataset(data, TRAIN_BATCH, seed=SEED)
+    net = init_fno(torch.Generator().manual_seed(seed), FNO_DARCY, device="cpu")
+    trainer = Trainer(loss_l2, net, TrainerConfig(
+        total_steps=steps, schedule=schedule or PrecisionSchedule.paper_default("bf16"),
+        calibration_state=state, obs=obs, autoprec=autoprec))
+    per_step = []
+    for _ in range(steps):
+        before = (sc.launches_fused_fwd, sc.launches_fused_bwd)
+        trainer.run(loader.batch_at, steps=trainer.step + 1)
+        torch.cuda.synchronize()
+        per_step.append((sc.launches_fused_fwd - before[0], sc.launches_fused_bwd - before[1]))
+    return trainer, per_step
+
+
+def tune_phase(sc, data, card):
+    """``python -m repro_torch.tune`` on the card over ``DEFAULT_KEYS``, then
+    ``validate`` (every entry passes) and ``validate --perturb 2`` (every
+    entry rejected); each key's heuristic and winner.  Then FNO_DARCY served
+    (16 micro-batches of 8 at 128², ``mixed_fno_bf16``) and trained (12
+    steps) with ``calibration_state=`` that state, each against the same
+    run with no state: calibrated hits and no stale entry, the fused
+    launches following the winners' tiles, served fields bit-identical,
+    the losses finite and falling (phase 5's loss gates; their relative
+    difference to the run without state printed) and step 0's gradients
+    within phase 5's card-vs-CPU gates of the run without state;
+    a state whose ``kernel_version`` is altered is served entirely by the
+    heuristic, bit for bit; a state seeded with batch tile 2 both ways at
+    128² serves 4x the fused launches bit for bit and trains within the
+    same limits.  Returns the fused launches of its paths."""
+    import json as json_
+
+    from repro_torch.configs.fno_paper import FNO_DARCY
+    from repro_torch.data import grf_2d
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_fno
+    from repro_torch.precision import get_policy
+    from repro_torch.tune import cache
+    from repro_torch.tune.__main__ import DEFAULT_KEYS
+
+    state = ROOT / "build" / "chip_smoke_calibration.json"
+    if state.exists():
+        state.unlink()
+    t0 = time.perf_counter()
+    rc, _ = _tune_cli("tune", "--state", str(state))
+    tune_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"tune exited {rc}")
+    loaded = cache.load(state)
+    t0 = time.perf_counter()
+    rc_ok, out_ok = _tune_cli("validate", "--state", str(state))
+    rc_bad, out_bad = _tune_cli("validate", "--state", str(state), "--perturb", "2")
+    validate_s = time.perf_counter() - t0
+    n = len(loaded.entries)
+    rejected = out_bad.count("REJECT ")
+    emit("tune_cycle", card=card, keys=len(DEFAULT_KEYS), entries=n, tune_seconds=tune_s,
+         validate_seconds=validate_s, validate_rc=rc_ok, perturbed_rc=rc_bad,
+         perturbed_rejected=rejected, backend=loaded.backend,
+         kernel_version=loaded.kernel_version)
+    if n != len(DEFAULT_KEYS) or rc_ok != 0 or f"{n} checked, 0 rejected" not in out_ok:
+        fail(f"tune: {n} entries of {len(DEFAULT_KEYS)} keys, validate rc {rc_ok}")
+    if rc_bad != 1 or rejected != n:
+        fail(f"tune: validate --perturb 2 rejected {rejected} of {n} (rc {rc_bad})")
+    winners = {}
+    for family, shape, dtype in DEFAULT_KEYS:
+        ent = loaded.entries.get(cache.entry_key(family, shape, dtype))
+        if ent is None or not ent["validated"] or ent["interpret"]:
+            fail(f"tune: no card entry for {family} {shape} {dtype}: {ent}")
+        winners[(family, tuple(shape), dtype)] = (ent["block_fwd"], ent["block_bwd"])
+        emit("tune_key", card=card, family=family, shape=list(shape), dtype=dtype,
+             heuristic={"block_fwd": ent["heuristic_fwd"], "block_bwd": ent["heuristic_bwd"],
+                        "us": ent["heuristic_wall_us"]},
+             winner={"block_fwd": ent["block_fwd"], "block_bwd": ent["block_bwd"],
+                     "us": ent["wall_us"], "gbps": ent["gbps"],
+                     "roofline_fraction": ent["roofline_fraction"]},
+             winner_over_heuristic=ent["wall_us"] / ent["heuristic_wall_us"],
+             max_err=ent["max_err"], budget_min=ent["budget_min"])
+
+    # serving at 128², mixed_fno_bf16: with the state against without
+    layers = FNO_DARCY.n_layers
+    key = ("spectral_fused", (MAX_BATCH, 64, 64, TRAIN_GRID, TRAIN_GRID, 32, 32))
+    net = init_fno(torch.Generator().manual_seed(SEED), FNO_DARCY)
+    fields = list(grf_2d(torch.Generator().manual_seed(SEED + 50), TRAIN_GRID,
+                         batch=TUNE_BATCHES * MAX_BATCH).numpy()[:, None])
+    policy = get_policy("mixed_fno_bf16")
+    y0, n0, _, ms0 = _serve_fields(sc, net, fields, None, policy)
+    y1, n1, tiles, ms1 = _serve_fields(sc, net, fields, str(state), policy)
+    bf, _bb = winners[(*key, "bfloat16")]
+    same = all(np.array_equal(a, b) for a, b in zip(y0, y1, strict=True))
+    emit("tune_serve", card=card, micro_batches=TUNE_BATCHES, tiles=tiles,
+         fused_fwd_launches={"no_state": n0, "state": n1}, bit_identical=same,
+         median_tick_ms={"no_state": float(np.median(ms0[1:])),
+                         "state": float(np.median(ms1[1:]))})
+    if n1 != TUNE_BATCHES * layers * (MAX_BATCH // bf) or n0 != TUNE_BATCHES * layers:
+        fail(f"tune serving: {n1} fused launches with the state (winner {bf}), {n0} without")
+    if tiles["cache"] != {"hits": TUNE_BATCHES * layers, "misses": 0, "stale": 0} or \
+            tiles["sources"]["calibrated"] != TUNE_BATCHES * layers:
+        fail(f"tune serving: tiles {tiles}")
+    if not same:
+        fail("tune serving: the calibrated fields differ from the heuristic's")
+
+    # a stale state: its kernel_version altered, so every lookup is stale
+    stale = ROOT / "build" / "chip_smoke_calibration_stale.json"
+    raw = json_.loads(state.read_text())
+    for ent in raw["entries"].values():
+        ent["kernel_version"] = int(ent["kernel_version"]) + 1
+    stale.write_text(json_.dumps(raw))
+    y2, n2, stale_tiles, _ = _serve_fields(sc, net, fields, str(stale), policy)
+    same_stale = all(np.array_equal(a, b) for a, b in zip(y0, y2, strict=True))
+    emit("tune_stale_state", tiles=stale_tiles, fused_fwd_launches=n2,
+         bit_identical_to_no_state=same_stale)
+    if not same_stale or n2 != n0 or stale_tiles["cache"]["stale"] != TUNE_BATCHES * layers \
+            or stale_tiles["sources"]["calibrated"]:
+        fail(f"tune: a stale state changed the launches or answers: {stale_tiles}, {n2}")
+
+    # training, 12 steps of paper_default("bf16"): with the state against without
+    plain, plain_launches = _train_steps(sc, data, None)
+    tuned, tuned_launches = _train_steps(sc, data, str(state))
+    tuned_tiles = ops.tile_resolution_stats()
+    want = []
+    for h in tuned.history:
+        dt = "bfloat16" if get_policy(h["policy"]).at(
+            "fno/layer0/spectral/contract").spectral_is_half else "float32"
+        f, b = winners[(*key, dt)]
+        want.append((layers * MAX_BATCH // f, layers * MAX_BATCH // b))
+    losses = [h["loss"] for h in tuned.history]
+    ref_losses = [h["loss"] for h in plain.history]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses, strict=True)]
+    emit("tune_train", card=card, steps=len(losses), policies=[h["policy"] for h in tuned.history],
+         losses=losses, losses_no_state=ref_losses, loss_rel_diff=rel,
+         fused_launches_per_step=tuned_launches, want=want, tiles=tuned_tiles,
+         ms_per_step=[h["dt"] * 1e3 for h in tuned.history],
+         ms_per_step_no_state=[h["dt"] * 1e3 for h in plain.history])
+    if tuned_launches != want:
+        fail(f"tune training: fused launches {tuned_launches}, want {want}")
+    if plain_launches != [(layers, layers)] * TRAIN_STEPS:
+        fail(f"tune training without state: {plain_launches}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"tune training: losses not finite and falling: {losses}")
+    # step 0's gradients with the state against without, under phase 5's gates
+    tuned_grad_parity(data, str(state), "tune_train_grad_state_vs_none")
+
+    # a seeded state whose 128² tiles are not the heuristic's (batch tile 2
+    # both ways): 4x the fused launches, the forward still bit for bit, the
+    # backward's dw summed over 4 tiles in tile order, so the gradients and
+    # losses held to phase 5's limits, not bits
+    seeded = ROOT / "build" / "chip_smoke_calibration_seeded.json"
+    raw = json_.loads(state.read_text())
+    for dt in ("bfloat16", "float32"):
+        ent = raw["entries"][cache.entry_key(*key, dt)]
+        ent["block_fwd"] = ent["block_bwd"] = SEEDED_TILE
+    seeded.write_text(json_.dumps(raw))
+    y3, n3, seeded_tiles, _ = _serve_fields(sc, net, fields, str(seeded), policy)
+    same_seeded = all(np.array_equal(a, b) for a, b in zip(y0, y3, strict=True))
+    seeded_trainer, seeded_launches = _train_steps(sc, data, str(seeded))
+    seeded_losses = [h["loss"] for h in seeded_trainer.history]
+    seeded_rel = [abs(a - b) / abs(b) for a, b in zip(seeded_losses, ref_losses, strict=True)]
+    per_tile = layers * MAX_BATCH // SEEDED_TILE
+    emit("tune_seeded_state", tile=SEEDED_TILE, fused_fwd_launches=n3, tiles=seeded_tiles,
+         bit_identical_to_no_state=same_seeded, fused_launches_per_step=seeded_launches,
+         losses=seeded_losses, loss_rel_diff=seeded_rel)
+    if n3 != TUNE_BATCHES * per_tile or not same_seeded or \
+            seeded_tiles["sources"]["calibrated"] != TUNE_BATCHES * layers:
+        fail(f"tune: the seeded state served {n3} launches, bit-identical {same_seeded}")
+    if seeded_launches != [(per_tile, per_tile)] * TRAIN_STEPS or \
+            not np.isfinite(seeded_losses).all() or not seeded_losses[-1] < seeded_losses[0]:
+        fail(f"tune: the seeded state trained {seeded_launches}, losses {seeded_losses}")
+    tuned_grad_parity(data, str(seeded), "tune_train_grad_seeded_vs_none")
+    del net
+    cache.activate(None)
+    return {"fused_fwd": n0 + n1 + n2 + n3 + sum(f for f, _ in plain_launches + tuned_launches
+                                                 + seeded_launches),
+            "fused_bwd": sum(b for _, b in plain_launches + tuned_launches + seeded_launches)}
+
+
+def tuned_grad_parity(data, state, tag):
+    """One step's gradients on the card with ``state`` active against none,
+    same weights and 2 fields: per leaf 1e-4 relative L2 under full, a
+    quarter of the card's own mixed_fno_bf16-vs-full gap under
+    mixed_fno_bf16 (phase 5's gates)."""
+    import copy
+
+    from repro_torch.configs.fno_paper import FNO_DARCY
+    from repro_torch.models import init_fno
+    from repro_torch.precision import get_policy
+    from repro_torch.tune import cache
+
+    net = init_fno(torch.Generator().manual_seed(SEED + 1), FNO_DARCY)
+    batch = {k: torch.from_numpy(v[:MAX_BATCH]).cuda() for k, v in data.items()}
+    g = {}
+    for label, st in (("none", None), ("state", state)):
+        cache.activate(st)
+        for pname in ("full", "mixed_fno_bf16"):
+            g[(label, pname)] = leaf_grads(loss_l2, copy.deepcopy(net), batch,
+                                           get_policy(pname))
+    cache.activate(None)
+    errs, limits = {}, {}
+    for pname in ("full", "mixed_fno_bf16"):
+        for leaf, want in g[("none", pname)].items():
+            errs[f"{pname}/{leaf}"] = rel_l2(g[("state", pname)][leaf], want)
+            limits[f"{pname}/{leaf}"] = 1e-4 if pname == "full" else 0.25 * rel_l2(
+                g[("none", "mixed_fno_bf16")][leaf], g[("none", "full")][leaf])
+    emit(tag, rel_l2=errs, limits=limits)
+    bad = [k for k, e in errs.items() if not e <= limits[k]]
+    if bad:
+        fail(f"{tag}: gradients differ beyond phase 5's gates at {bad}")
+
+
+# -- phase 8f: observability --------------------------------------------------------------
+def obs_phase(sc, data):
+    """FNO_DARCY (fused on the card) at 128²: 12 training steps with
+    ``TrainerConfig(obs=True)`` under a caller's span and 16 micro-batches
+    of 8 served with tracing on.  The Chrome trace validates; one
+    ``train/step`` and one ``train/data`` span per step under the caller's
+    span; one ``serve/operator/batch`` span per micro-batch inside its
+    ``serve/tick``; ``repro_train_steps_total`` is the steps;
+    ``repro_kernels_calls_total{family="spectral_fused"}`` is the calls
+    that reached the fused wrapper (one per layer a step and a
+    micro-batch; each launched ``fused_fwd`` once, batch tile 8).  Then 8
+    auto-precision steps (staged by the collector's veto) with obs on: the
+    controller's demotions appear as numerics events with its ε budget.
+    Prints the median step and tick with tracing on against off (no gate).
+    Returns the fused launches of its paths."""
+    from repro_torch import obs
+    from repro_torch.autoprec import AutoPrecisionController
+    from repro_torch.configs.fno_paper import FNO_DARCY
+    from repro_torch.core.schedule import PrecisionSchedule
+    from repro_torch.data import grf_2d
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_fno
+    from repro_torch.precision import get_policy
+
+    layers = FNO_DARCY.n_layers
+    obs.trace.disable()
+    obs.trace.clear()
+    obs.registry().clear()
+    ops._register_obs()
+    # tracing off first: the baseline step and tick
+    off_trainer, off_launches = _train_steps(sc, data, None)
+    net = init_fno(torch.Generator().manual_seed(SEED), FNO_DARCY)
+    fields = list(grf_2d(torch.Generator().manual_seed(SEED + 60), TRAIN_GRID,
+                         batch=TUNE_BATCHES * MAX_BATCH).numpy()[:, None])
+    policy = get_policy("mixed_fno_bf16")
+    _, off_n, _, off_ms = _serve_fields(sc, net, fields, None, policy)
+    obs.registry().clear()
+    ops._register_obs()
+    # tracing on (on before the caller's span opens, so the span records;
+    # the trainer keeps a ring that is already on)
+    obs.trace.enable()
+    with obs.trace.span("chip_smoke/train"):
+        on_trainer, on_launches = _train_steps(sc, data, None, obs=True)
+    _, on_n, _, on_ms = _serve_fields(sc, net, fields, None, policy)
+    recs = obs.trace.snapshot()
+    snap = obs.registry().snapshot()
+    doc = obs.chrome_trace(recs)
+    errors = obs.validate_chrome_trace(doc)
+    spans = [r for r in recs if r["kind"] == "span"]
+    steps = [s for s in spans if s["name"] == "train/step"]
+    datas = [s for s in spans if s["name"] == "train/data"]
+    batches = [s for s in spans if s["name"] == "serve/operator/batch"]
+    calls = snap["counters"].get('repro_kernels_calls_total{family="spectral_fused"}')
+    fused_calls = (TRAIN_STEPS + TUNE_BATCHES) * layers
+    obs.write_jsonl(str(ROOT / "build" / "chip_smoke_obs.jsonl"),
+                    obs.run_records(recs, snapshot=snap, run="chip_smoke_obs"))
+    obs.write_chrome_trace(str(ROOT / "build" / "chip_smoke_obs.trace.json"), recs)
+    emit("obs_trace", records=len(recs), dropped=obs.trace.dropped(), chrome_errors=errors,
+         train_step_spans=len(steps), train_data_spans=len(datas),
+         operator_batch_spans=len(batches),
+         steps_total=snap["counters"].get("repro_train_steps_total"),
+         fused_calls_counted=calls, fused_calls=fused_calls,
+         fused_fwd_launches={"train": sum(f for f, _ in on_launches), "serve": on_n})
+    if errors:
+        fail(f"obs: the Chrome trace is invalid: {errors[:5]}")
+    if len(steps) != TRAIN_STEPS or [s["attrs"]["step"] for s in steps] != \
+            list(range(TRAIN_STEPS)) or len(datas) != TRAIN_STEPS or \
+            any((s["parent"], s["depth"]) != ("chip_smoke/train", 1) for s in steps + datas):
+        fail(f"obs: train spans {[(s['name'], s.get('parent'), s['depth']) for s in steps]}")
+    if len(batches) != TUNE_BATCHES or any(b["parent"] != "serve/tick" for b in batches):
+        fail(f"obs: {len(batches)} operator batch spans for {TUNE_BATCHES} micro-batches")
+    if snap["counters"].get("repro_train_steps_total") != TRAIN_STEPS:
+        fail(f"obs: repro_train_steps_total {snap['counters'].get('repro_train_steps_total')}")
+    if calls != fused_calls or sum(f for f, _ in on_launches) + on_n != fused_calls:
+        fail(f"obs: {calls} fused calls counted, {fused_calls} made")
+
+    # auto-precision with obs: the controller's decisions on the timeline
+    obs.trace.clear()
+    n2 = TRAIN_GRID ** 2
+    ctl = AutoPrecisionController(base="full", grid_points=n2, interval=4)
+    auto, _ = _train_steps(sc, data, None, obs=True, steps=8, autoprec=ctl,
+                           schedule=PrecisionSchedule.auto("full", grid_points=n2))
+    demotes = [r for r in obs.trace.snapshot() if r["name"] == "numerics/autoprec_demote"]
+    groups = sorted(r["attrs"]["site"] for r in demotes)
+    emit("obs_autoprec_events", steps=len(auto.history), demotes=[r["attrs"] for r in demotes],
+         eps_budget=ctl.eps_budget(n2))
+    if groups != [f"fno/layer{i}/spectral" for i in range(layers)] or any(
+            r["attrs"]["eps_budget"] != ctl.eps_budget(n2) or r["attrs"]["to_fmt"] != "bfloat16"
+            for r in demotes):
+        fail(f"obs: autoprec demotions on the timeline {[r['attrs'] for r in demotes]}")
+    obs.trace.disable()
+    obs.trace.clear()
+    on_step = float(np.median([h["dt"] * 1e3 for h in on_trainer.history[1:]]))
+    off_step = float(np.median([h["dt"] * 1e3 for h in off_trainer.history[1:]]))
+    emit("obs_cost", median_step_ms={"on": on_step, "off": off_step},
+         median_tick_ms={"on": float(np.median(on_ms[1:])), "off": float(np.median(off_ms[1:]))},
+         step_overhead=on_step / off_step - 1.0,
+         tick_overhead=float(np.median(on_ms[1:]) / np.median(off_ms[1:])) - 1.0)
+    return {"fused_fwd": off_n + on_n + sum(f for f, _ in off_launches + on_launches),
+            "fused_bwd": sum(b for _, b in off_launches + on_launches)}
+
+
 # -- phase 9 ------------------------------------------------------------------
 def graph_ms(fn, sets, iters=40):
     """Device ms per call of ``fn``: ``iters`` calls cycling through
@@ -2351,6 +2745,8 @@ def main():
     gino = gino_phase(sc)
     unet_phase()
     auto = autoprec_phase(sc, darcy)
+    tuned = tune_phase(sc, darcy, card)
+    observed = obs_phase(sc, darcy)
     del darcy
     launches = {"fwd": served + trained["fwd"] + gino["fwd"] + auto["fwd"],
                 "bwd_x": trained["bwd_x"] + gino["bwd_x"] + auto["bwd_x"],
@@ -2358,13 +2754,15 @@ def main():
                 "cp_fwd": tfno_served + tfno_trained["cp_fwd"],
                 "cp_bwd": tfno_trained["cp_bwd"], "ls_fwd": sfno_served + sfno_trained["ls_fwd"],
                 "ls_bwd_x": sfno_trained["ls_bwd_x"], "ls_bwd_w": sfno_trained["ls_bwd_w"],
-                "fused_fwd": fused_served + fused_trained["fused_fwd"] + gino["fused_fwd"],
-                "fused_bwd": fused_trained["fused_bwd"] + gino["fused_bwd"]}
+                "fused_fwd": fused_served + fused_trained["fused_fwd"] + gino["fused_fwd"]
+                + tuned["fused_fwd"] + observed["fused_fwd"],
+                "fused_bwd": fused_trained["fused_bwd"] + gino["fused_bwd"]
+                + tuned["fused_bwd"] + observed["fused_bwd"]}
     emit("launches_by_path", serve={"fwd": served}, train=trained,
          fused_serve={"fused_fwd": fused_served}, fused_train=fused_trained,
          tfno_serve={"cp_fwd": tfno_served}, tfno_train=tfno_trained,
          sfno_serve={"ls_fwd": sfno_served}, sfno_train=sfno_trained, gino=gino,
-         autoprec=auto)
+         autoprec=auto, tune=tuned, obs=observed)
     entries = (timing_phase(sc, max_err, launches) + cp_timing_phase(sc, max_err, launches)
                + ls_timing_phase(sc, max_err, launches)
                + fused_timing_phase(sc, max_err, launches) + lm_kernel_phase())

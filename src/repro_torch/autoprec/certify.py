@@ -22,8 +22,6 @@ Entry points run on the GPU unless given a device::
 from __future__ import annotations
 
 import argparse
-import json
-import os
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -268,11 +266,14 @@ def theory_rows(seed: int = 0, d: int = 2, m_values: Tuple[int, ...] = (6, 10, 1
 # ---------------------------------------------------------------------------
 
 
-def write_report(reports: List[dict], path) -> None:
-    """``{"reports": reports}`` as JSON at ``path`` (its directory made)."""
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        json.dump({"reports": reports}, f, indent=1, sort_keys=True)
+def write_report(reports: List[dict], path, device=None) -> None:
+    """``{"reports": reports}`` at ``path`` with the shared result header
+    under ``"meta"`` (``repro_torch.obs.write_result``: atomic, its
+    directory made); ``device``: the one the reports ran on."""
+    from repro_torch.obs import write_result
+
+    write_result(path, {"reports": reports},
+                 **({} if device is None else {"device": str(device)}))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -301,7 +302,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         reports.append(certify_controller(ctl, resolution=args.resolution, batch=args.batch,
                                           source=args.source, device=dev))
 
-    write_report(reports, args.out)
+    write_report(reports, args.out, dev)
     bad = 0
     for rep in reports:
         ok = rep["all_within"]

@@ -27,10 +27,10 @@ and the operator engine pick them up through ``policy.at(site)``.  A
 format that needs loss scaling (the fp16 family) switches the
 ``train/loss_scale`` site on in the same overlay.
 
-The reference also reports each decision and each overflow streak to its
-observability layer (``repro.obs.autoprec_decision`` and
-``numerics_event``); the port has no observability layer yet, so those
-two calls are left out.  No decision depends on them.
+Each decision and each overflow streak goes to the numerics-event stream
+(``repro_torch.obs.autoprec_decision`` and ``numerics_event``) with the
+budget numbers that justified it, as in the reference; no decision
+depends on them.
 """
 from __future__ import annotations
 
@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.core import theory
 from repro_torch.core.precision import FORMAT_EPS, FORMAT_MAX, FORMAT_TINY
+from repro_torch.obs import autoprec_decision, numerics_event
 from repro_torch.precision import FULL_PRECISION, PrecisionPolicy, SiteRule, get_policy
 from repro_torch.precision.rules import site_matches
 
@@ -186,11 +187,16 @@ class AutoPrecisionController:
             if w.overflow > 0:
                 st.overflow_streak += 1
                 st.clean = 0
+                numerics_event("overflow_streak", site=g, streak=st.overflow_streak,
+                               amax=st.amax, **({} if step is None else {"step": step}))
                 if st.overflow_streak >= self.config.promote_streak and st.fmt != "float32":
+                    old = st.fmt
                     st.fmt = "float32"
                     st.cooldown = self.config.cooldown
                     st.overflow_streak = 0
                     changed = True
+                    autoprec_decision(g, old, "float32", eps_budget=budget, amax=st.amax,
+                                      step=step)
                 continue
             st.overflow_streak = 0
             st.clean += 1
@@ -198,9 +204,12 @@ class AutoPrecisionController:
                 continue
             best = self._choose(st, w, budget)
             if best != st.fmt:
+                old = st.fmt
                 st.fmt = best
                 st.cooldown = self.config.cooldown
                 changed = True
+                autoprec_decision(g, old, best, eps_budget=budget, amax=st.amax,
+                                  fmt_eps=FORMAT_EPS.get(best), step=step)
         if changed:
             self.version += 1
             self.last_change_update = self.updates

@@ -6,12 +6,18 @@ scaling where fp16 is involved, checkpoints and restarts, and evaluates
 zero-shot super-resolution: the paper's Table 1 protocol at a small size.
 ``--auto-precision`` replaces the schedule with the telemetry-driven
 controller and prints its decisions and the telemetry counters.
+``--calibration-state`` serves the tuned kernels' tiles from a
+``repro_torch.tune`` state; ``--obs-trace OUT_JSONL`` records the run's
+timeline and metrics (``python -m repro_torch.obs summary OUT_JSONL``),
+with a Chrome trace and a Prometheus snapshot beside it.
 
     PYTHONPATH=src python -m repro_torch.examples.train_darcy [--steps 60] [--n 32]
     PYTHONPATH=src python -m repro_torch.examples.train_darcy --device cpu --steps 8 --n 16
     PYTHONPATH=src python -m repro_torch.examples.train_darcy --auto-precision [--device cpu]
+    PYTHONPATH=src python -m repro_torch.examples.train_darcy --device cpu --obs-trace build/run.jsonl
 """
 import argparse
+import os
 import tempfile
 
 import numpy as np
@@ -35,6 +41,15 @@ def main(argv=None):
                     help="replace the static 25/50/25 schedule with the telemetry-driven "
                          "controller: per-site formats follow runtime amax/overflow "
                          "counters and the Thm 3.1/3.2 budgets")
+    ap.add_argument("--calibration-state", default=None,
+                    help="repro_torch.tune calibration-state JSON: the tuned kernels "
+                         "take its validated tiles instead of the heuristics' "
+                         "(default: $REPRO_CALIBRATION_STATE if set)")
+    ap.add_argument("--obs-trace", default=None, metavar="OUT_JSONL",
+                    help="enable repro_torch.obs and write the run timeline + metrics "
+                         "snapshot as JSONL, plus a Perfetto-loadable <stem>.trace.json "
+                         "and a Prometheus <stem>.prom next to it; inspect with "
+                         "`python -m repro_torch.obs summary OUT_JSONL`")
     ap.add_argument("--device", default=None, help="torch device (default: the GPU)")
     args = ap.parse_args(argv)
     dev = args.device
@@ -77,6 +92,8 @@ def main(argv=None):
             schedule=schedule, autoprec=autoprec,
             optimizer=AdamW(lr=2e-3, weight_decay=1e-5),
             ckpt_dir=ckpt_dir, ckpt_every=20,
+            calibration_state=args.calibration_state,
+            obs=args.obs_trace is not None,
         )
         trainer = Trainer(loss_fn, model, tcfg, device=dev)
         trainer.install_preemption_handler()
@@ -120,6 +137,23 @@ def main(argv=None):
                 e_lastfull = float(relative_l2(fno_apply(net, a_te, mixed), u_te))
             print(f"mixed eval rel-L2:                 {e_mixed:.4f}")
             print(f"mixed, last layer full (override): {e_lastfull:.4f}")
+
+    if args.obs_trace:
+        from repro_torch.obs import (registry, run_records, trace, write_chrome_trace,
+                                     write_jsonl, write_prometheus)
+
+        recs = trace.snapshot()
+        snap = registry().snapshot()
+        write_jsonl(args.obs_trace,
+                    run_records(recs, snapshot=snap, device=str(trainer.device),
+                                run="train_darcy", steps=args.steps,
+                                auto_precision=args.auto_precision))
+        stem = os.path.splitext(args.obs_trace)[0]
+        write_chrome_trace(stem + ".trace.json", recs)
+        write_prometheus(stem + ".prom", snap)
+        print(f"obs: {len(recs)} trace records -> {args.obs_trace} "
+              f"(+ {stem}.trace.json, {stem}.prom); "
+              f"render with `python -m repro_torch.obs summary {args.obs_trace}`")
     return {"history": hist, "test": e_test, "super": e_super,
             "mixed": e_mixed, "mixed_last_full": e_lastfull, "decisions": decisions}
 

@@ -27,16 +27,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+def digest(*sources: Path) -> str:
+    """sha1 (hex) of ``sources``, the headers under ``csrc/`` (part of
+    every source's build) and the flags: a source's build key, and over
+    the tuned families' sources the kernels' version
+    (``spectral_contract.KERNEL_VERSION``)."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    body = b"".join(src.read_bytes() for src in sources)
+    return hashlib.sha1(body + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
+
+
 def build(source: Path) -> Tuple[Path, str]:
     """Compile ``source`` unless its library is already built.  Returns
     the library's path and the compiler's report (``-Xptxas -v``:
     registers, shared memory, spills)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    # the headers under csrc/ are part of every source's build
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha1(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
-    stem = f"{source.stem}_{digest.hexdigest()[:12]}"
+    stem = f"{source.stem}_{digest(source)[:12]}"
     lib, log = BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.log"
     if lib.exists() and log.exists():
         return lib, log.read_text()

@@ -19,20 +19,38 @@ The three contraction wrappers tap their spectrum at the contract site, as
 ``SitePrecision.contract`` does on the einsum path.  ``flash_attention``
 and ``rmsnorm`` are the LM pool's substrate kernels behind the reference's
 entry points; no model calls them.
+
+Tile resolution (the reference's ``_resolve_blocks``): the two families
+whose kernels take a launch tile, the fused layer (its batch tile per
+direction) and the order-shared contraction (``ls_mix``'s splits per
+direction), consult the active ``repro_torch.tune`` calibration cache on
+every call; a missing, stale, corrupt or illegal entry leaves the
+heuristics' tiles (``pick_block_b``, ``ls_plan``), so with no state every
+launch is the same as without the tuner.  Every spectral wrapper counts
+its calls in the obs registry (``repro_kernels_calls_total{family=...}``,
+with the traffic model's bytes in ``repro_kernels_bytes_moved``), as do
+``flash_attention`` and ``rmsnorm``.  The reference counts once per traced
+shape (jit caches its wrappers' traces); the port compiles nothing, so it
+counts once per call.  The kernels' own launch counts stay in
+``spectral_contract.launches_*``.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.autoprec.telemetry import fmt_of, tap, telemetry_active
+from repro_torch.core.precision import dtype_name
+from repro_torch.obs import registry
 from repro_torch.precision import FULL, PrecisionPolicy
 
 from . import flash_attention as _flash
 from . import rmsnorm as _rmsnorm
 from .spectral_contract import (
+    H100_SMS,
     L2_BUDGET,
     SMEM_LIMIT,
     CPContract,
@@ -43,6 +61,8 @@ from .spectral_contract import (
     fused_scratch_bytes,
     fused_smem_bytes,
     fused_supported,
+    ls_plan,
+    pick_block_b,
 )
 
 
@@ -51,6 +71,123 @@ def _site_of(policy, site: str):
     if isinstance(policy, PrecisionPolicy):
         return policy.at(site)
     return policy
+
+
+# -- tile resolution and the obs counters --------------------------------------------
+
+#: tile-resolution outcomes since process start (or the last reset), one
+#: per call of a tuned wrapper
+_TILE_SOURCES = {"heuristic": 0, "calibrated": 0}
+
+
+@functools.lru_cache(maxsize=256)
+def _bytes_moved(family: str, shape: tuple, dtype: str) -> float:
+    from repro_torch.tune.measure import bytes_moved
+
+    return float(bytes_moved(family, shape, dtype))
+
+
+def _obs_kernel_call(family: str, shape: tuple, dtype) -> None:
+    """Per-family call counter + bytes-moved gauge in the obs registry:
+    one count per call (the reference counts per traced shape), the gauge
+    the tune traffic model's HBM bytes for the last shape this family ran
+    with."""
+    name = dtype_name(dtype)
+    reg = registry()
+    reg.counter("repro_kernels_calls_total", family=family).inc()
+    reg.gauge("repro_kernels_bytes_moved", family=family).set(
+        _bytes_moved(family, tuple(int(s) for s in shape), name))
+
+
+def heuristic_blocks(family: str, shape: Sequence[int], dtype,
+                     device=None) -> Tuple[int, int]:
+    """The (forward, backward) tiles the launchers take with no
+    calibration entry: ``pick_block_b``'s batch tile both ways for the
+    fused layer; ``ls_plan``'s splits for ``ls_fwd`` and ``ls_bwd_x`` at
+    ``device``'s SM count (an H100's on the CPU)."""
+    from repro_torch.tune.space import fused_axes
+
+    if family == "spectral_fused":
+        B, I, O, spatial, modes = fused_axes(shape)
+        bb = pick_block_b(B, I, O, spatial, modes)
+        return bb, bb
+    if family == "lshared":
+        B, I, O, L, M = (int(s) for s in shape)
+        dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        dev = torch.device(device or "cpu")
+        sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+               if dev.type == "cuda" else H100_SMS)
+        return (ls_plan(I, O, dt, B=B, L=L, M=M, sms=sms).splits,
+                ls_plan(O, I, dt, B=B, L=L, M=M, sms=sms).splits)
+    raise ValueError(f"{family!r} has no launch tile")
+
+
+def _resolve_blocks(family: str, shape: tuple, dtype,
+                    heuristic: Callable[[], Tuple[int, int]], device=None):
+    """Resolve (block_fwd, block_bwd, source) for one call.
+
+    Consults the active ``repro_torch.tune`` calibration cache first
+    (explicit ``tune.cache.activate(...)`` or the
+    ``REPRO_CALIBRATION_STATE`` env var), keyed by the running device's
+    name; an entry that is missing, stale (kernel-version or device
+    mismatch), corrupt, or not a legal tile at this shape
+    (``tune.space.legal_blocks``) falls back to ``heuristic()`` — tuning
+    state can change a tile, never the device or the kernel.
+    """
+    from repro_torch.tune.cache import active_cache, backend_of
+    from repro_torch.tune.space import legal_blocks
+
+    _obs_kernel_call(family, shape, dtype)
+    cache = active_cache()
+    if cache is not None:
+        name = dtype_name(dtype)
+        ent = cache.lookup(family, shape, name, backend=backend_of(device))
+        if ent is not None and \
+                ent["block_fwd"] in legal_blocks(family, shape, name, "fwd") and \
+                ent["block_bwd"] in legal_blocks(family, shape, name, "bwd"):
+            _TILE_SOURCES["calibrated"] += 1
+            return int(ent["block_fwd"]), int(ent["block_bwd"]), "calibrated"
+    _TILE_SOURCES["heuristic"] += 1
+    return (*heuristic(), "heuristic")
+
+
+def tile_resolution_stats() -> dict:
+    """Where this process's kernel tiles came from: per-source counts
+    plus the active calibration cache's path and hit/miss/stale
+    counters (None when no cache is active).  Surfaced by
+    ``OperatorEngine.stats()``."""
+    from repro_torch.tune.cache import active_cache
+
+    cache = active_cache()
+    return {
+        "sources": dict(_TILE_SOURCES),
+        "calibration_state": cache.path if cache is not None else None,
+        "cache": dict(cache.counters) if cache is not None else None,
+    }
+
+
+def reset_tile_resolution_stats() -> None:
+    """Zero the tile-source counters and the active calibration cache's
+    hit/miss/stale counters (hygiene between warm-up and measurement).
+    Registered with the obs registry below, so
+    ``repro_torch.obs.registry().reset()`` covers it too."""
+    from repro_torch.tune.cache import active_cache
+
+    for k in _TILE_SOURCES:
+        _TILE_SOURCES[k] = 0
+    cache = active_cache()
+    if cache is not None:
+        for k in cache.counters:
+            cache.counters[k] = 0
+
+
+def _register_obs() -> None:
+    registry().register_external(
+        "repro_kernels_tiles", tile_resolution_stats,
+        reset_tile_resolution_stats)
+
+
+_register_obs()
 
 
 def spectral_contract(
@@ -89,6 +226,8 @@ def spectral_contract(
     for m in modes:
         M *= m
     half = policy.spectral_dtype if policy.spectral_is_half else None
+    _obs_kernel_call("dense-fused" if half else "dense", (B, I, O, M),
+                     half or torch.float32)
     xr = x.real.reshape(B, I, M).contiguous()
     xi = x.imag.reshape(B, I, M).contiguous()
     out_re, out_im = DenseContract.apply(
@@ -143,10 +282,11 @@ def spectral_contract_cp(
     for m in modes:
         M *= m
     w = cp_mode_factor(lam, mode_factors)  # (R, M) complex
+    O, R = uo.shape
+    _obs_kernel_call("cp", (B, I, O, R, M), half)
 
     out_re, out_im = CPContract.apply(*_pair(x.reshape(B, I, M), half), *_pair(ui, half),
                                       *_pair(uo, half), *_pair(w, half))
-    O = uo.shape[0]
     return torch.complex(out_re.float(), out_im.float()).reshape(B, O, *modes)
 
 
@@ -173,7 +313,13 @@ def spectral_contract_lshared(
             f"spectral_contract_lshared: expected x (B, I, L, M) and w (I, O, L), "
             f"got {tuple(x.shape)} and {tuple(w.shape)}")
     half = policy.spectral_dtype if policy.spectral_is_half else torch.float32
-    out_re, out_im = LSharedContract.apply(*_pair(x, half), *_pair(w, half))
+    B, I, L, M = x.shape
+    key = (B, I, w.shape[1], L, M)
+    splits_fwd, splits_bwd, _src = _resolve_blocks(
+        "lshared", key, half, lambda: heuristic_blocks("lshared", key, half, x.device),
+        x.device)
+    out_re, out_im = LSharedContract.apply(*_pair(x, half), *_pair(w, half),
+                                           splits_fwd, splits_bwd)
     return torch.complex(out_re.float(), out_im.float())
 
 
@@ -288,8 +434,15 @@ def spectral_conv_fused(x: torch.Tensor, w_re: torch.Tensor, w_im: torch.Tensor,
     x = fft_in.stabilize(x)
     wgr, wgi = gather_corner_weights(w_re, w_im, modes)
     cast_to, sim_fmt = _fused_qspec(ctr)
+    # the fused kernels stream f32 operands whatever the storage dtype; the
+    # key carries the contract site's dtype, as the reference's does
+    key = (*x.shape[:2], w_re.shape[2], *x.shape[2:], *modes)
+    half = ctr.spectral_dtype or torch.float32
+    block_fwd, block_bwd, _src = _resolve_blocks(
+        "spectral_fused", key, half, lambda: heuristic_blocks("spectral_fused", key, half),
+        x.device)
     y = FusedSpectral.apply(x.float().contiguous(), wgr.contiguous(), wgi.contiguous(),
-                            modes, cast_to, sim_fmt)
+                            modes, cast_to, sim_fmt, block_fwd, block_bwd)
     if fft_out.spectral_is_half:
         y = y.to(fft_out.compute_dtype)
     return y.to(in_dtype)
@@ -302,6 +455,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: int = 128) -> torch.Tensor:
     """(B, H, S, D) attention; folds (B, H) into the kernel's batch axis.
     k and v are (B, H, Sk, D)."""
+    registry().counter("repro_kernels_calls_total", family="flash_attention").inc()
     B, H, S, D = q.shape
     Sk = k.shape[2]
     out = _flash.flash_attention(
@@ -313,6 +467,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
             block_rows: int = 256) -> torch.Tensor:
     """Rank-agnostic RMSNorm over the last axis."""
+    registry().counter("repro_kernels_calls_total", family="rmsnorm").inc()
     shape = x.shape
     out = _rmsnorm.rmsnorm(x.reshape(-1, shape[-1]), w, eps=eps, block_rows=block_rows)
     return out.reshape(shape)

@@ -78,7 +78,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from .build import BUILD_DIR, CSRC, NVCC_FLAGS, _bind, _call, build  # noqa: F401
+from .build import BUILD_DIR, CSRC, NVCC_FLAGS, _bind, _call, build, digest  # noqa: F401
 
 #: kernel launches since the counts were last set to 0
 launches = 0
@@ -98,6 +98,12 @@ SOURCE_CP = CSRC / "spectral_contract_cp.cu"
 SOURCE_LS = CSRC / "spectral_contract_lshared.cu"
 SOURCE_FUSED = CSRC / "spectral_fused.cu"
 SOURCES = (SOURCE, SOURCE_BWD, SOURCE_CP, SOURCE_LS, SOURCE_FUSED)
+#: the version of the kernels ``repro_torch.tune`` tunes (the fused and the
+#: order-shared ones): the leading 48 bits of ``build.digest`` over their
+#: sources, the shared headers and the flags, as an int (the calibration
+#: file's field is an int, as the reference's is).  An edit to either source,
+#: a header or the flags changes it and stales their calibration entries.
+KERNEL_VERSION = int(digest(SOURCE_FUSED, SOURCE_LS)[:12], 16)
 
 #: format codes of the C interface
 _FMT = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -700,18 +706,22 @@ class LSharedContract(torch.autograd.Function):
     custom VJP.
 
     Inputs: ``xr, xi`` (B, I, L, M) and ``wr, wi`` (I, O, L), all of one
-    dtype (the site's storage dtype, rounded by the caller).  Forward: the
-    plain version on the CPU, ``ls_fwd`` on CUDA.  Backward: dx and dw at
-    the operands' dtype, each only where it is needed: the plain versions
-    on the CPU, ``ls_bwd_x`` and ``ls_bwd_w`` on CUDA."""
+    dtype (the site's storage dtype, rounded by the caller); the constants
+    ``splits_fwd`` and ``splits_bwd`` pin ``ls_fwd``'s and ``ls_bwd_x``'s
+    splits (None: ``ls_plan``'s).  Forward: the plain version on the CPU,
+    ``ls_fwd`` on CUDA.  Backward: dx and dw at the operands' dtype, each
+    only where it is needed: the plain versions on the CPU, ``ls_bwd_x``
+    and ``ls_bwd_w`` on CUDA.  The splits partition outputs, so no result
+    depends on them."""
 
     @staticmethod
-    def forward(ctx, xr, xi, wr, wi):
+    def forward(ctx, xr, xi, wr, wi, splits_fwd=None, splits_bwd=None):
         device = _check_ls(xr, xi, wr, wi)
         ctx.save_for_backward(xr, xi, wr, wi)
+        ctx.splits_bwd = splits_bwd
         if device.type == "cpu":
             return spectral_contract_lshared_plain(xr, xi, wr, wi)
-        return _launch_ls_fwd(xr, xi, wr, wi)
+        return _launch_ls_fwd(xr, xi, wr, wi, splits_fwd)
 
     @staticmethod
     @once_differentiable
@@ -728,16 +738,16 @@ class LSharedContract(torch.autograd.Function):
                 dxr, dxi = spectral_contract_lshared_bwd_x_plain(gr, gi, wr, wi)
             if need_w:
                 dwr, dwi = spectral_contract_lshared_bwd_w_plain(xr, xi, gr, gi)
-            return dxr, dxi, dwr, dwi
+            return dxr, dxi, dwr, dwi, None, None
         if gr.dtype != xr.dtype or gi.dtype != xr.dtype:
             raise TypeError(f"spectral_contract_lshared backward: cotangents of "
                             f"{gr.dtype}/{gi.dtype}, operands of {xr.dtype}")
         gr, gi = gr.contiguous(), gi.contiguous()
         if need_x:
-            dxr, dxi = _launch_ls_bwd_x(gr, gi, wr, wi)
+            dxr, dxi = _launch_ls_bwd_x(gr, gi, wr, wi, ctx.splits_bwd)
         if need_w:
             dwr, dwi = _launch_ls_bwd_w(xr, xi, gr, gi)
-        return dxr, dxi, dwr, dwi
+        return dxr, dxi, dwr, dwi, None, None
 
 
 class LsPlan(NamedTuple):
@@ -789,40 +799,52 @@ def ls_plan(K: int, N: int, dtype: torch.dtype, *, B: int = 1, L: int = 1, M: in
     resident = _ls_smem(K, size, True) <= SMEM_LIMIT
     smem = _ls_smem(K, size, resident)
     blocks = max(L, 1) * -(-max(N, 1) // _LS_NC)
-    outputs = max(B, 1) * -(-max(M, 1) // _LS_MC)
+    outputs = ls_splits_max(B, M)
     return LsPlan(resident, max(1, min(outputs, sms // blocks)), smem)
 
 
-def _launch_mix(name, a_r, a_i, wr, wi, B, I, O, L, M, K, N):
+def ls_splits_max(B: int, M: int) -> int:
+    """The outputs a (degree, channel tile) of ``ls_mix`` shares among its
+    blocks, B * ceil(M / 128): more splits than that leave blocks idle."""
+    return max(B, 1) * -(-max(M, 1) // _LS_MC)
+
+
+def _launch_mix(name, a_r, a_i, wr, wi, B, I, O, L, M, K, N, splits=None):
     """One ``ls_mix`` launch: ``ls_fwd`` (K = I, N = O) or ``ls_bwd_x`` (K =
-    O, N = I); returns the (B, N, L, M) pair at the operands' dtype."""
+    O, N = I) at ``splits`` (None: ``ls_plan``'s); returns the (B, N, L, M)
+    pair at the operands' dtype."""
     outr = torch.empty((B, N, L, M), dtype=wr.dtype, device=wr.device)
     outi = torch.empty_like(outr)
     if outr.numel() == 0:
         return outr, outi
     plan = ls_plan(K, N, wr.dtype, B=B, L=L, M=M,
                    sms=torch.cuda.get_device_properties(wr.device).multi_processor_count)
+    if splits is None:
+        splits = plan.splits
+    elif not 1 <= int(splits) <= ls_splits_max(B, M):
+        raise ValueError(f"{name}: {splits} splits, the launch takes 1 to "
+                         f"{ls_splits_max(B, M)} at B = {B}, M = {M}")
     _call(getattr(_library_ls(), name), name, wr.device,
           *(t.data_ptr() for t in (a_r, a_i, wr, wi, outr, outi)),
-          B, I, O, L, M, int(plan.resident), plan.splits, _FMT[wr.dtype])
+          B, I, O, L, M, int(plan.resident), int(splits), _FMT[wr.dtype])
     return outr, outi
 
 
-def _launch_ls_fwd(xr, xi, wr, wi):
+def _launch_ls_fwd(xr, xi, wr, wi, splits=None):
     global launches_ls_fwd
     B, I, L, M = xr.shape
     O = wr.shape[1]
-    out = _launch_mix("spectral_contract_ls_fwd", xr, xi, wr, wi, B, I, O, L, M, I, O)
+    out = _launch_mix("spectral_contract_ls_fwd", xr, xi, wr, wi, B, I, O, L, M, I, O, splits)
     if out[0].numel():
         launches_ls_fwd += 1
     return out
 
 
-def _launch_ls_bwd_x(gr, gi, wr, wi):
+def _launch_ls_bwd_x(gr, gi, wr, wi, splits=None):
     global launches_ls_bwd_x
     B, O, L, M = gr.shape
     I = wr.shape[0]
-    dx = _launch_mix("spectral_contract_ls_bwd_x", gr, gi, wr, wi, B, I, O, L, M, O, I)
+    dx = _launch_mix("spectral_contract_ls_bwd_x", gr, gi, wr, wi, B, I, O, L, M, O, I, splits)
     if dx[0].numel():
         launches_ls_bwd_x += 1
     return dx
@@ -1204,34 +1226,36 @@ class FusedSpectral(torch.autograd.Function):
     (``_fused_op_bwd``) on both devices.
 
     Inputs: ``x`` (B, I, *spatial) and the gathered weight ``wgr``/``wgi``
-    (I, O, Mh), f32 (f64 too on the CPU); ``modes``, ``cast_to`` and
-    ``sim_fmt`` are constants.  Forward: the plain version on the CPU,
+    (I, O, Mh), f32 (f64 too on the CPU); ``modes``, ``cast_to``,
+    ``sim_fmt`` and the batch tiles ``block_fwd`` / ``block_bwd`` (None:
+    ``pick_block_b``'s) are constants.  Forward: the plain version on the CPU,
     ``fused_fwd`` on CUDA, y at f32.  Backward: recompute x̂, round ĝ onto
     ``cast_to``, dx and dw at f32: the plain version on the CPU,
     ``fused_bwd`` on CUDA.  No gradient passes through a rounding."""
 
     @staticmethod
-    def forward(ctx, x, wgr, wgi, modes, cast_to=None, sim_fmt=None):
+    def forward(ctx, x, wgr, wgi, modes, cast_to=None, sim_fmt=None, block_fwd=None,
+                block_bwd=None):
         modes = tuple(int(m) for m in modes)
         device = _check_fused(x, wgr, wgi, modes, cast_to, sim_fmt)
-        ctx.cfg = (modes, cast_to, sim_fmt)
+        ctx.cfg = (modes, cast_to, sim_fmt, block_bwd)
         ctx.save_for_backward(x, wgr, wgi)
         if device.type == "cpu":
             return spectral_fused_plain(x, wgr, wgi, modes, cast_to=cast_to, sim_fmt=sim_fmt)
-        return _launch_fused_fwd(x, wgr, wgi, modes, cast_to, sim_fmt)
+        return _launch_fused_fwd(x, wgr, wgi, modes, cast_to, sim_fmt, block_fwd)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         x, wgr, wgi = ctx.saved_tensors
-        modes, cast_to, sim_fmt = ctx.cfg
+        modes, cast_to, sim_fmt, block_bwd = ctx.cfg
         if x.device.type == "cpu":
             dx, dwr, dwi = spectral_fused_bwd_plain(x, wgr, wgi, g, modes, cast_to=cast_to,
                                                     sim_fmt=sim_fmt)
         else:
             dx, dwr, dwi = _launch_fused_bwd(x, wgr, wgi, g.float().contiguous(), modes,
-                                             cast_to, sim_fmt)
-        return dx, dwr, dwi, None, None, None
+                                             cast_to, sim_fmt, block_bwd)
+        return dx, dwr, dwi, None, None, None, None, None
 
 
 def _fused_args(x, modes):
@@ -1254,15 +1278,26 @@ def _fused_setup(x, modes, I, O, bb, backward):
             _fused_pack(tuple(x.shape[2:]), tuple(modes), x.device), scratch)
 
 
-def _launch_fused_fwd(x, wgr, wgi, modes, cast_to, sim_fmt):
-    """``fused_fwd``, one launch per batch tile of ``pick_block_b`` rows."""
+def _batch_tile(block_b, B, I, O, spatial, modes) -> int:
+    """``block_b``, checked (1 to 8 rows: the kernels keep a mode's rows of
+    a tile in registers), or ``pick_block_b``'s tile where it is None."""
+    if block_b is None:
+        return pick_block_b(B, I, O, spatial, modes)
+    if not 1 <= int(block_b) <= 8:
+        raise ValueError(f"spectral_fused: batch tile {block_b}, the kernels take 1 to 8 rows")
+    return int(block_b)
+
+
+def _launch_fused_fwd(x, wgr, wgi, modes, cast_to, sim_fmt, block_b=None):
+    """``fused_fwd``, one launch per batch tile of ``block_b`` rows
+    (None: ``pick_block_b``'s)."""
     global launches_fused_fwd
     B, I, *spatial = x.shape
     O = wgr.shape[1]
     y = torch.empty((B, O, *spatial), dtype=torch.float32, device=x.device)
     if y.numel() == 0 or x.numel() == 0:
         return y.zero_()
-    bb = pick_block_b(B, I, O, spatial, modes)
+    bb = _batch_tile(block_b, B, I, O, spatial, modes)
     lib, axes, fac, scratch = _fused_setup(x, modes, I, O, bb, backward=False)
     for b0 in range(0, B, bb):
         n = min(bb, B - b0)
@@ -1274,9 +1309,11 @@ def _launch_fused_fwd(x, wgr, wgi, modes, cast_to, sim_fmt):
     return y
 
 
-def _launch_fused_bwd(x, wgr, wgi, g, modes, cast_to, sim_fmt):
-    """``fused_bwd``, one launch per batch tile; each tile after the first
-    adds its dw to the earlier tiles' sum, in tile order."""
+def _launch_fused_bwd(x, wgr, wgi, g, modes, cast_to, sim_fmt, block_b=None):
+    """``fused_bwd``, one launch per batch tile of ``block_b`` rows (None:
+    ``pick_block_b``'s); each tile after the first adds its dw to the
+    earlier tiles' sum, in tile order, so the tile decides dw's f32 sum
+    order."""
     global launches_fused_bwd
     B, I, *spatial = x.shape
     O = wgr.shape[1]
@@ -1287,7 +1324,7 @@ def _launch_fused_bwd(x, wgr, wgi, g, modes, cast_to, sim_fmt):
     if g.shape != (B, O, *spatial):
         raise ValueError(f"spectral_fused backward: cotangent {tuple(g.shape)}, "
                          f"expected {(B, O, *spatial)}")
-    bb = pick_block_b(B, I, O, spatial, modes)
+    bb = _batch_tile(block_b, B, I, O, spatial, modes)
     lib, axes, fac, scratch = _fused_setup(x, modes, I, O, bb, backward=True)
     for b0 in range(0, B, bb):
         n = min(bb, B - b0)

@@ -6,11 +6,19 @@ Every engine speaks the same four verbs:
     tick()                  one batched device step
     drain(max_ticks)        tick until idle; returns finished requests
     stats()                 fields/s, slot occupancy, queue
+
+With tracing on (``repro_torch.obs.trace``), each accepted request is an
+async ``request`` track from submit to finish and each tick a
+``serve/tick`` span; ``stats()`` publishes its numbers into the obs
+registry as ``repro_serve_<kind>_*`` gauges.
 """
 from __future__ import annotations
 
 import time
 from typing import Any, Dict, List, Tuple
+
+from repro_torch.obs import registry
+from repro_torch.obs import trace as obs_trace
 
 from .scheduler import Scheduler
 
@@ -41,18 +49,28 @@ class EngineBase:
         ok = self.scheduler.submit(req, self._ticks)
         if not ok:
             self._n_failed += 1
+        elif obs_trace.is_enabled():
+            # request lifecycle: an async track slice per uid, queued at
+            # submit, closed when the request finishes
+            obs_trace.begin("request", getattr(req, "uid", id(req)),
+                            category="request", engine=self.kind)
         return ok
 
     def tick(self) -> List[Any]:
         """One engine step.  Returns the requests finished this tick."""
         t0 = time.perf_counter()
-        finished = self._tick_impl()
+        with obs_trace.span("serve/tick", engine=self.kind, tick=self._ticks):
+            finished = self._tick_impl()
         self._wall_s += time.perf_counter() - t0
         self._ticks += 1
         for r in finished:
             r.finish_tick = self._ticks
             r.status = "done"
             self._n_done += 1
+            if obs_trace.is_enabled():
+                obs_trace.end("request", getattr(r, "uid", id(r)),
+                              category="request",
+                              ticks=self._ticks - getattr(r, "submit_tick", 0))
         return finished
 
     def drain(self, max_ticks: int = 10_000) -> Tuple[List[Any], int]:
@@ -69,7 +87,7 @@ class EngineBase:
 
     def stats(self) -> Dict[str, Any]:
         denom = max(self._ticks - self._tick0, 1)
-        return {
+        out = {
             "engine": self.kind,
             "ticks": self._ticks,
             "wall_s": round(self._wall_s, 6),
@@ -80,6 +98,10 @@ class EngineBase:
             "queue": self.scheduler.stats(),
             **self._extra_stats(),
         }
+        # the dict stays the caller-facing return; the registry snapshot
+        # is the machine-readable export source for the same numbers
+        registry().publish(f"serve_{self.kind}", out)
+        return out
 
     def _extra_stats(self) -> Dict[str, Any]:
         return {}

@@ -21,6 +21,13 @@ budgeted at the finest grid the window saw; when its overlay changes, the
 engine serves under the new policy and clears the memo.  ``stats()`` then
 carries ``numerics`` (the telemetry counters) and ``autoprec`` (the
 controller's decisions).
+
+Tuned tiles: ``calibration_state`` activates a ``repro_torch.tune``
+calibration file for the process (``tune.cache.activate``), so the fused
+and order-shared kernels take its validated tiles; ``stats()["tiles"]``
+says where the tiles came from.  With tracing on, each computed
+micro-batch is a ``serve/operator/batch`` span, its device-to-host copy
+included.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from repro_torch.core.spectral import check_grid
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.fno import FNO, FNOConfig, fno_infer
 from repro_torch.models.sfno import SFNO, SFNOConfig, sfno_infer
+from repro_torch.obs import trace as obs_trace
 from repro_torch.precision import FULL, PrecisionPolicy
 
 from .engine import EngineBase
@@ -90,6 +98,9 @@ class OperatorEngine(EngineBase):
     an ``repro_torch.autoprec.AutoPrecisionController`` that owns the
     policy (``policy`` is then ignored), updated every ``autoprec_every``
     micro-batches; ``telemetry`` collects without one.
+    ``calibration_state``: a calibration file to activate (None keeps
+    whatever is active: an earlier ``activate`` or
+    ``$REPRO_CALIBRATION_STATE``).
     """
 
     kind = "operator"
@@ -114,10 +125,15 @@ class OperatorEngine(EngineBase):
         if not isinstance(net.cfg, kinds[model]):
             raise ValueError(f"model={model!r} needs a {kinds[model].__name__} network, "
                              f"got one of {type(net.cfg).__name__}")
-        if calibration_state is not None:
-            raise NotImplementedError(
-                "calibration_state is not ported yet (ROADMAP: tuning slice)")
         self.device = resolve_device(device)
+        # tuned tiles: an explicit state path beats the env default; either
+        # way tile resolution consults the cache and falls back to the
+        # heuristics per miss
+        self.calibration_state = calibration_state
+        if calibration_state is not None:
+            from repro_torch.tune.cache import activate
+
+            activate(calibration_state)
         held = {p.device for p in net.parameters()}
         if held != {self.device}:
             raise ValueError(f"model parameters live on {sorted(map(str, held))}, "
@@ -222,8 +238,9 @@ class OperatorEngine(EngineBase):
             xb = np.zeros((self.max_batch, *np.shape(batch[0].x)), np.float32)
             for pos, j in enumerate(compute):
                 xb[pos] = np.asarray(batch[j].x, np.float32)
-            yb = self._run(xb)
-            yb = yb.cpu().numpy()[:len(compute)]
+            with obs_trace.span("serve/operator/batch", resolution="x".join(map(str, res)),
+                                fill=len(compute)):
+                yb = self._run(xb).cpu().numpy()[:len(compute)]
             self._n_batches += 1
             if self._telem is not None:
                 self._window_max_points = max(self._window_max_points,
@@ -306,6 +323,9 @@ class OperatorEngine(EngineBase):
             out["numerics"] = self._telem.counters()
         if self.controller is not None:
             out["autoprec"] = self.controller.describe()
+        from repro_torch.kernels.ops import tile_resolution_stats
+
+        out["tiles"] = tile_resolution_stats()
         return out
 
     def _reset_extra_counters(self) -> None:

@@ -28,7 +28,14 @@ One Trainer drives any model through a user-supplied
     ``stats["policy_changes"]`` counts the overlays it changed.
     ``TrainerConfig.telemetry`` collects without a controller.  The port
     compiles no step, so a policy change rebuilds nothing and there is no
-    ``recompiles`` counter; the loss-scale state carries across changes.
+    ``recompiles`` counter; the loss-scale state carries across changes;
+  * **tuned tiles** (``TrainerConfig.calibration_state``): a
+    ``repro_torch.tune`` calibration file activated at construction;
+  * **observability** (``TrainerConfig.obs``): the trace ring on, the
+    ``train/data``, ``train/step`` (the step and its ``float(loss)``
+    sync), ``train/telemetry`` and ``train/controller`` spans, the
+    step-wall histogram, the step counter, loss-scale numerics events and
+    ``publish_stats`` at the end of ``run``.
 """
 from __future__ import annotations
 
@@ -50,6 +57,8 @@ from repro_torch.autoprec.telemetry import (
 )
 from repro_torch.core.schedule import PrecisionSchedule
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import loss_scale_event, registry
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import (
     AdamW,
     all_finite,
@@ -81,19 +90,16 @@ class TrainerConfig:
     #: collect numerics telemetry (amax / overflow / underflow taps) without
     #: a controller
     telemetry: bool = False
-    #: not ported yet: setting either raises (ROADMAP slices named in the
-    #: error)
+    #: calibration-state JSON (``repro_torch.tune``), activated at Trainer
+    #: construction so the tuned kernels take its validated tiles; None
+    #: keeps whatever is already active (an explicit ``activate()`` or
+    #: ``$REPRO_CALIBRATION_STATE``)
     calibration_state: Optional[str] = None
+    #: observability (``repro_torch.obs``): turn the trace ring on (if not
+    #: already on) and record the step's phase spans, loss-scale numerics
+    #: events and step-wall histograms in the metrics registry.  The span
+    #: calls are free no-ops while tracing is off.
     obs: bool = False
-
-
-def _unported(config: TrainerConfig) -> None:
-    if config.calibration_state is not None:
-        raise NotImplementedError(
-            "TrainerConfig.calibration_state is not ported yet (ROADMAP: tuning slice)")
-    if config.obs:
-        raise NotImplementedError(
-            "TrainerConfig.obs is not ported yet (ROADMAP: observability slice)")
 
 
 def _nest(flat: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
@@ -126,7 +132,6 @@ class Trainer:
 
     def __init__(self, loss_fn: Callable[[nn.Module, Dict, PrecisionPolicy], torch.Tensor],
                  model: nn.Module, config: TrainerConfig, device: DeviceLike = None):
-        _unported(config)
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
         self.cfg = config
@@ -146,6 +151,14 @@ class Trainer:
         self.telemetry = None
         if config.telemetry or self.controller is not None:
             self.telemetry = TelemetryAggregator()
+        if config.calibration_state is not None:
+            from repro_torch.tune.cache import activate
+
+            activate(config.calibration_state)
+        self._obs = bool(config.obs)
+        if self._obs and not obs_trace.is_enabled():
+            obs_trace.enable()
+        self._last_scale: Optional[float] = None
         self._preempted = False
         self._ckptr = (ckpt_lib.AsyncCheckpointer(config.ckpt_dir, config.keep_last_k)
                        if config.ckpt_dir else None)
@@ -251,6 +264,27 @@ class Trainer:
             self.scale_state = update_loss_scale(self.scale_state, finite)
         return float(loss), finite, telem
 
+    # -- observability --------------------------------------------------------
+    def _obs_step_end(self, dt: float) -> None:
+        """Per-step metrics + loss-scale numerics events (obs mode only;
+        the extra ``float(scale)`` sync is why this is gated)."""
+        registry().histogram("repro_train_step_wall_ms").observe(dt * 1e3)
+        registry().counter("repro_train_steps_total").inc()
+        new_scale = float(self.scale_state.scale)
+        if self._last_scale is not None and new_scale != self._last_scale:
+            kind = ("loss_scale_halved" if new_scale < self._last_scale
+                    else "loss_scale_grown")
+            loss_scale_event(kind, new_scale, step=self.step)
+        self._last_scale = new_scale
+
+    def publish_stats(self) -> Dict:
+        """Publish ``self.stats`` into the obs registry as
+        ``repro_train_*`` gauges and return the dict (the registry
+        snapshot is the machine-readable export source)."""
+        registry().publish("train", self.stats)
+        registry().gauge("repro_train_step").set(float(self.step))
+        return self.stats
+
     # -- the loop -------------------------------------------------------------
     def run(self, batch_fn: Callable[[int], Mapping], steps: Optional[int] = None):
         """``batch_fn(step)`` -> a dict of arrays (stateless pipeline
@@ -263,9 +297,13 @@ class Trainer:
                 policy = self.controller.policy()
             else:
                 policy = self.cfg.schedule.policy_at(self.step, self.cfg.total_steps)
-            batch = self._to_device(batch_fn(self.step))
+            with obs_trace.span("train/data", step=self.step):
+                batch = self._to_device(batch_fn(self.step))
             t0 = time.perf_counter()
-            loss, finite, telem = self._train_step(policy, batch)
+            # the span brackets the step and its float(loss) sync, so its
+            # duration carries the step's device wall
+            with obs_trace.span("train/step", step=self.step, policy=policy.name):
+                loss, finite, telem = self._train_step(policy, batch)
             dt = time.perf_counter() - t0
             if not finite:
                 self.stats["skipped_steps"] += 1
@@ -273,18 +311,24 @@ class Trainer:
                 self.stats["straggler_steps"] += 1
             ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
             if self.telemetry is not None:
-                self.telemetry.update(telem)
+                with obs_trace.span("train/telemetry", step=self.step):
+                    self.telemetry.update(telem)
+            if self._obs:
+                self._obs_step_end(dt)
             self.history.append({"step": self.step, "loss": loss,
                                  "policy": policy.name, "dt": dt, "finite": finite})
             self.step += 1
             if (self.controller is not None
                     and self.step % self.controller.config.interval == 0):
-                if self.controller.update(self.telemetry.take_window(), step=self.step):
-                    self.stats["policy_changes"] += 1
+                with obs_trace.span("train/controller", step=self.step):
+                    if self.controller.update(self.telemetry.take_window(), step=self.step):
+                        self.stats["policy_changes"] += 1
             if self._ckptr is not None and self.step % self.cfg.ckpt_every == 0:
                 self.save()
         if self._preempted and self._ckptr is not None:
             self.save()
         if self._ckptr is not None:
             self._ckptr.wait()
+        if self._obs:
+            self.publish_stats()
         return self.history

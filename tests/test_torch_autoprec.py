@@ -770,3 +770,76 @@ def test_adamw_unaffected_by_collection():
         tr.run(lambda _s: batch)
         out.append({k: p.detach().clone() for k, p in tr.params.items()})
     assert all(torch.equal(out[0][k], out[1][k]) for k in out[0])
+
+
+# -- the numerics events and the report header (repro_torch.obs) -------------------------------
+@pytest.fixture
+def traced():
+    """Both packages' trace rings on and empty, their registries cleared."""
+    import repro.obs as jobs
+    from repro_torch import obs as tobs
+
+    sides = (tobs, jobs)
+    for o in sides:
+        o.trace.clear()
+        o.registry().clear()
+        o.trace.enable()
+    yield sides
+    for o in sides:
+        o.trace.disable()
+        o.trace.clear()
+        o.registry().clear()
+    ops._register_obs()
+    import repro.kernels.ops as jops
+
+    jops._register_obs()
+
+
+def _decision_events(obs):
+    return [(r["name"], {k: v for k, v in r["attrs"].items()})
+            for r in obs.trace.snapshot() if r["name"].startswith("numerics/")]
+
+
+@pytest.mark.parametrize("script", ["budget_bf16_at_128", "budget_fp16_at_421",
+                                    "promote_on_streak_with_cooldown",
+                                    "two_layers_fp16_scaling"])
+def test_decisions_emit_the_reference_numerics_events(traced, script):
+    """A forced demotion emits the reference's ``autoprec_demote`` event
+    with the same ε budget, amax and format ε; overflow streaks and
+    promotions theirs; the counters agree."""
+    tobs, jobs = traced
+    kw, steps = SCRIPTS[script]
+    tctl = tap_.AutoPrecisionController(base="full", **kw)
+    jctl = jap.AutoPrecisionController(base="full", **kw)
+    for i, (sites, grid) in enumerate(steps):
+        tctl.update({s: _windows(tap_.SiteWindow, **v) for s, v in sites.items()},
+                    grid_points=grid, step=i)
+        jctl.update({s: _windows(jap.SiteWindow, **v) for s, v in sites.items()},
+                    grid_points=grid, step=i)
+    got, want = _decision_events(tobs), _decision_events(jobs)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    assert "numerics/autoprec_demote" in [n for n, _ in got]
+    for (_, g), (_, w) in zip(got, want, strict=True):
+        assert set(g) == set(w)
+        for k, v in g.items():
+            assert v == (pytest.approx(w[k], rel=1e-12) if isinstance(v, float) else w[k])
+    demote = next(a for n, a in got if n == "numerics/autoprec_demote")
+    assert demote["eps_budget"] > 0 and demote["fmt_eps"] == FORMAT_EPS[demote["to_fmt"]]
+    assert tobs.registry().snapshot()["counters"] == jobs.registry().snapshot()["counters"]
+
+
+def test_certify_report_begins_with_the_result_header(tmp_path):
+    import json
+
+    from repro_torch.obs import result_header
+
+    out = tmp_path / "r.json"
+    tcertify.write_report([{"policy": "x", "all_within": True}], out, device="cpu")
+    doc = json.loads(out.read_text())
+    assert list(doc) == ["meta", "reports"]
+    want = result_header(device="cpu")
+    assert set(doc["meta"]) == set(want)
+    for k in ("schema_version", "device", "torch_version", "cuda_version", "git_sha", "env"):
+        assert doc["meta"][k] == want[k]
+    assert doc["reports"] == [{"policy": "x", "all_within": True}]
+    assert out.read_text().lstrip().startswith('{\n  "meta"')

@@ -7,8 +7,12 @@ against their plain PyTorch versions on the card, the wrappers'
 checks, the autograd Functions on CUDA against the CPU, the FNO
 (staged, pinned with ``fuse_spectral=False``, and fused, its default on
 the card), TFNO and SFNO serving and training paths on CUDA against the
-CPU, the SHT's synthesis on CUDA against the CPU, and the Navier-Stokes
-and shallow-water solvers on CUDA against the CPU.
+CPU, the SHT's synthesis on CUDA against the CPU, the Navier-Stokes
+and shallow-water solvers on CUDA against the CPU, and the tuned tiles
+(``repro_torch.tune``): every legal forward tile bit-identical, every
+legal backward tile within ``store_budget``, a seeded entry's launches, a
+stale or oversized entry leaving every launch as it was, ``measure`` and
+the oracle on the card, the engine serving calibrated tiles.
 
 Imports no JAX (the GPU machine has none).  Every test carries the
 ``cuda`` marker and skips, from inside a fixture, where no card is
@@ -1710,3 +1714,200 @@ def test_controller_decides_alike_from_card_and_cpu_windows(cuda):
     per = FNO_DARCY_SMOKE.n_layers * 2 * 6
     assert card_counts == {"launches": per, "launches_bwd_x": per, "launches_bwd_w": per,
                            "launches_fused_fwd": 0, "launches_fused_bwd": 0}
+
+
+# -- tuned tiles (repro_torch.tune) -----------------------------------------------------------
+TUNE_KEYS = [("spectral_fused", (8, 16, 16, 64, 64, 16, 16), "bfloat16"),
+             ("spectral_fused", (8, 16, 16, 64, 64, 16, 16), "float32"),
+             ("spectral_fused", (4, 8, 8, 16, 16, 16, 4, 4, 4), "bfloat16"),
+             ("lshared", (8, 32, 32, 24, 200), "bfloat16"),
+             ("lshared", (8, 32, 32, 24, 200), "float32")]
+
+
+def _tune_id(key):
+    return f"{key[0]}-{'x'.join(map(str, key[1]))}-{key[2]}"
+
+
+def _tuned_run(cuda, key, block_fwd, block_bwd, seed=0):
+    """Forward and the gradients (operands and a seeded cotangent from
+    ``tune.measure``) at the given tiles."""
+    from repro_torch.tune import measure, space
+
+    family, shape, dtype = key
+    cand = space.Candidate(family, shape, dtype, block_fwd, block_bwd)
+    args = measure.operand_sets(cand, cuda, seed)[0]
+    step = measure.build_step(cand)
+    n_cot = 2 if family == "lshared" else 1
+    ops_ = args[:-n_cot]
+    with torch.no_grad():
+        out = measure.forward(cand, [t.detach() for t in ops_])
+    grads = step(*args)
+    torch.cuda.synchronize()
+    return (out if isinstance(out, tuple) else (out,)), grads, args
+
+
+@pytest.mark.parametrize("key", TUNE_KEYS, ids=_tune_id)
+def test_every_legal_forward_tile_gives_a_bit_identical_forward(cuda, key):
+    """The fused forward's rows are independent and ``ls_mix``'s splits
+    partition outputs: every legal forward tile, and the heuristics' own,
+    gives the same forward to the bit."""
+    from repro_torch.tune import space
+
+    family, shape, dtype = key
+    tiles = space.legal_blocks(family, shape, dtype, "fwd")
+    assert len(tiles) >= 2
+    heur = ops.heuristic_blocks(family, shape, dtype, cuda)
+    ref_out, _, _ = _tuned_run(cuda, key, *heur)
+    for b in tiles:
+        out, _, _ = _tuned_run(cuda, key, b, heur[1])
+        assert all(torch.equal(a, r) for a, r in zip(out, ref_out, strict=True)), b
+
+
+@pytest.mark.parametrize("key", TUNE_KEYS, ids=_tune_id)
+def test_every_legal_backward_tile_stays_within_store_budget(cuda, key):
+    """Another backward tile reorders the f32 sum of the fused backward's
+    dw over batch tiles (the order-shared splits reorder nothing): every
+    legal one gives gradients within ``store_budget`` of the heuristics'
+    (stored at f32 for the fused layer, at the operands' dtype for the
+    order-shared one), which a zeroed output fails."""
+    from repro_torch.tune import space
+
+    family, shape, dtype = key
+    heur = ops.heuristic_blocks(family, shape, dtype, cuda)
+    _, want, args = _tuned_run(cuda, key, *heur)
+    if family == "spectral_fused":
+        x, wgr, wgi, g = (t.detach() for t in args)
+        mags = sc.fused_magnitude(x, wgr, wgi, space.fused_axes(shape)[4], g=g)
+        mag, eps = (mags["dx"], mags["dw"], mags["dw"]), FORMAT_EPS["float32"]
+    else:
+        xr, xi, wr, wi, gr, gi = (t.detach() for t in args)
+        mags = sc.lshared_magnitudes(xr, xi, wr, wi, gr, gi)
+        mag, eps = (mags["dx"],) * 2 + (mags["dw"],) * 2, FORMAT_EPS[dtype]
+    for b in space.legal_blocks(family, shape, dtype, "bwd"):
+        _, got, _ = _tuned_run(cuda, key, heur[0], b)
+        for a, w, m in zip(got, want, mag, strict=True):
+            budget = store_budget(eps, w.double(), m.double())
+            assert bool(((a.double() - w.double()).abs() <= budget).all()), b
+            assert not bool((w.double().abs() <= budget).all()), "a zeroed output passes"
+
+
+def _fused_layer_operands(B, cuda, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, 16, 64, 64, generator=g).to(cuda)
+    w = [(torch.randn(2, 16, 16, 16, 16, generator=g) / 16).to(cuda).requires_grad_()
+         for _ in range(2)]
+    return x.requires_grad_(), w
+
+
+def _fused_layer_step(cuda, policy="mixed_fno_bf16", B=8):
+    x, w = _fused_layer_operands(B, cuda)
+    _zero_counts()
+    y = ops.spectral_conv_fused(x, *w, (16, 16), policy=get_policy(policy))
+    grads = torch.autograd.grad(y, (x, *w), torch.ones_like(y))
+    torch.cuda.synchronize()
+    return y.detach(), grads, _counts()
+
+
+def _state(tmp_path, block_fwd, block_bwd, **kw):
+    from repro_torch.tune import cache
+
+    st = cache.CalibrationCache(entries={}, backend=cache.backend_of("cuda"))
+    ent = {"family": "spectral_fused", "shape": [8, 16, 16, 64, 64, 16, 16],
+           "dtype": "bfloat16", "backend": cache.backend_of("cuda"),
+           "kernel_version": sc.KERNEL_VERSION, "block_fwd": block_fwd,
+           "block_bwd": block_bwd, "validated": True}
+    ent.update(kw)
+    st.put(ent)
+    return str(cache.save(st, tmp_path / "state.json"))
+
+
+@pytest.fixture
+def calibration():
+    from repro_torch.tune import cache
+
+    cache.activate(None)
+    ops.reset_tile_resolution_stats()
+    yield cache
+    cache.activate(None)
+
+
+@pytest.mark.parametrize("tiles", [(2, 1), (4, 2), (1, 8)])
+def test_a_seeded_entry_multiplies_the_fused_launches(cuda, calibration, tmp_path, tiles):
+    """The entry's tiles reach the launches: B / tile launches a layer each
+    way, the forward bit-identical to the heuristics'."""
+    y0, _, c0 = _fused_layer_step(cuda)
+    heur = sc.pick_block_b(8, 16, 16, (64, 64), (16, 16))
+    assert (c0["launches_fused_fwd"], c0["launches_fused_bwd"]) == (8 // heur,) * 2
+    calibration.activate(_state(tmp_path, *tiles))
+    y1, _, c1 = _fused_layer_step(cuda)
+    assert (c1["launches_fused_fwd"], c1["launches_fused_bwd"]) == (8 // tiles[0],
+                                                                   8 // tiles[1])
+    assert torch.equal(y0, y1)
+    assert ops.tile_resolution_stats()["sources"]["calibrated"] == 1
+
+
+@pytest.mark.parametrize("defect", [{"kernel_version": 1}, {"backend": "another card"},
+                                    {"block_fwd": 16}, {"block_bwd": 16},
+                                    {"validated": False}])
+def test_a_stale_or_oversized_entry_leaves_every_launch_as_it_was(cuda, calibration, tmp_path,
+                                                                  defect):
+    y0, g0, c0 = _fused_layer_step(cuda)
+    calibration.activate(_state(tmp_path, **{"block_fwd": 2, "block_bwd": 2, **defect}))
+    y1, g1, c1 = _fused_layer_step(cuda)
+    assert c1 == c0
+    assert torch.equal(y0, y1) and all(torch.equal(a, b) for a, b in zip(g0, g1, strict=True))
+    assert ops.tile_resolution_stats()["sources"] == {"heuristic": 2, "calibrated": 0}
+
+
+@pytest.mark.parametrize("key", [("spectral_fused", (8, 64, 64, 128, 128, 32, 32), "bfloat16"),
+                                 ("lshared", (8, 64, 64, 128, 128), "bfloat16")], ids=_tune_id)
+def test_measure_on_the_card(cuda, key):
+    from repro_torch.tune import measure, space
+
+    family, shape, dtype = key
+    hf, hb = ops.heuristic_blocks(family, shape, dtype, cuda)
+    perf = measure.measure(space.Candidate(family, shape, dtype, hf, hb), device=cuda, iters=3)
+    assert perf["wall_us"] > 0 and perf["interpret"] is False
+    assert 0 < perf["roofline_fraction"] <= 1.05
+
+
+def test_the_oracle_admits_the_heuristic_and_refuses_a_perturbed_output(cuda):
+    from repro_torch.tune import oracle, space
+
+    for family, shape, dtype in (("spectral_fused", (4, 8, 8, 32, 32, 8, 8), "bfloat16"),
+                                 ("lshared", (4, 16, 16, 12, 140), "bfloat16")):
+        hf, hb = ops.heuristic_blocks(family, shape, dtype, cuda)
+        cand = space.Candidate(family, shape, dtype, hf, hb)
+        assert oracle.check(cand, device=cuda)["passed"]
+        assert not oracle.check(cand, device=cuda, perturb=2.0)["passed"]
+
+
+def test_engine_serves_calibrated_tiles_bit_identically(cuda, calibration, tmp_path):
+    """OperatorEngine(calibration_state=) on the card: a seeded entry at the
+    engine's fused key changes its launches, not its answers."""
+    from repro_torch.tune import cache
+
+    net = init_fno(torch.Generator().manual_seed(0), FNO_DARCY_SMOKE)
+    fields = [np.random.RandomState(i).randn(1, 32, 32).astype(np.float32) for i in range(4)]
+    key = [4, 16, 16, 32, 32, *FNO_DARCY_SMOKE.modes]
+    st = cache.CalibrationCache(entries={}, backend=cache.backend_of(cuda))
+    st.put({"family": "spectral_fused", "shape": key, "dtype": "float32",
+            "backend": cache.backend_of(cuda), "kernel_version": sc.KERNEL_VERSION,
+            "block_fwd": 1, "block_bwd": 1, "validated": True})
+    path = str(cache.save(st, tmp_path / "engine.json"))
+    out = {}
+    for state in (None, path):
+        calibration.activate(None)
+        engine = OperatorEngine(net, max_batch=4, calibration_state=state)
+        reqs = [FieldRequest(uid=i, x=x) for i, x in enumerate(fields)]
+        for r in reqs:
+            engine.submit(r)
+        _zero_counts()
+        engine.drain()
+        torch.cuda.synchronize()
+        out[state] = ([r.y for r in reqs], _counts()["launches_fused_fwd"],
+                      engine.stats()["tiles"])
+    (y0, n0, _), (y1, n1, tiles) = out[None], out[path]
+    assert all(np.array_equal(a, b) for a, b in zip(y0, y1, strict=True))
+    assert (n0, n1) == (FNO_DARCY_SMOKE.n_layers, 4 * FNO_DARCY_SMOKE.n_layers)
+    assert tiles["cache"] == {"hits": FNO_DARCY_SMOKE.n_layers, "misses": 0, "stale": 0}

@@ -159,9 +159,18 @@ def test_scheduler_policies():
         Scheduler("lifo")
 
 
-def test_engine_refuses_what_is_not_ported_or_misplaced(net, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(net, calibration_state="state.json")
+def test_engine_refuses_what_is_not_ported_or_misplaced(net, monkeypatch, tmp_path):
+    """``calibration_state`` is ported now (the test keeps its name): the
+    engine activates the state and reports it; the refusals stay."""
+    from repro_torch.tune import cache
+
+    path = str(cache.save(cache.CalibrationCache(entries={}, backend="cpu"),
+                          tmp_path / "state.json"))
+    try:
+        tiles = _engine(net, calibration_state=path).stats()["tiles"]
+        assert tiles["calibration_state"] == path and cache.active_cache().path == path
+    finally:
+        cache.activate(None)
     # telemetry is ported: the engine collects it (tests/test_torch_autoprec.py)
     assert "numerics" in _engine(net, telemetry=True).stats()
     with pytest.raises(ValueError, match="model must be"):

@@ -528,10 +528,34 @@ def test_sfno_engine_serves_batched_as_solo_and_refuses_other_grids():
     assert engine.stats()["model"] == "sfno"
 
 
-def test_sfno_engine_refuses_what_is_not_ported_or_mismatched():
+def test_sfno_engine_refuses_what_is_not_ported_or_mismatched(tmp_path):
+    """``calibration_state`` is ported now (the test keeps its name): the
+    engine activates the state and serves the order-shared layer at its
+    tiles; the mismatch refusals stay."""
+    from repro_torch.kernels import ops
+    from repro_torch.tune import cache
+
     net = init_sfno(torch.Generator().manual_seed(0), SFNO_SWE_SMOKE, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OperatorEngine(net, model="sfno", device="cpu", calibration_state="s.json")
+    L, M = net.cfg.lmax, net.cfg.mmax
+    key = (2, net.cfg.hidden_channels, net.cfg.hidden_channels, L, M)
+    state = cache.CalibrationCache(entries={}, backend="cpu")
+    state.put({"family": "lshared", "shape": list(key), "dtype": "float32", "backend": "cpu",
+               "kernel_version": cache.KERNEL_VERSION, "block_fwd": 1, "block_bwd": 1,
+               "validated": True})
+    path = str(cache.save(state, tmp_path / "s.json"))
+    try:
+        engine = OperatorEngine(net, model="sfno", device="cpu", calibration_state=path,
+                                max_batch=2)
+        x = np.random.RandomState(0).randn(3, 16, 32).astype(np.float32)
+        engine.submit(FieldRequest(uid=0, x=x))
+        engine.drain()
+        tiles = engine.stats()["tiles"]
+        assert tiles["calibration_state"] == path
+        assert tiles["cache"] == {"hits": net.cfg.n_layers, "misses": 0, "stale": 0}
+        assert tiles["sources"]["calibrated"] >= net.cfg.n_layers
+    finally:
+        cache.activate(None)
+        ops.reset_tile_resolution_stats()
     # telemetry is ported: the engine collects it (tests/test_torch_autoprec.py)
     assert "numerics" in OperatorEngine(net, model="sfno", device="cpu",
                                         telemetry=True).stats()

@@ -632,10 +632,37 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [{"calibration_state": "x.json"}, {"obs": True}])
-def test_unported_trainer_options_raise(option):
+def test_unported_trainer_options_raise(option, tmp_path):
+    """Both options are ported now (the test keeps its name): a calibration
+    state is activated at construction and serves the tuned tiles, and
+    ``obs`` turns the trace ring on and records the step's spans and
+    metrics."""
+    from repro_torch import obs
+    from repro_torch.tune import cache
+
     net = init_fno(torch.Generator().manual_seed(0), FNO_DARCY_SMOKE, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(_tloss, net, TrainerConfig(**option), device="cpu")
+    if "calibration_state" in option:
+        state = cache.CalibrationCache(entries={}, backend="cpu")
+        option = {"calibration_state": str(cache.save(state, tmp_path / option[
+            "calibration_state"]))}
+    obs.trace.disable()
+    obs.trace.clear()
+    try:
+        tt = Trainer(_tloss, net, TrainerConfig(total_steps=2, **option), device="cpu")
+        tt.run(lambda s: _batches(2)[s])
+        if "calibration_state" in option:
+            assert cache.active_cache().path == option["calibration_state"]
+            assert not obs.trace.is_enabled()
+        else:
+            assert obs.trace.is_enabled()
+            steps = [r for r in obs.trace.snapshot() if r["name"] == "train/step"]
+            assert [r["attrs"]["step"] for r in steps] == [0, 1]
+            assert obs.registry().snapshot()["gauges"]["repro_train_step"] == 2.0
+        assert len(tt.history) == 2 and np.isfinite([h["loss"] for h in tt.history]).all()
+    finally:
+        cache.activate(None)
+        obs.trace.disable()
+        obs.trace.clear()
 
 
 @pytest.mark.parametrize("option", ["telemetry", "autoprec", "auto_schedule"])
