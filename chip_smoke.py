@@ -163,6 +163,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    the timeline with its ε budget.  The median step and tick with tracing
    on and off are printed (no gate); the run log and Chrome trace are
    written under ``build/``.
+8g. Static analysis: ``repro_torch.analyze`` in this process on the card.
+   The dtype-flow matrix (8 policies x FNO, TFNO and SFNO at the
+   analyzer's tiny configs, staged and, for the dense FNO, fused, plus one
+   ``Trainer`` step per policy and path) records every ATen op and kernel
+   launch; the kernels pass runs every spectral family's launchers at the
+   reference's and the paths' shapes, the launch recorder delegating to
+   the real launches, and holds each plan's shared memory to the
+   library's own export.  Then ``FNO_DARCY`` at full width under
+   ``mixed_fno_bf16``, fused (the default) and staged
+   (``fuse_spectral=False``): one ``OperatorEngine`` micro-batch of 8 at
+   128² and one ``Trainer`` step on phase 5's pairs, each without and with
+   the recorder.  Gates: no unsuppressed error; every
+   ``fno/layer<i>/spectral/contract`` site of those runs carries
+   ``fused_fwd`` (and in the step ``fused_bwd``) records rounding to bf16
+   on the fused path, and the dense kernels' records on the staged one,
+   backward ones attributed from the autograd engine's device thread;
+   every plan equal to its export; the served fields, the loss and the
+   stepped parameters bit-identical with and without the recorder.
 9. Numbers: each kernel's time (CUDA graph of many launches, operands
    cycled through more than L2 holds) beside its bound (bytes at the HBM
    rate; half x half products at the bf16/fp16 tensor-core rate, the rest
@@ -2157,6 +2175,123 @@ def obs_phase(sc, data):
             "fused_bwd": sum(b for _, b in off_launches + on_launches)}
 
 
+# -- phase 8g: static analysis --------------------------------------------------------------
+def _analyze_step(data, fused):
+    """One ``mixed_fno_bf16`` Trainer step of ``FNO_DARCY`` (``fuse_spectral``
+    None, fused on the card, or False) on phase 5's first batch: the loss
+    and the stepped parameters."""
+    import dataclasses
+
+    from repro_torch.configs.fno_paper import FNO_DARCY
+    from repro_torch.core.schedule import PrecisionSchedule
+    from repro_torch.data import CachedDataset
+    from repro_torch.models import init_fno
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(FNO_DARCY, fuse_spectral=None if fused else False)
+    net = init_fno(torch.Generator().manual_seed(SEED + 1), cfg, device="cpu")
+    trainer = Trainer(loss_l2, net, TrainerConfig(
+        total_steps=1, schedule=PrecisionSchedule.constant("mixed_fno_bf16")))
+    hist = trainer.run(CachedDataset(data, TRAIN_BATCH, seed=SEED).batch_at, steps=1)
+    torch.cuda.synchronize()
+    return hist[0]["loss"], [p.detach().clone() for p in trainer.params.values()]
+
+
+def analyze_phase(sc, data):
+    """``repro_torch.analyze`` on the card (phase 8g of the module docstring).
+    Returns the full-width runs' launches."""
+    import dataclasses
+    from collections import Counter
+
+    from repro_torch.analyze import analyze_records, load_suppressions, partition, recording
+    from repro_torch.analyze import kernels as akernels
+    from repro_torch.analyze.__main__ import DEFAULT_SUPPRESSIONS, MODELS, run_dataflow
+    from repro_torch.configs.fno_paper import FNO_DARCY
+    from repro_torch.data import grf_2d
+    from repro_torch.models import init_fno
+    from repro_torch.precision import POLICIES, get_policy
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    findings = run_dataflow(sorted(POLICIES), list(MODELS), (False, True), True, dev)
+    t_dataflow = time.perf_counter() - t0
+    traces = akernels.trace_families(dev)
+    findings += akernels.kernels_pass(dev, traces)
+    plans = [(tr.where, la.name, akernels.plan_bytes(la), akernels.library_bytes(la))
+             for tr in traces for la in tr.launches if akernels.plan_bytes(la) is not None]
+    t_kernels = time.perf_counter() - t0 - t_dataflow
+
+    policy = get_policy("mixed_fno_bf16")
+    layers = FNO_DARCY.n_layers
+    fields = list(grf_2d(torch.Generator().manual_seed(SEED + 70), TRAIN_GRID,
+                         batch=MAX_BATCH).numpy()[:, None])
+    zero_counts(sc)
+    identical, records_by = {}, {}
+    for path, fused in (("fused", True), ("staged", False)):
+        cfg = dataclasses.replace(FNO_DARCY, fuse_spectral=None if fused else False)
+        net = init_fno(torch.Generator().manual_seed(SEED), cfg)
+        y0, _, _, _ = _serve_fields(sc, net, fields, None, policy)
+        loss0, params0 = _analyze_step(data, fused)
+        with recording() as rec:
+            y1, _, _, _ = _serve_fields(sc, net, fields, None, policy)
+            n_serve = len(rec.records)
+            loss1, params1 = _analyze_step(data, fused)
+        findings += analyze_records(rec.records, policy, f"FNO_DARCY/{policy.name}/{path}")
+        identical[path] = (all(np.array_equal(a, b) for a, b in zip(y0, y1, strict=True))
+                           and loss0 == loss1
+                           and all(torch.equal(a, b) for a, b in zip(params0, params1,
+                                                                     strict=True)))
+        want = ({"serve": {"spectral_fused_fwd"},
+                 "train": {"spectral_fused_fwd", "spectral_fused_bwd"}} if fused else
+                {"serve": {"spectral_contract_dense_fwd"},
+                 "train": {"spectral_contract_dense_fwd", "spectral_contract_dense_bwd_x",
+                           "spectral_contract_dense_bwd_w"}})
+        got = {}
+        for part, recs in (("serve", rec.records[:n_serve]), ("train", rec.records[n_serve:])):
+            for i in range(layers):
+                site = f"fno/layer{i}/spectral/contract"
+                got[(part, site)] = {r.op for r in recs if r.kernel and r.site == site
+                                     and r.cast_to == torch.bfloat16}
+                if got[(part, site)] != want[part]:
+                    fail(f"analyze: {path} {part} records at {site} round to bf16 through "
+                         f"{sorted(got[(part, site)])}, want {sorted(want[part])}")
+        records_by[path] = {
+            "kernel": dict(Counter(r.op for r in rec.records if r.kernel)),
+            "backward_aten": sum(1 for r in rec.records if r.backward and not r.kernel),
+            "backward_kernel": sum(1 for r in rec.records if r.backward and r.kernel),
+            "ops": len(rec.records)}
+    torch.cuda.synchronize()
+    full = counts(sc)
+
+    active, suppressed = partition(findings, load_suppressions(DEFAULT_SUPPRESSIONS))
+    errors = [f for f in active if f.severity == "error"]
+    mismatched = [p for p in plans if p[2] != p[3]]
+    optin = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", None)
+    emit("analyze", seconds=time.perf_counter() - t0, dataflow_seconds=t_dataflow,
+         kernels_seconds=t_kernels,
+         findings=dict(Counter(f"{f.pass_name}/{f.check}/{f.severity}" for f in active)),
+         suppressed=dict(Counter(f"{f.pass_name}/{f.check}" for f in suppressed)),
+         errors=[f.to_json() for f in errors[:10]], records=records_by,
+         kernel_traces=len(traces),
+         kernel_launches=dict(Counter(la.name for tr in traces for la in tr.launches)),
+         plans_compared=len(plans), plan_mismatches=mismatched[:10],
+         smem_limit=sc.SMEM_LIMIT, smem_optin=optin, bit_identical=identical,
+         launches=full)
+    if errors:
+        fail(f"analyze: {len(errors)} unsuppressed error(s), e.g. {errors[0]}")
+    if not plans or mismatched:
+        fail(f"analyze: {len(mismatched)} of {len(plans)} plans differ from the library's "
+             f"export, e.g. {mismatched[:3]}")
+    if not all(identical.values()):
+        fail(f"analyze: results with the recorder differ from those without: {identical}")
+    if any(records_by[p]["backward_kernel"] == 0 or records_by[p]["backward_aten"] == 0
+           for p in records_by):
+        fail(f"analyze: no backward op recorded on the device thread: {records_by}")
+    return {"fwd": full["launches"], "bwd_x": full["launches_bwd_x"],
+            "bwd_w": full["launches_bwd_w"], "fused_fwd": full["launches_fused_fwd"],
+            "fused_bwd": full["launches_fused_bwd"]}
+
+
 # -- phase 9 ------------------------------------------------------------------
 def graph_ms(fn, sets, iters=40):
     """Device ms per call of ``fn``: ``iters`` calls cycling through
@@ -2747,22 +2882,23 @@ def main():
     auto = autoprec_phase(sc, darcy)
     tuned = tune_phase(sc, darcy, card)
     observed = obs_phase(sc, darcy)
+    analyzed = analyze_phase(sc, darcy)
     del darcy
-    launches = {"fwd": served + trained["fwd"] + gino["fwd"] + auto["fwd"],
-                "bwd_x": trained["bwd_x"] + gino["bwd_x"] + auto["bwd_x"],
-                "bwd_w": trained["bwd_w"] + gino["bwd_w"] + auto["bwd_w"],
+    launches = {"fwd": served + trained["fwd"] + gino["fwd"] + auto["fwd"] + analyzed["fwd"],
+                "bwd_x": trained["bwd_x"] + gino["bwd_x"] + auto["bwd_x"] + analyzed["bwd_x"],
+                "bwd_w": trained["bwd_w"] + gino["bwd_w"] + auto["bwd_w"] + analyzed["bwd_w"],
                 "cp_fwd": tfno_served + tfno_trained["cp_fwd"],
                 "cp_bwd": tfno_trained["cp_bwd"], "ls_fwd": sfno_served + sfno_trained["ls_fwd"],
                 "ls_bwd_x": sfno_trained["ls_bwd_x"], "ls_bwd_w": sfno_trained["ls_bwd_w"],
                 "fused_fwd": fused_served + fused_trained["fused_fwd"] + gino["fused_fwd"]
-                + tuned["fused_fwd"] + observed["fused_fwd"],
+                + tuned["fused_fwd"] + observed["fused_fwd"] + analyzed["fused_fwd"],
                 "fused_bwd": fused_trained["fused_bwd"] + gino["fused_bwd"]
-                + tuned["fused_bwd"] + observed["fused_bwd"]}
+                + tuned["fused_bwd"] + observed["fused_bwd"] + analyzed["fused_bwd"]}
     emit("launches_by_path", serve={"fwd": served}, train=trained,
          fused_serve={"fused_fwd": fused_served}, fused_train=fused_trained,
          tfno_serve={"cp_fwd": tfno_served}, tfno_train=tfno_trained,
          sfno_serve={"ls_fwd": sfno_served}, sfno_train=sfno_trained, gino=gino,
-         autoprec=auto, tune=tuned, obs=observed)
+         autoprec=auto, tune=tuned, obs=observed, analyze=analyzed)
     entries = (timing_phase(sc, max_err, launches) + cp_timing_phase(sc, max_err, launches)
                + ls_timing_phase(sc, max_err, launches)
                + fused_timing_phase(sc, max_err, launches) + lm_kernel_phase())

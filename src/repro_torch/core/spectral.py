@@ -23,7 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.autoprec.telemetry import fmt_of, tap
-from repro_torch.precision import FULL, PrecisionPolicy
+from repro_torch.precision import FULL, PrecisionPolicy, site_scope
 
 
 def _n_corners(ndim: int) -> int:
@@ -242,13 +242,15 @@ def spectral_conv_apply(
     #    reads their real part, cuFFT does not.  Invert the other axes,
     #    keep those bins' real part, then run the C2R on the last axis, so
     #    every device computes what the reference does.
-    y = torch.fft.ifftn(out_f, dim=dims[:-1]) if ndim > 1 else out_f
-    n = spatial[-1]
-    edge = [0, n // 2] if n % 2 == 0 else [0]
-    y.imag[..., edge] = 0.0
-    y = torch.fft.irfft(y, n=n, dim=-1)
-    tap(f"{site}/fft_out", y, fmt=fmt_of(fft_out))
-    if fft_out.spectral_is_half:
-        # the iFFT output also lives at half precision in the paper's pipeline
-        y = y.to(fft_out.compute_dtype)
-    return y.to(in_dtype)
+    #    The block runs in the ``fft_out`` site's scope.
+    with site_scope(f"{site}/fft_out"):
+        y = torch.fft.ifftn(out_f, dim=dims[:-1]) if ndim > 1 else out_f
+        n = spatial[-1]
+        edge = [0, n // 2] if n % 2 == 0 else [0]
+        y.imag[..., edge] = 0.0
+        y = torch.fft.irfft(y, n=n, dim=-1)
+        tap(f"{site}/fft_out", y, fmt=fmt_of(fft_out))
+        if fft_out.spectral_is_half:
+            # the iFFT output also lives at half precision in the paper's pipeline
+            y = y.to(fft_out.compute_dtype)
+        return y.to(in_dtype)

@@ -4,7 +4,11 @@ Each CUDA source under ``csrc/`` exposes a plain C interface.  ``build``
 compiles it with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/repro_torch_kernels/`` at the repository root; ``_bind`` loads the
 library with ``ctypes`` and declares each launcher's arguments; ``_call``
-launches on PyTorch's current stream and raises on a launch error.
+launches on PyTorch's current stream and raises on a launch error.  Each
+launcher hands ``_call`` a ``LaunchIO``, what the launch reads and writes,
+which ``_call`` passes to ``launch_hook`` where one is set (the dtype-flow
+recorder of ``repro_torch.analyze``): a launch is invisible to PyTorch's
+dispatcher, so this is where the recorder sees it.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -78,7 +82,29 @@ def _bind(source: Path, **signatures: Tuple[int, ...]) -> ctypes.CDLL:
     return lib
 
 
-def _call(fn, name, device, *args):
+class LaunchIO(NamedTuple):
+    """What one launch reads and writes: the operand and output tensors,
+    the grid the kernel rounds its operands onto as it loads them
+    (``cast_to``; None: none) and the simulated fp8 grid it rounds the
+    spectrum onto first (``sim_fmt``).  Every kernel of the port sums in
+    f32."""
+
+    operands: Tuple[torch.Tensor, ...]
+    outputs: Tuple[torch.Tensor, ...]
+    cast_to: Optional[torch.dtype] = None
+    sim_fmt: Optional[str] = None
+
+
+#: called as ``launch_hook(name, io)`` before each launch, where set; None
+#: costs one check a launch.  The port's launchers all pass ``io``; a
+#: hook refuses a launch without it.
+launch_hook = None
+
+
+def _call(fn, name, device, *args, io: Optional[LaunchIO] = None):
+    hook = launch_hook
+    if hook is not None:
+        hook(name, io)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*args, stream)

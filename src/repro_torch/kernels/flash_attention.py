@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from .build import CSRC, _bind, _call
+from .build import CSRC, LaunchIO, _bind, _call
 
 #: kernel launches since the count was last set to 0
 launches_flash = 0
@@ -142,7 +142,7 @@ def _launch(q, k, v, causal, block_k):
         return out
     _call(_library().flash_attention_fwd, "flash_attention_fwd", q.device, q.data_ptr(),
           k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S, k.shape[1], D, int(block_k),
-          int(causal), _FMT[q.dtype], 1.0 / (D ** 0.5))
+          int(causal), _FMT[q.dtype], 1.0 / (D ** 0.5), io=LaunchIO((q, k, v), (out,)))
     launches_flash += 1
     return out
 

@@ -16,7 +16,10 @@ contract -> irFFT pipeline through ``FusedSpectral``, on the weight that
 ``fused_spectral_viable`` decide, from the device, shapes, policy and
 whether an autoprec collector is active, when ``core.spectral`` takes it.
 The three contraction wrappers tap their spectrum at the contract site, as
-``SitePrecision.contract`` does on the einsum path.  ``flash_attention``
+``SitePrecision.contract`` does on the einsum path, and call their Function
+inside ``site_scope`` of that site (``spectral_conv_fused``: of its contract
+site), so ``repro_torch.analyze`` attributes the launches, forward and
+backward, to it.  ``flash_attention``
 and ``rmsnorm`` are the LM pool's substrate kernels behind the reference's
 entry points; no model calls them.
 
@@ -45,7 +48,7 @@ import torch
 from repro_torch.autoprec.telemetry import fmt_of, tap, telemetry_active
 from repro_torch.core.precision import dtype_name
 from repro_torch.obs import registry
-from repro_torch.precision import FULL, PrecisionPolicy
+from repro_torch.precision import FULL, PrecisionPolicy, site_scope
 
 from . import flash_attention as _flash
 from . import rmsnorm as _rmsnorm
@@ -230,9 +233,10 @@ def spectral_contract(
                      half or torch.float32)
     xr = x.real.reshape(B, I, M).contiguous()
     xi = x.imag.reshape(B, I, M).contiguous()
-    out_re, out_im = DenseContract.apply(
-        xr, xi, w_re.reshape(I, O, M), w_im.reshape(I, O, M),
-        half, half or torch.float32)
+    with site_scope(policy.site):
+        out_re, out_im = DenseContract.apply(
+            xr, xi, w_re.reshape(I, O, M), w_im.reshape(I, O, M),
+            half, half or torch.float32)
     return torch.complex(out_re.float(), out_im.float()).reshape(B, O, *modes)
 
 
@@ -285,8 +289,9 @@ def spectral_contract_cp(
     O, R = uo.shape
     _obs_kernel_call("cp", (B, I, O, R, M), half)
 
-    out_re, out_im = CPContract.apply(*_pair(x.reshape(B, I, M), half), *_pair(ui, half),
-                                      *_pair(uo, half), *_pair(w, half))
+    with site_scope(policy.site):
+        out_re, out_im = CPContract.apply(*_pair(x.reshape(B, I, M), half), *_pair(ui, half),
+                                          *_pair(uo, half), *_pair(w, half))
     return torch.complex(out_re.float(), out_im.float()).reshape(B, O, *modes)
 
 
@@ -318,8 +323,9 @@ def spectral_contract_lshared(
     splits_fwd, splits_bwd, _src = _resolve_blocks(
         "lshared", key, half, lambda: heuristic_blocks("lshared", key, half, x.device),
         x.device)
-    out_re, out_im = LSharedContract.apply(*_pair(x, half), *_pair(w, half),
-                                           splits_fwd, splits_bwd)
+    with site_scope(policy.site):
+        out_re, out_im = LSharedContract.apply(*_pair(x, half), *_pair(w, half),
+                                               splits_fwd, splits_bwd)
     return torch.complex(out_re.float(), out_im.float())
 
 
@@ -441,8 +447,9 @@ def spectral_conv_fused(x: torch.Tensor, w_re: torch.Tensor, w_im: torch.Tensor,
     block_fwd, block_bwd, _src = _resolve_blocks(
         "spectral_fused", key, half, lambda: heuristic_blocks("spectral_fused", key, half),
         x.device)
-    y = FusedSpectral.apply(x.float().contiguous(), wgr.contiguous(), wgi.contiguous(),
-                            modes, cast_to, sim_fmt, block_fwd, block_bwd)
+    with site_scope(ctr.site):
+        y = FusedSpectral.apply(x.float().contiguous(), wgr.contiguous(), wgi.contiguous(),
+                                modes, cast_to, sim_fmt, block_fwd, block_bwd)
     if fft_out.spectral_is_half:
         y = y.to(fft_out.compute_dtype)
     return y.to(in_dtype)

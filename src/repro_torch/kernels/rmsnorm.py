@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from .build import CSRC, _bind, _call
+from .build import CSRC, LaunchIO, _bind, _call
 
 #: kernel launches since the count was last set to 0
 launches_rmsnorm = 0
@@ -124,7 +124,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     plan = rmsnorm_plan(D, x.dtype, w.dtype, aligned)
     _call(_library().rmsnorm_fwd, "rmsnorm_fwd", x.device, x.data_ptr(), w.data_ptr(),
           y.data_ptr(), N, D, _FMT[x.dtype], _FMT[w.dtype], int(plan.vec), plan.chunks,
-          plan.warps_per_row, plan.waves, float(eps))
+          plan.warps_per_row, plan.waves, float(eps), io=LaunchIO((x, w), (y,)))
     launches_rmsnorm += 1
     return y
 

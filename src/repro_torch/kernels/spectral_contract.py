@@ -69,6 +69,7 @@ with ``ctypes``.  ``launches``, ``launches_bwd_x``, ``launches_bwd_w``,
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -78,7 +79,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from .build import BUILD_DIR, CSRC, NVCC_FLAGS, _bind, _call, build, digest  # noqa: F401
+from .build import BUILD_DIR, CSRC, NVCC_FLAGS, LaunchIO, _bind, _call, build, digest  # noqa: F401
 
 #: kernel launches since the counts were last set to 0
 launches = 0
@@ -285,7 +286,8 @@ def _launch_fwd(xr, xi, wr, wi, cast_to, out_dtype):
     _call(_library().spectral_contract_dense_fwd, "spectral_contract_dense_fwd",
           xr.device, xr.data_ptr(), xi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
           outr.data_ptr(), outi.data_ptr(), B, I, O, M,
-          _FMT[cast_to or torch.float32], _FMT[out_dtype])
+          _FMT[cast_to or torch.float32], _FMT[out_dtype],
+          io=LaunchIO((xr, xi, wr, wi), (outr, outi), cast_to))
     launches += 1
     return outr, outi
 
@@ -301,7 +303,8 @@ def _launch_bwd_x(gr, gi, wr, wi, cast_to):
     _call(_library_bwd().spectral_contract_dense_bwd_x, "spectral_contract_dense_bwd_x",
           wr.device, gr.data_ptr(), gi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
           dxr.data_ptr(), dxi.data_ptr(), B, I, O, M,
-          _FMT[cast_to or torch.float32], _FMT[gr.dtype])
+          _FMT[cast_to or torch.float32], _FMT[gr.dtype],
+          io=LaunchIO((gr, gi, wr, wi), (dxr, dxi), cast_to))
     launches_bwd_x += 1
     return dxr, dxi
 
@@ -317,7 +320,8 @@ def _launch_bwd_w(xr, xi, gr, gi, cast_to):
     _call(_library_bwd().spectral_contract_dense_bwd_w, "spectral_contract_dense_bwd_w",
           xr.device, xr.data_ptr(), xi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
           dwr.data_ptr(), dwi.data_ptr(), B, I, O, M,
-          _FMT[cast_to or torch.float32], _FMT[gr.dtype])
+          _FMT[cast_to or torch.float32], _FMT[gr.dtype],
+          io=LaunchIO((xr, xi, gr, gi), (dwr, dwi), cast_to))
     launches_bwd_w += 1
     return dwr, dwi
 
@@ -493,6 +497,20 @@ def _pad(n: int, k: int) -> int:
     return -(-n // k) * k
 
 
+def _on_card(device):
+    """``torch.cuda.device(device)`` for a card; nothing to enter for a
+    tensor elsewhere (``repro_torch.analyze.kernels.record_launches``
+    plans launches on CPU tensors)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _sm_count(device) -> int:
+    """The SMs of ``device``'s card; an H100's for a tensor elsewhere."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return H100_SMS
+
+
 class CPFwdPlan(NamedTuple):
     """``cp_fwd``'s launch plan: the factors resident in shared memory
     (copied once a block) or streamed a chunk an item, and the bytes of
@@ -583,7 +601,8 @@ def _launch_cp_fwd(xr, xi, uir, uii, uor, uoi, wr, wi):
     plan = cp_fwd_plan(I, O, R, xr.dtype)
     ptrs = [t.data_ptr() for t in (xr, xi, uir, uii, uor, uoi, wr, wi, outr, outi)]
     _call(_library_cp().spectral_contract_cp_fwd, "spectral_contract_cp_fwd",
-          xr.device, *ptrs, B, I, O, R, M, int(plan.resident), _FMT[xr.dtype])
+          xr.device, *ptrs, B, I, O, R, M, int(plan.resident), _FMT[xr.dtype],
+          io=LaunchIO((xr, xi, uir, uii, uor, uoi, wr, wi), (outr, outi)))
     launches_cp_fwd += 1
     return outr, outi
 
@@ -598,14 +617,15 @@ def _launch_cp_bwd(xr, xi, uir, uii, uor, uoi, wr, wi, gr, gi):
         return tuple(g.zero_() for g in grads)
     plan = cp_bwd_plan(I, O, R, xr.dtype)
     lib = _library_cp()
-    with torch.cuda.device(xr.device):
+    with _on_card(xr.device):
         floats = int(lib.spectral_contract_cp_bwd_workspace(B, I, O, R, M, _FMT[xr.dtype]))
     if floats < 0:
         raise RuntimeError("spectral_contract_cp_bwd: the device query for its grid failed")
     work = torch.empty(floats, dtype=torch.float32, device=xr.device)
     ptrs = [t.data_ptr() for t in (xr, xi, uir, uii, uor, uoi, wr, wi, gr, gi, *grads, work)]
     _call(lib.spectral_contract_cp_bwd, "spectral_contract_cp_bwd", xr.device,
-          *ptrs, B, I, O, R, M, plan.IC, plan.OC, int(plan.acc_smem), _FMT[xr.dtype])
+          *ptrs, B, I, O, R, M, plan.IC, plan.OC, int(plan.acc_smem), _FMT[xr.dtype],
+          io=LaunchIO((xr, xi, uir, uii, uor, uoi, wr, wi, gr, gi), tuple(grads)))
     launches_cp_bwd += 1
     return tuple(grads)
 
@@ -817,8 +837,7 @@ def _launch_mix(name, a_r, a_i, wr, wi, B, I, O, L, M, K, N, splits=None):
     outi = torch.empty_like(outr)
     if outr.numel() == 0:
         return outr, outi
-    plan = ls_plan(K, N, wr.dtype, B=B, L=L, M=M,
-                   sms=torch.cuda.get_device_properties(wr.device).multi_processor_count)
+    plan = ls_plan(K, N, wr.dtype, B=B, L=L, M=M, sms=_sm_count(wr.device))
     if splits is None:
         splits = plan.splits
     elif not 1 <= int(splits) <= ls_splits_max(B, M):
@@ -826,7 +845,8 @@ def _launch_mix(name, a_r, a_i, wr, wi, B, I, O, L, M, K, N, splits=None):
                          f"{ls_splits_max(B, M)} at B = {B}, M = {M}")
     _call(getattr(_library_ls(), name), name, wr.device,
           *(t.data_ptr() for t in (a_r, a_i, wr, wi, outr, outi)),
-          B, I, O, L, M, int(plan.resident), int(splits), _FMT[wr.dtype])
+          B, I, O, L, M, int(plan.resident), int(splits), _FMT[wr.dtype],
+          io=LaunchIO((a_r, a_i, wr, wi), (outr, outi)))
     return outr, outi
 
 
@@ -860,7 +880,7 @@ def _launch_ls_bwd_w(xr, xi, gr, gi):
         return dwr, dwi
     _call(_library_ls().spectral_contract_ls_bwd_w, "spectral_contract_ls_bwd_w",
           xr.device, *(t.data_ptr() for t in (xr, xi, gr, gi, dwr, dwi)),
-          B, I, O, L, M, _FMT[xr.dtype])
+          B, I, O, L, M, _FMT[xr.dtype], io=LaunchIO((xr, xi, gr, gi), (dwr, dwi)))
     launches_ls_bwd_w += 1
     return dwr, dwi
 
@@ -1301,10 +1321,12 @@ def _launch_fused_fwd(x, wgr, wgi, modes, cast_to, sim_fmt, block_b=None):
     lib, axes, fac, scratch = _fused_setup(x, modes, I, O, bb, backward=False)
     for b0 in range(0, B, bb):
         n = min(bb, B - b0)
+        xb, yb = x[b0:b0 + n], y[b0:b0 + n]
         _call(lib.spectral_fused_fwd, "spectral_fused_fwd", x.device,
-              x[b0:b0 + n].data_ptr(), wgr.data_ptr(), wgi.data_ptr(), fac.data_ptr(),
-              y[b0:b0 + n].data_ptr(), scratch.data_ptr(), n, I, O, *axes,
-              _FMT[cast_to or torch.float32], _SIM[sim_fmt])
+              xb.data_ptr(), wgr.data_ptr(), wgi.data_ptr(), fac.data_ptr(),
+              yb.data_ptr(), scratch.data_ptr(), n, I, O, *axes,
+              _FMT[cast_to or torch.float32], _SIM[sim_fmt],
+              io=LaunchIO((xb, wgr, wgi), (yb,), cast_to, sim_fmt))
         launches_fused_fwd += 1
     return y
 
@@ -1328,11 +1350,13 @@ def _launch_fused_bwd(x, wgr, wgi, g, modes, cast_to, sim_fmt, block_b=None):
     lib, axes, fac, scratch = _fused_setup(x, modes, I, O, bb, backward=True)
     for b0 in range(0, B, bb):
         n = min(bb, B - b0)
+        xb, gb, dxb = x[b0:b0 + n], g[b0:b0 + n], dx[b0:b0 + n]
         _call(lib.spectral_fused_bwd, "spectral_fused_bwd", x.device,
-              x[b0:b0 + n].data_ptr(), wgr.data_ptr(), wgi.data_ptr(), fac.data_ptr(),
-              g[b0:b0 + n].data_ptr(), dx[b0:b0 + n].data_ptr(), dwr.data_ptr(),
+              xb.data_ptr(), wgr.data_ptr(), wgi.data_ptr(), fac.data_ptr(),
+              gb.data_ptr(), dxb.data_ptr(), dwr.data_ptr(),
               dwi.data_ptr(), scratch.data_ptr(), n, I, O, *axes,
-              _FMT[cast_to or torch.float32], _SIM[sim_fmt], int(b0 > 0))
+              _FMT[cast_to or torch.float32], _SIM[sim_fmt], int(b0 > 0),
+              io=LaunchIO((xb, wgr, wgi, gb), (dxb, dwr, dwi), cast_to, sim_fmt))
         launches_fused_bwd += 1
     return dx, dwr, dwi
 

@@ -29,7 +29,7 @@ from torch import nn
 from repro_torch.autoprec.telemetry import fmt_of, tap
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.precision import FULL, PrecisionPolicy
+from repro_torch.precision import FULL, PrecisionPolicy, site_scope
 
 from .fno import _affine, _gelu, _linear, fno_infer
 from .sht import sht_forward, sht_inverse
@@ -60,11 +60,12 @@ def _spherical_conv(h: torch.Tensor, w_re: torch.Tensor, w_im: torch.Tensor,
     coeffs = sht_forward(fft_in.stabilize(h).float(), cfg.lmax, cfg.mmax,
                          precision=fft_in)                          # (B, C, l, m)
     out = kops.spectral_contract_lshared(coeffs, torch.complex(w_re, w_im), policy=ctr)
-    y = sht_inverse(out, cfg.nlat, cfg.nlon)
-    tap(f"{site}/fft_out", y, fmt=fmt_of(fft_out))
-    if fft_out.spectral_is_half:
-        y = y.to(fft_out.compute_dtype)
-    return y
+    with site_scope(f"{site}/fft_out"):
+        y = sht_inverse(out, cfg.nlat, cfg.nlon)
+        tap(f"{site}/fft_out", y, fmt=fmt_of(fft_out))
+        if fft_out.spectral_is_half:
+            y = y.to(fft_out.compute_dtype)
+        return y
 
 
 class SFNO(nn.Module):

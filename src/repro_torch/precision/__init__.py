@@ -5,6 +5,7 @@
   SiteRule / FULL_PRECISION / DEFAULT_RULES rule-table entries
   precision_rules(...)                      scoped overrides
   describe / CANONICAL_SITES                a policy's site table
+  site_scope / current_site                 the site the running code belongs to
 """
 from .rules import (  # noqa: F401
     DEFAULT_RULES,
@@ -14,6 +15,7 @@ from .rules import (  # noqa: F401
     precision_rules,
     resolve_fields,
 )
+from .scope import current_site, site_scope  # noqa: F401
 from .policy import (  # noqa: F401
     AMP_BF16,
     AMP_FP16,

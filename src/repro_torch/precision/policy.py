@@ -26,6 +26,7 @@ import torch
 from repro_torch.core.precision import dtype_name
 
 from .rules import Entry, SiteRule, normalize_entries, resolve_fields
+from .scope import site_scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +61,8 @@ class SitePrecision:
             return x
         from repro_torch.core.stabilizer import get_stabilizer
 
-        return get_stabilizer(self.stabilizer)(x)
+        with site_scope(self.site):
+            return get_stabilizer(self.stabilizer)(x)
 
     def quantize(self, c: torch.Tensor) -> torch.Tensor:
         """Round a complex tensor onto this site's storage grid: the half
@@ -78,11 +80,12 @@ class SitePrecision:
             return c
         from repro_torch.core.precision import quantize_complex, simulate_fp8
 
-        if self.quantize_fmt == "half":
-            q = quantize_complex(c, self.compute)
-        else:
-            q = torch.complex(simulate_fp8(c.real, self.quantize_fmt),
-                              simulate_fp8(c.imag, self.quantize_fmt))
+        with site_scope(self.site):
+            if self.quantize_fmt == "half":
+                q = quantize_complex(c, self.compute)
+            else:
+                q = torch.complex(simulate_fp8(c.real, self.quantize_fmt),
+                                  simulate_fp8(c.imag, self.quantize_fmt))
         tap(self.site, c, fmt=fmt_of(self), quantized=q)
         return q
 
@@ -95,7 +98,8 @@ class SitePrecision:
 
         if operands:
             tap(self.site, operands[0], fmt=fmt_of(self))
-        return contract(expr, *operands, policy=self, objective=objective, cache=cache)
+        with site_scope(self.site):
+            return contract(expr, *operands, policy=self, objective=objective, cache=cache)
 
 
 def resolve_site(site: str, rules: Tuple[Entry, ...]) -> SitePrecision:

@@ -1911,3 +1911,117 @@ def test_engine_serves_calibrated_tiles_bit_identically(cuda, calibration, tmp_p
     assert all(np.array_equal(a, b) for a, b in zip(y0, y1, strict=True))
     assert (n0, n1) == (FNO_DARCY_SMOKE.n_layers, 4 * FNO_DARCY_SMOKE.n_layers)
     assert tiles["cache"] == {"hits": FNO_DARCY_SMOKE.n_layers, "misses": 0, "stale": 0}
+
+
+# -- the static analyzer on the card -----------------------------------------------------
+
+
+def test_launch_recorder_delegating_keeps_outputs_bit_identical(cuda):
+    """``analyze.kernels.record_launches`` on the card records each launch
+    and runs it: the outputs equal the unrecorded launches' bit for bit."""
+    from repro_torch.analyze.kernels import record_launches
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    x, w = [r(3, 24, 300) for _ in range(2)], [r(24, 40, 300) for _ in range(2)]
+    cp = [r(*s, dtype=torch.bfloat16) for s in [(3, 24, 300)] * 2 + [(24, 17)] * 2
+          + [(40, 17)] * 2 + [(17, 300)] * 2]
+    lx = [r(3, 5, 37, 29, dtype=torch.float16) for _ in range(2)]
+    lw = [r(5, 7, 37, dtype=torch.float16) for _ in range(2)]
+    fx, fg = r(3, 5, 30), r(3, 7, 30)
+    fw = [r(5, 7, 16) for _ in range(2)]
+    calls = [lambda: sc._launch_fwd(*x, *w, torch.bfloat16, torch.bfloat16),
+             lambda: sc._launch_bwd_w(*x, *x, torch.float16),
+             lambda: sc._launch_cp_fwd(*cp),
+             lambda: sc._launch_ls_fwd(*lx, *lw),
+             lambda: sc._launch_fused_fwd(fx, *fw, (16,), torch.bfloat16, None, 2),
+             lambda: sc._launch_fused_bwd(fx, *fw, fg, (16,), torch.float16, "fp8_e4m3", 2)]
+    for call in calls:
+        want = call()
+        with record_launches(cuda) as launches:
+            got = call()
+        torch.cuda.synchronize()
+        want, got = (want,) if torch.is_tensor(want) else want, (got,) if torch.is_tensor(got) \
+            else got
+        assert launches and all(torch.equal(a, b) for a, b in zip(want, got, strict=True))
+
+
+def test_plans_equal_the_library_exports(cuda):
+    """Every plan the launchers make at the paths' shapes, and the CP and
+    order-shared plans at every width from 1 to 192, take the shared memory
+    the library's own export says."""
+    from repro_torch.analyze import kernels as ak
+
+    traces = ak.trace_families(cuda, shapes=(ak.PATH_SHAPES,))
+    plans = [(ak.plan_bytes(la), ak.library_bytes(la)) for tr in traces for la in tr.launches
+             if ak.plan_bytes(la) is not None]
+    assert len(plans) > 20 and all(p == lib for p, lib in plans)
+    for width in range(1, 193):
+        for fmt in (0, 1, 2):
+            for la in (ak.KernelLaunch("spectral_contract_cp_fwd",
+                                       (2, width, width, width, 40, int(width <= 64), fmt), None),
+                       ak.KernelLaunch("spectral_contract_cp_bwd",
+                                       (2, width, width, width, 40, 64, 64, 0, fmt), None),
+                       ak.KernelLaunch("spectral_contract_ls_fwd",
+                                       (2, width, 7, 12, 9, 1, 1, fmt), None),
+                       ak.KernelLaunch("spectral_contract_ls_bwd_x",
+                                       (2, 7, width, 12, 9, 0, 1, fmt), None)):
+                assert ak.plan_bytes(la) == ak.library_bytes(la), (la.name, width, fmt)
+    assert ak.kernels_pass(cuda, traces) == []
+
+
+def test_a_kernel_record_rounding_to_f32_is_fp32_resident(cuda):
+    """A dense launch with no cast inside a ``mixed_fno_bf16`` contract scope:
+    the demoted site never touches bf16."""
+    from repro_torch.analyze import analyze_records, recording
+    from repro_torch.precision import site_scope
+
+    policy = get_policy("mixed_fno_bf16")
+    site = "fno/layer0/spectral/contract"
+    ops_ = _operands(2, 8, 8, 40, cuda)
+    for cast_to, resident in ((None, True), (torch.bfloat16, False)):
+        with recording() as rec:
+            with site_scope(site):
+                sc._launch_fwd(*ops_, cast_to, cast_to or torch.float32)
+        checks = [f.check for f in analyze_records(rec.records, policy, "seeded")]
+        assert checks == (["fp32-resident"] if resident else [])
+        assert [r.op for r in rec.records if r.kernel] == ["spectral_contract_dense_fwd"]
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "staged"])
+def test_fno_darcy_forward_is_clean_on_the_card(cuda, fused):
+    """FNO_DARCY at full width, a batch of 2 at 128² under mixed_fno_bf16:
+    no unsuppressed error, one kernel record a layer rounding to bf16 at
+    its contract site (four dense ones staged: one a corner), and a step's
+    backward launches attributed to the same sites from the autograd
+    engine's device thread."""
+    import dataclasses
+
+    from repro_torch.analyze import analyze_records, load_suppressions, partition, recording
+    from repro_torch.analyze.__main__ import DEFAULT_SUPPRESSIONS
+    from repro_torch.configs.fno_paper import FNO_DARCY
+
+    cfg = dataclasses.replace(FNO_DARCY, fuse_spectral=None if fused else False)
+    net = init_fno(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 1, 128, 128).astype(np.float32))
+    policy = get_policy("mixed_fno_bf16")
+    with recording() as rec:
+        y = net(x.to(cuda), policy)
+        torch.autograd.grad(y.float().square().mean(), list(net.parameters()))
+        torch.cuda.synchronize()
+    active, _ = partition(analyze_records(rec.records, policy, "FNO_DARCY"),
+                          load_suppressions(DEFAULT_SUPPRESSIONS))
+    assert [f for f in active if f.severity == "error"] == []
+    fwd = "spectral_fused_fwd" if fused else "spectral_contract_dense_fwd"
+    bwd = {"spectral_fused_bwd"} if fused else {"spectral_contract_dense_bwd_x",
+                                                "spectral_contract_dense_bwd_w"}
+    for i in range(cfg.n_layers):
+        site = f"fno/layer{i}/spectral/contract"
+        at = [r for r in rec.records if r.kernel and r.site == site]
+        assert all(r.cast_to == torch.bfloat16 for r in at)
+        assert sum(r.op == fwd and not r.backward for r in at) == (1 if fused else 2)
+        assert {r.op for r in at if r.backward} == bwd
+    assert any(r.backward and not r.kernel for r in rec.records)
