@@ -216,9 +216,37 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``library_eager_ms``: the wrapper's host path included), flash
    attention with CUDA events.
 
+11. LM serving (no hand-written kernel on its path: the spectral, RMSNorm
+   and flash launch counts are set to 0 before it and must read 0 after).
+   smollm-360m at its full published width (32 layers, d 960, 15/5 heads
+   of 64, d_ff 2560, vocab 49152, 362 M parameters), weights from a seeded
+   CUDA generator, served by ``LMEngine(n_slots=8, max_len=1024)`` at
+   chunk 8 under ``full`` and ``amp_bf16``: 16 seeded requests, prompts of
+   32-512 tokens, 32 new tokens each, 12 greedy and 4 sampled (T 0.8,
+   top-k 50, top-p 0.95).  Every logit finite.  Under ``full``: chunk 1
+   against chunk 8 on the 4 shortest greedy prompts, one greedy request
+   solo against batched, and a rerun of the whole traffic (generations and
+   every logits row bit for bit) are gated; under ``amp_bf16`` the chunk
+   agreement is printed, not gated (cuBLAS picks its GEMM by row count,
+   so a chunk and a token may differ in the last bits and flip a
+   near-tie).  One request (a 64-token prompt, 8 new tokens) on the card
+   against the same weights on the CPU: equal tokens and per-step logits
+   within 1e-4 relative L2 (f32 sum order).  Printed per policy, with the
+   card's name and power limit: prefill and decode tokens/s (prompt tokens
+   over the chunk ticks' time, generated tokens over the decode ticks'),
+   ms per prefill and decode tick (host clock; a tick ends in the logits'
+   copy to the host), peak ``max_memory_allocated`` (and the peak above
+   what was allocated when the engine was built), and the profiled
+   device idle share of one decode tick with all 8 slots decoding.  Then
+   every other decoder arch's SMOKE config (MoE without capacity drops)
+   against the CPU, decode against its forward, and engine chunk 1 == 4,
+   and Whisper's SMOKE encode and 8 decode steps against the CPU, each
+   within 1e-5 relative L2.
+
 The line before the last is ``{"kernels": [...]}`` (twelve kernels); the
 last is ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -305,6 +333,17 @@ TUNE_BATCHES, SEEDED_TILE = 16, 2
 FUSED_TIMED = ((8, 64, 64, (128, 128), (32, 32), 4, 40),
                (8, 64, 64, (421, 421), (32, 32), 2, 20),
                (GINO_BATCH, 64, 64, (32, 32, 32), (12, 12, 12), 2, 20))
+#: phase 11: smollm-360m at full width (src/repro/configs/smollm_360m.py:6-9)
+#: served by LMEngine(n_slots=8, max_len=1024) under each policy: 16 seeded
+#: requests, prompts of 32-512 tokens, 32 new tokens each; chunk 1 against
+#: 8 on the 4 shortest greedy prompts; card against CPU on one request of
+#: a 64-token prompt and 8 new tokens, per-step logits within f32 sum order
+LM_ARCH, LM_POLICIES = "smollm-360m", ("full", "amp_bf16")
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW, LM_PROMPTS = 8, 1024, 16, 32, (32, 512)
+LM_CHUNK_CHECK, LM_PARITY, LM_CARD_CPU_TOL = 4, (64, 8), 1e-4
+#: the other decoder archs' and Whisper's SMOKE configs, card against CPU
+#: and decode against forward, relative L2
+LM_SMOKE_TOL = 1e-5
 #: every kernel's launch count on ``repro_torch.kernels.spectral_contract``
 LAUNCH_COUNTERS = ("launches", "launches_bwd_x", "launches_bwd_w",
                    "launches_cp_fwd", "launches_cp_bwd", "launches_ls_fwd",
@@ -2853,6 +2892,293 @@ def lm_kernel_phase():
     return entries
 
 
+# -- phase 11: LM serving ----------------------------------------------------------------
+def lm_cpu_twin(model):
+    """The same weights as ``model`` (an LM or a Whisper) on the CPU."""
+    from repro_torch.models.lm.model import load_tree
+
+    return load_tree(type(model)(model.cfg),
+                     {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     torch.device("cpu"))
+
+
+def lm_traffic(cfg, seed):
+    """LM_REQUESTS seeded requests, prompts of LM_PROMPTS tokens and LM_NEW
+    new tokens each; every fourth samples (T 0.8, top-k 50, top-p 0.95),
+    the rest are greedy."""
+    from repro_torch.serve import GREEDY, SamplingParams
+
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(LM_PROMPTS[0], LM_PROMPTS[1] + 1, LM_REQUESTS)
+    sampled = SamplingParams(temperature=0.8, top_k=50, top_p=0.95)
+    return [([int(t) for t in rng.randint(1, cfg.vocab, n)], LM_NEW,
+             sampled if i % 4 == 3 else GREEDY) for i, n in enumerate(lens)]
+
+
+def lm_requests(traffic, uids=None, prompt_len=None):
+    from repro_torch.serve import Request
+
+    return [Request(uid=u, prompt=list(p[:prompt_len]), max_new_tokens=n, sampling=s)
+            for u, (p, n, s) in enumerate(traffic) if uids is None or u in uids]
+
+
+def lm_serve(engine, reqs):
+    """Serve ``reqs`` to the end, timing each tick by kind on the host clock
+    (a tick ends in the logits' copy to the host, which waits for the
+    card) with the prompt tokens it consumed and the tokens it emitted.
+    Returns uid -> generation and the ticks."""
+    ticks = {"prefill": [], "decode": []}
+    chunk, decode = engine._tick_chunk, engine._tick_decode
+
+    def timed(kind, fn):
+        def run():
+            p0, g0 = engine._n_prompt_tokens, engine._n_generated
+            t0 = time.perf_counter()
+            out = fn()
+            ticks[kind].append(((time.perf_counter() - t0) * 1e3,
+                                engine._n_prompt_tokens - p0, engine._n_generated - g0))
+            return out
+        return run
+
+    engine._tick_chunk, engine._tick_decode = timed("prefill", chunk), timed("decode", decode)
+    try:
+        done, _ = engine.run_until_done(reqs)
+    finally:
+        # back to the class's methods: no engine -> wrapper -> engine cycle
+        # keeps a finished engine's KV cache alive on the card
+        del engine._tick_chunk, engine._tick_decode
+    if len(done) != len(reqs) or any(r.status != "done" for r in done):
+        fail(f"LM serving: {sum(r.status == 'done' for r in done)} of {len(reqs)} requests done")
+    return {r.uid: list(r.generated) for r in done}, ticks
+
+
+def lm_rates(ticks):
+    pre, dec = np.array(ticks["prefill"] or [(0, 0, 0)]), np.array(ticks["decode"] or [(0, 0, 0)])
+    return {"prefill_ticks": len(ticks["prefill"]), "decode_ticks": len(ticks["decode"]),
+            "prefill_tokens_per_s": float(pre[:, 1].sum() / (pre[:, 0].sum() / 1e3)),
+            "decode_tokens_per_s": float(dec[:, 2].sum() / (dec[:, 0].sum() / 1e3)),
+            "ms_per_prefill_tick": float(pre[:, 0].mean()),
+            "ms_per_prefill_tick_median": float(np.median(pre[:, 0])),
+            "ms_per_decode_tick": float(dec[:, 0].mean()),
+            "ms_per_decode_tick_median": float(np.median(dec[:, 0]))}
+
+
+def lm_same_bits(a, b, uids):
+    return all(len(a.logits_for(u)) == len(b.logits_for(u))
+               and all(np.array_equal(x, y) for x, y in zip(a.logits_for(u), b.logits_for(u),
+                                                            strict=True)) for u in uids)
+
+
+def lm_smollm_phase(card):
+    """smollm-360m at full width through ``LMEngine`` under ``full`` and
+    ``amp_bf16`` (phase 11 of the module docstring).  Returns the
+    per-policy numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_lm
+    from repro_torch.precision import get_policy
+    from repro_torch.serve import GREEDY, LMEngine
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = init_lm(torch.Generator(device="cuda").manual_seed(SEED + 80), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    emit("lm_setup", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.hd], d_ff=cfg.d_ff, vocab=cfg.vocab,
+         params=n_params, param_bytes=4 * n_params, init_s=time.perf_counter() - t0)
+    traffic = lm_traffic(cfg, SEED + 81)
+    greedy = [u for u, (_, _, s) in enumerate(traffic) if s.temperature <= 0]
+    # the chunk check takes the shortest greedy prompts; solo is the next one
+    by_len = sorted(greedy, key=lambda u: len(traffic[u][0]))
+    chunk_uids, solo_uid = set(by_len[:LM_CHUNK_CHECK]), by_len[LM_CHUNK_CHECK]
+    rows = {}
+    for name in LM_POLICIES:
+        policy = get_policy(name)
+
+        def engine(chunk=8, slots=LM_SLOTS, record=True, policy=policy):
+            return LMEngine(model, cfg, n_slots=slots, max_len=LM_MAX_LEN, policy=policy,
+                            prefill_chunk=chunk, seed=SEED, telemetry=True,
+                            record_logits=record)
+
+        # warm-up (cuBLAS handles, allocator), then the timed run
+        lm_serve(engine(record=False), lm_requests(traffic, set(by_len[:2])))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # what earlier phases and the weights hold; the engine's own share
+        # is the peak above it
+        start = torch.cuda.memory_allocated()
+        eng = engine()
+        t0 = time.perf_counter()
+        gens, ticks = lm_serve(eng, lm_requests(traffic))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        stats = eng.stats()
+        finite = all(np.isfinite(x).all() for u in gens for x in eng.logits_for(u))
+        if not finite or stats["numerics"]["logits_nonfinite"]:
+            fail(f"LM serving under {name}: non-finite logits")
+        row = {"policy": name, "card": card, "requests": LM_REQUESTS, "slots": LM_SLOTS,
+               "max_len": LM_MAX_LEN, "prefill_chunk": 8,
+               "prompt_tokens": stats["prompt_tokens"],
+               "tokens_generated": stats["tokens_generated"], **lm_rates(ticks),
+               "wall_s": wall, "engine_tokens_per_s": stats["tokens_per_s"],
+               "peak_memory_bytes": peak, "memory_at_start_bytes": start,
+               "peak_above_start_bytes": peak - start, "weight_bytes": 4 * n_params,
+               "kv_cache_bytes": sum(t.numel() * t.element_size() for t in eng.cache.values()),
+               "logits_amax": stats["numerics"]["logits_amax"]}
+        # chunk 1 against chunk 8 on the shortest greedy prompts
+        one = engine(chunk=1)
+        gens1, _ = lm_serve(one, lm_requests(traffic, chunk_uids))
+        agree = sum(int(a == b) for u in chunk_uids
+                    for a, b in zip(gens1[u], gens[u], strict=True))
+        row["chunk1_vs_8_tokens_equal"] = [agree, LM_CHUNK_CHECK * LM_NEW]
+        if name == "full":
+            if any(gens1[u] != gens[u] for u in chunk_uids):
+                fail(f"LM serving under full: chunk 1 and 8 differ ({agree} tokens equal)")
+            solo = engine()
+            gs, _ = lm_serve(solo, lm_requests(traffic, {solo_uid}))
+            if gs[solo_uid] != gens[solo_uid]:
+                fail("LM serving under full: a request solo differs from it batched")
+            row["solo_vs_batched_logits_bit_identical"] = lm_same_bits(solo, eng, [solo_uid])
+            again = engine()
+            gens2, _ = lm_serve(again, lm_requests(traffic))
+            rerun = gens2 == gens and lm_same_bits(again, eng, range(LM_REQUESTS))
+            if not rerun:
+                fail("LM serving under full: a rerun of the traffic is not bit-identical")
+            row["rerun_bit_identical"] = rerun
+            del again, solo
+        del one, eng
+        # one decode tick with every slot decoding, under the profiler
+        prof_eng = engine(record=False)
+        for r in lm_requests(traffic, set(range(LM_SLOTS)), prompt_len=LM_PROMPTS[0]):
+            prof_eng.submit(r)
+        while prof_eng.scheduler.depth or any(prof_eng.slot_pending[i]
+                                              for i in range(LM_SLOTS)):
+            prof_eng.tick()
+        prof_eng.tick()
+        prof = profiled(prof_eng.tick)
+        row["decode_tick_profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                           "device_events", "idle_share", "top")}
+        del prof_eng
+        emit("lm_serve", **row)
+        rows[name] = row
+
+    # one request on the card against the same weights on the CPU
+    cpu = lm_cpu_twin(model)
+    rng = np.random.RandomState(SEED + 83)
+    prompt = [int(t) for t in rng.randint(1, cfg.vocab, LM_PARITY[0])]
+    got = {}
+    for dev, net in (("cuda", model), ("cpu", cpu)):
+        e = LMEngine(net, cfg, n_slots=1, max_len=LM_PARITY[0] + LM_PARITY[1],
+                     prefill_chunk=8, record_logits=True, device=dev)
+        gen, _ = lm_serve(e, lm_requests([(prompt, LM_PARITY[1], GREEDY)]))
+        got[dev] = (gen[0], e.logits_for(0))
+    errs = [rel_l2(a, b) for a, b in zip(got["cuda"][1], got["cpu"][1], strict=True)]
+    emit("lm_card_vs_cpu", card=card, prompt=LM_PARITY[0], new_tokens=LM_PARITY[1],
+         tokens_equal=got["cuda"][0] == got["cpu"][0], rel_l2_per_step=errs,
+         limit=LM_CARD_CPU_TOL)
+    if got["cuda"][0] != got["cpu"][0] or max(errs) > LM_CARD_CPU_TOL:
+        fail(f"LM serving card vs CPU: tokens equal {got['cuda'][0] == got['cpu'][0]}, "
+             f"rel L2 up to {max(errs):.3g} > {LM_CARD_CPU_TOL}")
+    del model, cpu
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lm_pool_phase():
+    """Every other decoder arch's SMOKE config on the card against the CPU
+    (forward), decode against the card's own forward, and engine chunk
+    agreement under ``full``; Whisper's SMOKE config: encode and 8 decode
+    steps against the CPU."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import LMEngine, Request
+
+    rows = []
+    for k, arch in enumerate(a for a in ARCH_IDS if a not in (LM_ARCH, "whisper-large-v3")):
+        cfg = get_config(arch, smoke=True)
+        if cfg.moe_experts:
+            # capacity drops depend on the dispatch batch (a 12-token forward
+            # may drop a token one decode row keeps): no drops here
+            cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+        model = lm.init_lm(torch.Generator().manual_seed(SEED + 90 + k), cfg)
+        cpu = lm_cpu_twin(model)
+        rng = np.random.RandomState(SEED + 90 + k)
+        toks = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 12)))
+        pe = (torch.from_numpy((0.1 * rng.randn(2, cfg.n_patches, cfg.d_model)).astype(np.float32))
+              if cfg.frontend == "vision_stub" else None)
+        with torch.no_grad():
+            card_l, _ = lm.lm_forward(model, toks.cuda(), cfg,
+                                      patch_embeds=None if pe is None else pe.cuda())
+            cpu_l, _ = lm.lm_forward(cpu, toks, cfg, patch_embeds=pe)
+            fwd, _ = lm.lm_forward(model, toks.cuda(), cfg)
+        cache = lm.init_cache(cfg, 2, 16)
+        dec = []
+        for t in range(toks.shape[1]):
+            lg, cache = lm.lm_decode_step(model, cache, toks[:, t].cuda(), cfg)
+            dec.append(rel_l2(lg.cpu(), fwd[:, t].cpu()))
+        gens = {}
+        for chunk in (1, 4):
+            eng = LMEngine(model, cfg, n_slots=2, max_len=32, prefill_chunk=chunk)
+            done, _ = eng.run_until_done([Request(uid=i, prompt=[int(x) for x in toks[0, :n]],
+                                                  max_new_tokens=4)
+                                          for i, n in enumerate((5, 11, 3))])
+            gens[chunk] = {r.uid: r.generated for r in done}
+        row = {"arch": arch, "forward_card_vs_cpu": rel_l2(card_l.cpu(), cpu_l),
+               "decode_vs_forward": max(dec), "chunk1_eq_4": gens[1] == gens[4]}
+        rows.append(row)
+        if not torch.isfinite(card_l).all() or row["forward_card_vs_cpu"] > LM_SMOKE_TOL \
+                or row["decode_vs_forward"] > LM_SMOKE_TOL or not row["chunk1_eq_4"]:
+            fail(f"LM pool on the card: {row}")
+        del model, cpu, cache
+    cfg = get_config("whisper-large-v3", smoke=True)
+    model = lm.init_whisper(torch.Generator().manual_seed(SEED + 99), cfg)
+    cpu = lm_cpu_twin(model)
+    rng = np.random.RandomState(SEED + 99)
+    frames = torch.from_numpy((0.5 * rng.randn(2, 24, cfg.d_model)).astype(np.float32))
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 8)))
+    with torch.no_grad():
+        mem = lm.whisper_encode(model, frames.cuda(), cfg)
+        mem_cpu = lm.whisper_encode(cpu, frames, cfg)
+    caches = (lm.init_whisper_cache(model, mem, cfg, 2),
+              lm.init_whisper_cache(cpu, mem_cpu, cfg, 2))
+    steps = []
+    for t in range(8):
+        a, _ = lm.whisper_decode_step(model, caches[0], toks[:, t].cuda(), cfg)
+        b, _ = lm.whisper_decode_step(cpu, caches[1], toks[:, t], cfg)
+        steps.append(rel_l2(a.cpu(), b))
+    whisper = {"encode_card_vs_cpu": rel_l2(mem.cpu(), mem_cpu),
+               "decode_card_vs_cpu": max(steps)}
+    if max(whisper.values()) > LM_SMOKE_TOL:
+        fail(f"Whisper on the card: {whisper}")
+    emit("lm_pool", archs=rows, whisper=whisper, limit=LM_SMOKE_TOL)
+    del model, cpu, caches
+    torch.cuda.empty_cache()
+
+
+def lm_phase(sc, card):
+    """Phase 11: LM serving.  No hand-written kernel lies on this path: the
+    launch counts are set to 0 before it and must still read 0 after."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    t0 = time.perf_counter()
+    zero_counts(sc)
+    fa.launches_flash, rn.launches_rmsnorm = 0, 0
+    rows = lm_smollm_phase(card)
+    lm_pool_phase()
+    launched = {**counts(sc), "launches_rmsnorm": rn.launches_rmsnorm,
+                "launches_flash": fa.launches_flash}
+    if any(launched.values()):
+        fail(f"the LM path launched a spectral, RMSNorm or flash kernel: {launched}")
+    emit("lm_serving", card=card, seconds=time.perf_counter() - t0,
+         kernel_launches=sum(launched.values()),
+         **{name: {k: r[k] for k in ("prefill_tokens_per_s", "decode_tokens_per_s",
+                                     "ms_per_prefill_tick", "ms_per_decode_tick",
+                                     "peak_memory_bytes", "peak_above_start_bytes")}
+            | {"decode_tick_idle_share": r["decode_tick_profile"]["idle_share"]}
+            for name, r in rows.items()})
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -2884,6 +3210,7 @@ def main():
     observed = obs_phase(sc, darcy)
     analyzed = analyze_phase(sc, darcy)
     del darcy
+    lm_phase(sc, card)
     launches = {"fwd": served + trained["fwd"] + gino["fwd"] + auto["fwd"] + analyzed["fwd"],
                 "bwd_x": trained["bwd_x"] + gino["bwd_x"] + auto["bwd_x"] + analyzed["bwd_x"],
                 "bwd_w": trained["bwd_w"] + gino["bwd_w"] + auto["bwd_w"] + analyzed["bwd_w"],

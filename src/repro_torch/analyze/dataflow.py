@@ -57,6 +57,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.weak import WeakIdKeyDictionary
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.precision.rules import site_matches
 
 from .findings import ERROR, WARNING, Finding
@@ -456,10 +457,11 @@ def _normal(shape, seed: int, device) -> torch.Tensor:
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
 
 
-def tiny_model(model: str, device="cpu", fuse_spectral: Optional[bool] = False):
+def tiny_model(model: str, device: DeviceLike = None, fuse_spectral: Optional[bool] = False):
     """(config, model, input) of a representative but cheap instance of each
-    operator family, weights and input from a seed.  TFNO is the
-    CP-factorised FNO."""
+    operator family, weights and input from a seed, on ``device`` (CUDA
+    unless the caller names another).  TFNO is the CP-factorised FNO."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(0)
     if model in ("fno", "tfno"):
         from repro_torch.models import FNOConfig, init_fno
@@ -484,9 +486,10 @@ def _where(prefix: str, policy, fused: bool) -> str:
 
 
 def model_findings(model: str, policy, fuse_spectral: bool = False,
-                   device="cpu") -> List[Finding]:
-    """Lint one model forward under one policy and path.  ``fuse_spectral``
-    takes the fused kernels (the dense FNO only)."""
+                   device: DeviceLike = None) -> List[Finding]:
+    """Lint one model forward under one policy and path, on ``device``
+    (CUDA unless the caller names another).  ``fuse_spectral`` takes the
+    fused kernels (the dense FNO only)."""
     if fuse_spectral and model != "fno":
         raise ValueError(f"{model} has no fused path: only the dense FNO does")
     _cfg, net, x = tiny_model(model, device, fuse_spectral)
@@ -498,13 +501,16 @@ def model_findings(model: str, policy, fuse_spectral: bool = False,
     return trace_findings(forward, (x,), policy, _where(model, policy, fuse_spectral))
 
 
-def trainer_findings(policy, fuse_spectral: bool = False, device="cpu") -> List[Finding]:
-    """Lint one full ``Trainer`` step of a tiny FNO: the forward, the loss
-    scaling the policy asks for, ``torch.autograd.grad`` and AdamW."""
+def trainer_findings(policy, fuse_spectral: bool = False,
+                     device: DeviceLike = None) -> List[Finding]:
+    """Lint one full ``Trainer`` step of a tiny FNO on ``device`` (CUDA
+    unless the caller names another): the forward, the loss scaling the
+    policy asks for, ``torch.autograd.grad`` and AdamW."""
     from repro_torch.core.schedule import PrecisionSchedule
     from repro_torch.models import FNOConfig, init_fno
     from repro_torch.train import Trainer, TrainerConfig, relative_l2
 
+    device = resolve_device(device)
     cfg = FNOConfig(in_channels=1, out_channels=1, hidden_channels=8, lifting_channels=8,
                     projection_channels=8, n_layers=1, modes=(4, 4),
                     fuse_spectral=fuse_spectral)
@@ -556,11 +562,13 @@ def trace_entries(records: Sequence[OpRecord]) -> List[str]:
 
 
 def dtype_trace(policy, factorization: str = "dense", fuse_spectral: bool = False,
-                device="cpu") -> List[str]:
+                device: DeviceLike = None) -> List[str]:
     """The cast, contraction, FFT, kernel and tanh sequence of one FNO
     spectral layer (4 channels, modes (4, 4), a 2 x 4 x 16 x 16 input from a
-    seed) under ``policy``, at site ``model/spectral``: the reference's
-    golden-trace surface (``repro.analyze.dtype_trace``)."""
+    seed) under ``policy``, at site ``model/spectral``, on ``device`` (CUDA
+    unless the caller names another): the reference's golden-trace surface
+    (``repro.analyze.dtype_trace``)."""
+    device = resolve_device(device)
     from repro_torch.core.spectral import init_spectral_weights, spectral_conv_apply
 
     params = {k: v.to(device) for k, v in init_spectral_weights(

@@ -50,6 +50,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
+
 from .findings import ERROR, Finding
 
 #: pointer arguments of each launcher, before its int arguments (the
@@ -185,12 +187,14 @@ def _name(dtype) -> str:
     return "float32" if dtype is None else str(dtype).removeprefix("torch.")
 
 
-def trace_families(device="cpu", shapes: Sequence[Dict] = (REFERENCE_SHAPES, PATH_SHAPES)
-                   ) -> List[FamilyTrace]:
+def trace_families(device: DeviceLike = None,
+                   shapes: Sequence[Dict] = (REFERENCE_SHAPES, PATH_SHAPES)) -> List[FamilyTrace]:
     """Every family's launchers at ``shapes`` in each of its modes, one
-    ``FamilyTrace`` per call (a forward, or one backward direction)."""
+    ``FamilyTrace`` per call (a forward, or one backward direction), on
+    ``device`` (CUDA unless the caller names another)."""
     from repro_torch.kernels import spectral_contract as sc
 
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(0)
     make = _operands(device, gen)
     traces: List[FamilyTrace] = []
@@ -379,10 +383,12 @@ def card_findings(traces: Sequence[FamilyTrace], device) -> List[Finding]:
     return findings
 
 
-def kernels_pass(device="cpu", traces: Optional[Sequence[FamilyTrace]] = None
+def kernels_pass(device: DeviceLike = None, traces: Optional[Sequence[FamilyTrace]] = None
                  ) -> List[Finding]:
-    """Every check above over ``traces`` (default: ``trace_families(device)``);
-    on a card also the library's exports."""
+    """Every check above over ``traces`` (default: ``trace_families(device)``)
+    on ``device`` (CUDA unless the caller names another); on a card also
+    the library's exports."""
+    device = resolve_device(device)
     traces = trace_families(device) if traces is None else traces
     findings: List[Finding] = []
     for tr in traces:

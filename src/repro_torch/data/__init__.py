@@ -5,3 +5,4 @@ from .grf import grf_2d, grf_sphere, sphere_field  # noqa: F401
 from .loader import CachedDataset, StatelessLoader  # noqa: F401
 from .navier_stokes import sample_ns_batch, solve_ns_vorticity  # noqa: F401
 from .swe import sample_swe_batch, solve_swe_linear  # noqa: F401
+from .tokens import lm_inputs, token_batch  # noqa: F401

@@ -1,4 +1,4 @@
-"""Operator models of the port."""
+"""Operator models and the LM pool of the port."""
 from .fno import (  # noqa: F401
     FNO,
     FNOConfig,
@@ -25,5 +25,6 @@ from .sfno import (  # noqa: F401
     sfno_infer,
     sfno_params_from_jax,
 )
+from .lm import LM, Whisper, lm_params_from_jax, whisper_params_from_jax  # noqa: F401
 from .sht import legendre_matrices, sht_forward, sht_inverse  # noqa: F401
 from .unet import UNet, UNetConfig, init_unet, unet_apply, unet_params_from_jax  # noqa: F401

@@ -18,12 +18,12 @@ One spine for the evidence the paper's claim needs at production scale:
 ``python -m repro_torch.obs`` renders a run summary table from a JSONL
 log and converts it to a Chrome trace or Prometheus snapshot.
 
-Span taxonomy (the reference's; the port has no LM engine yet, so it
-records no ``serve/prefill``, ``serve/decode`` or ``ttft``):
-``train/step``, ``train/data``, ``train/telemetry``,
-``train/controller``, ``serve/tick``, ``serve/operator/batch``, plus the
-per-request async ``request`` phase correlated by uid.  Metric names
-follow ``repro_<subsystem>_<name>``.
+Span taxonomy (the reference's; the paged engine's ``ttft`` waits for
+the paged serving slice): ``train/step``, ``train/data``,
+``train/telemetry``, ``train/controller``, ``serve/tick``,
+``serve/prefill``, ``serve/decode``, ``serve/operator/batch``, the
+``serve/prefill_complete`` event, plus the per-request async ``request``
+phase correlated by uid.  Metric names follow ``repro_<subsystem>_<name>``.
 """
 from .export import (  # noqa: F401
     RESULT_SCHEMA_VERSION,

@@ -26,9 +26,8 @@ justified the decision):
                          the port compiles nothing);
   ``oracle_reject``      a tuned tile candidate failed the einsum
                          oracle's Thm 3.2 gate;
-  ``nonfinite_logits``   a serve engine observed non-finite logits rows
-                         (kept in the vocabulary; the port serves no LM
-                         yet).
+  ``nonfinite_logits``   ``LMEngine`` (``telemetry=True``) observed
+                         non-finite logits in a tick's rows.
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ from typing import Mapping, NamedTuple
 
 import torch
 
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 
 
 def loss_scaling_required(policy) -> bool:
@@ -28,7 +28,10 @@ class LossScaleState(NamedTuple):
 
 
 def init_loss_scale(initial: float = 2.0 ** 15,
-                    device: DeviceLike = "cpu") -> LossScaleState:
+                    device: DeviceLike = None) -> LossScaleState:
+    """The initial loss-scale state on ``device`` (CUDA unless the caller
+    names another)."""
+    device = resolve_device(device)
     return LossScaleState(
         scale=torch.tensor(initial, dtype=torch.float32, device=device),
         good_steps=torch.zeros((), dtype=torch.int32, device=device),

@@ -611,9 +611,10 @@ class TestCleanTree:
         policy = get_policy(policy_name)
         findings = []
         for model in ("fno", "tfno", "sfno"):
-            findings += model_findings(model, policy)
-        findings += model_findings("fno", policy, fuse_spectral=True)
-        findings += trainer_findings(policy) + trainer_findings(policy, fuse_spectral=True)
+            findings += model_findings(model, policy, device="cpu")
+        findings += model_findings("fno", policy, fuse_spectral=True, device="cpu")
+        findings += (trainer_findings(policy, device="cpu")
+                     + trainer_findings(policy, fuse_spectral=True, device="cpu"))
         active, _ = partition(findings, _SUPPRESSIONS)
         assert [f for f in active if f.severity == ERROR] == []
         # every demoted contract site was seen at its half dtype
@@ -642,9 +643,9 @@ class TestGoldenParity:
     @pytest.mark.parametrize("name", sorted(POLICIES))
     def test_projection_equals_the_golden(self, goldens, name):
         policy = get_policy(name)
-        staged = project(dtype_trace(policy))
+        staged = project(dtype_trace(policy, device="cpu"))
         assert staged == project(goldens[name]) == project(goldens[name + "+pallas"])
-        assert project(dtype_trace(policy, fuse_spectral=True)) == \
+        assert project(dtype_trace(policy, fuse_spectral=True, device="cpu")) == \
             project(goldens[name + "+fused"])
 
     def test_projection_fails_for_a_half_accumulating_contraction(self, goldens, monkeypatch):
@@ -652,7 +653,7 @@ class TestGoldenParity:
         version on the CPU (``_einsum_half`` is the Tucker/einsum path's; its
         own seeded fault is in ``TestSeededDataflowViolations``)."""
         monkeypatch.setattr(sc, "spectral_contract_plain", _half_plain)
-        trace = dtype_trace(get_policy("mixed_fno_bf16"))
+        trace = dtype_trace(get_policy("mixed_fno_bf16"), device="cpu")
         assert project(trace) != project(goldens["mixed_fno_bf16"])
         assert project(trace)["model/spectral/contract"]["contract"] == [
             ("bfloat16", "bfloat16")]
@@ -660,13 +661,13 @@ class TestGoldenParity:
     def test_projection_fails_for_a_skipped_quantize(self, goldens, monkeypatch):
         monkeypatch.setattr(SitePrecision, "quantize", lambda _self, c: c)
         for name in ("mixed_fno_bf16", "half_fno_only"):
-            trace = dtype_trace(get_policy(name))
+            trace = dtype_trace(get_policy(name), device="cpu")
             assert project(trace) != project(goldens[name])
             assert project(trace)["model/spectral/fft_in"]["half"] == []
 
     def test_full_policy_is_all_f32(self):
         for fused in (False, True):
-            for entry in dtype_trace(get_policy("full"), fuse_spectral=fused):
+            for entry in dtype_trace(get_policy("full"), fuse_spectral=fused, device="cpu"):
                 assert "float16" not in entry and "bfloat16" not in entry, entry
 
 

@@ -12,7 +12,10 @@ and shallow-water solvers on CUDA against the CPU, and the tuned tiles
 (``repro_torch.tune``): every legal forward tile bit-identical, every
 legal backward tile within ``store_budget``, a seeded entry's launches, a
 stale or oversized entry leaving every launch as it was, ``measure`` and
-the oracle on the card, the engine serving calibrated tiles.
+the oracle on the card, the engine serving calibrated tiles; and the LM
+pool (one smoke config a family: forward against the CPU, decode against
+the forward, ``LMEngine`` chunk 1 against 8 and rerun bit for bit,
+Whisper's decode against the CPU), whose path runs none of these kernels.
 
 Imports no JAX (the GPU machine has none).  Every test carries the
 ``cuda`` marker and skips, from inside a fixture, where no card is
@@ -2025,3 +2028,110 @@ def test_fno_darcy_forward_is_clean_on_the_card(cuda, fused):
         assert sum(r.op == fwd and not r.backward for r in at) == (1 if fused else 2)
         assert {r.op for r in at if r.backward} == bwd
     assert any(r.backward and not r.kernel for r in rec.records)
+
+
+# -- the LM pool and LMEngine (no hand-written kernel on their path) -------------------
+#: one smoke config a family: dense, MoE, MLA + MoE, SSM, hybrid (SWA ring), VLM
+LM_FAMILIES = ["smollm-360m", "granite-moe-3b-a800m", "deepseek-v2-lite-16b", "mamba2-370m",
+               "hymba-1.5b", "llava-next-mistral-7b"]
+
+
+def _lm_pair(arch, seed=0):
+    """(cfg, card model, CPU model): the same seeded weights; MoE without
+    capacity drops, which depend on the dispatch batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_lm
+
+    cfg = get_config(arch, smoke=True)
+    if cfg.moe_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    return (cfg, init_lm(torch.Generator().manual_seed(seed), cfg),
+            init_lm(torch.Generator().manual_seed(seed), cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_lm_forward_on_the_card_matches_cpu(cuda, arch):
+    from repro_torch.models.lm import lm_forward
+
+    cfg, net, net_cpu = _lm_pair(arch)
+    rng = np.random.RandomState(1)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 24)))
+    pe = (torch.from_numpy((0.1 * rng.randn(2, cfg.n_patches, cfg.d_model)).astype(np.float32))
+          if cfg.frontend == "vision_stub" else None)
+    with torch.no_grad():
+        got, aux = lm_forward(net, toks.to(cuda), cfg, patch_embeds=None if pe is None else pe.to(cuda))
+        want, aux_cpu = lm_forward(net_cpu, toks, cfg, patch_embeds=pe)
+    assert got.device.type == "cuda" and bool(torch.isfinite(got).all())
+    assert _rel_l2(got.cpu(), want) <= 1e-5
+    assert abs(float(aux) - float(aux_cpu)) <= 1e-5 * max(1.0, abs(float(aux_cpu)))
+
+
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_lm_decode_on_the_card_matches_its_forward(cuda, arch):
+    from repro_torch.models.lm import init_cache, lm_decode_step, lm_forward
+
+    cfg, net, _ = _lm_pair(arch)
+    toks = torch.from_numpy(np.random.RandomState(2).randint(0, cfg.vocab, (2, 12))).to(cuda)
+    with torch.no_grad():
+        full, _ = lm_forward(net, toks, cfg)
+    cache = init_cache(cfg, 2, 16)
+    assert all(t.device.type == "cuda" for t in cache.values())
+    for t in range(12):
+        lg, cache = lm_decode_step(net, cache, toks[:, t], cfg)
+        assert _rel_l2(lg.cpu(), full[:, t].cpu()) <= 1e-5, t
+    assert cache["step"].tolist() == [12, 12]
+
+
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_lm_engine_on_the_card_chunk_1_eq_8_and_reruns_bit_identically(cuda, arch):
+    from repro_torch.serve import LMEngine, Request
+
+    cfg, net, _ = _lm_pair(arch)
+    rng = np.random.RandomState(3)
+    window = cfg.attn_window or 64
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab, n)] for n in (5, 11, window + 6, 3)]
+
+    def run(chunk):
+        eng = LMEngine(net, cfg, n_slots=2, max_len=window + 16, prefill_chunk=chunk,
+                       record_logits=True)
+        done, _ = eng.run_until_done([Request(uid=i, prompt=p, max_new_tokens=4)
+                                      for i, p in enumerate(prompts)])
+        assert all(r.status == "done" for r in done)
+        return {r.uid: r.generated for r in done}, eng
+
+    g1, _ = run(1)
+    g8, e8 = run(8)
+    assert g1 == g8
+    g8b, e8b = run(8)
+    assert g8b == g8
+    for uid in range(len(prompts)):
+        assert all(np.array_equal(a, b) for a, b in zip(e8.logits_for(uid), e8b.logits_for(uid),
+                                                        strict=True))
+
+
+def test_whisper_decode_on_the_card_matches_cpu(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import (
+        init_whisper,
+        init_whisper_cache,
+        whisper_decode_step,
+        whisper_encode,
+        whisper_forward,
+    )
+
+    cfg = get_config("whisper-large-v3", smoke=True)
+    net = init_whisper(torch.Generator().manual_seed(4), cfg)
+    net_cpu = init_whisper(torch.Generator().manual_seed(4), cfg, device="cpu")
+    rng = np.random.RandomState(4)
+    frames = torch.from_numpy((0.5 * rng.randn(2, 24, cfg.d_model)).astype(np.float32))
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 8)))
+    with torch.no_grad():
+        mem, mem_cpu = whisper_encode(net, frames.to(cuda), cfg), whisper_encode(net_cpu, frames, cfg)
+        fwd = whisper_forward(net, frames.to(cuda), toks.to(cuda), cfg)
+    assert _rel_l2(mem.cpu(), mem_cpu) <= 1e-5
+    cache, cache_cpu = init_whisper_cache(net, mem, cfg, 2), init_whisper_cache(net_cpu, mem_cpu, cfg, 2)
+    for t in range(8):
+        lg, cache = whisper_decode_step(net, cache, toks[:, t].to(cuda), cfg)
+        lc, cache_cpu = whisper_decode_step(net_cpu, cache_cpu, toks[:, t], cfg)
+        assert _rel_l2(lg.cpu(), lc) <= 1e-5, t
+        assert _rel_l2(lg.cpu(), fwd[:, t].cpu()) <= 1e-5, t

@@ -409,13 +409,13 @@ def test_loss_scale_sequence_matches_reference():
     bounds: the scale and the good-step count agree exactly."""
     flags = ([True] * 5 + [False] + [True] * 3 + [False] * 3 + [True] * 7)
     for initial in (8.0, 2.0 ** 23, 2.0):
-        js, ts = jinit_loss_scale(initial), init_loss_scale(initial)
+        js, ts = jinit_loss_scale(initial), init_loss_scale(initial, device="cpu")
         for f in flags:
             js = jupdate_loss_scale(js, jnp.asarray(f), growth_interval=4)
             ts = update_loss_scale(ts, torch.tensor(f), growth_interval=4)
             assert float(ts.scale) == float(js.scale)
             assert int(ts.good_steps) == int(js.good_steps)
-    assert float(init_loss_scale().scale) == 2.0 ** 15
+    assert float(init_loss_scale(device="cpu").scale) == 2.0 ** 15
     assert loss_scaling_required(get_policy("amp_fp16"))
     assert not loss_scaling_required(get_policy("mixed_fno_bf16"))
 

@@ -392,8 +392,11 @@ def test_validate_skips_stale_and_prunes_corrupt(tmp_path):
 
 
 def test_default_state_lives_under_build():
-    assert os.path.basename(os.path.dirname(DEFAULT_STATE)) == "build"
-    assert os.path.isdir(os.path.join(os.path.dirname(DEFAULT_STATE), "..", "src"))
+    """``build/`` at the repository root, beside ``src/``; the directory
+    itself need not exist yet (a fresh checkout has none)."""
+    build = os.path.dirname(DEFAULT_STATE)
+    assert os.path.basename(build) == "build"
+    assert os.path.isdir(os.path.join(os.path.dirname(build), "src", "repro_torch"))
 
 
 # -- tile resolution -----------------------------------------------------------------------
