@@ -243,10 +243,35 @@ Phases, in order; any failure exits non-zero and prints no result:
    and Whisper's SMOKE encode and 8 decode steps against the CPU, each
    within 1e-5 relative L2.
 
+12. Paged LM serving (no hand-written kernel on its path either: the
+   counts are set to 0 before it and must read 0 after).  Phase 11's
+   seeded weights through ``PagedLMEngine(n_slots=8, max_len=1024,
+   block_size=16)`` at chunk 8 (the default pool: 577 blocks).  (a) Phase
+   11's traffic with prefix sharing off, under ``full`` and ``amp_bf16``:
+   every per-step logits row and token bit-equal to ``LMEngine``'s in the
+   same phase.  (b) 16 greedy requests of one seeded 256-token system
+   prompt and 16-128 tokens of their own, 32 new tokens, sharing on:
+   under ``full`` at least 8 prefix hits, at least 8 x 256 fewer prompt
+   tokens than the dense engine, fewer peak live blocks than the same
+   traffic holds unshared, the same tokens as ``LMEngine`` and per-step
+   logits within 1e-5 relative L2; under ``amp_bf16`` the token agreement
+   is printed.  (c) A running slot's block forked as a prefix entry would:
+   one copy-on-write, generation and logits bit-equal to dense.  (d)
+   Traffic (b) through ``AsyncServeFrontend`` with a 250 ms deadline: the
+   same tokens as (b), its latency, TTFT, misses and jitter printed.  Block
+   0 (the null block) untouched after each.  Printed per policy beside the
+   card's name and power limit, paged against dense: the tick rates and
+   times as in phase 11, peak memory and the engine's share, the pool's
+   peak live blocks, the unshared peak and fragmentation, a profiled
+   decode tick.  Then ``repro_torch.launch.serve_smoke`` on the card (its
+   smoke configs): the three engines' stats in one line.
+
 The line before the last is ``{"kernels": [...]}`` (twelve kernels); the
 last is ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -344,6 +369,12 @@ LM_CHUNK_CHECK, LM_PARITY, LM_CARD_CPU_TOL = 4, (64, 8), 1e-4
 #: the other decoder archs' and Whisper's SMOKE configs, card against CPU
 #: and decode against forward, relative L2
 LM_SMOKE_TOL = 1e-5
+#: phase 12: PagedLMEngine at the same width, blocks of 16 rows (the default
+#: pool: 8 x 64 + 64 + 1 = 577 blocks); traffic (b): 16 greedy requests of one
+#: seeded 256-token system prompt (16 blocks) and 16-128 tokens of their own,
+#: 32 new tokens each; the frontend's deadline
+PAGED_BLOCK, PAGED_REQUESTS, PAGED_SYSTEM, PAGED_OWN, PAGED_NEW = 16, 16, 256, (16, 128), 32
+PAGED_DEADLINE_MS = 250.0
 #: every kernel's launch count on ``repro_torch.kernels.spectral_contract``
 LAUNCH_COUNTERS = ("launches", "launches_bwd_x", "launches_bwd_w",
                    "launches_cp_fwd", "launches_cp_bwd", "launches_ls_fwd",
@@ -3179,6 +3210,272 @@ def lm_phase(sc, card):
             for name, r in rows.items()})
 
 
+# -- phase 12: paged LM serving ------------------------------------------------------------
+def paged_traffic(cfg, seed):
+    """Traffic (b): PAGED_REQUESTS greedy requests, each one seeded
+    PAGED_SYSTEM-token system prompt followed by PAGED_OWN tokens of its own,
+    PAGED_NEW new tokens each."""
+    from repro_torch.serve import GREEDY
+
+    rng = np.random.RandomState(seed)
+    system = [int(t) for t in rng.randint(1, cfg.vocab, PAGED_SYSTEM)]
+    lens = rng.randint(PAGED_OWN[0], PAGED_OWN[1] + 1, PAGED_REQUESTS)
+    return [(system + [int(t) for t in rng.randint(1, cfg.vocab, n)], PAGED_NEW, GREEDY)
+            for n in lens]
+
+
+def null_block_untouched(engine, tag):
+    c = engine.cache
+    bad = [k for k in ("k", "v", "c_kv", "k_rope") if k in c and bool(c[k][:, 0].any())]
+    if not bool((c["kv_pos"][:, 0] == -1).all()) or bad:
+        fail(f"paged LM serving ({tag}): the null block was written ({bad or 'kv_pos'})")
+
+
+@contextlib.contextmanager
+def block_trace(engine):
+    """Wrap ``engine._prepare_writes`` to follow, tick by tick, the blocks
+    this traffic would hold at once without sharing (each live slot's rows
+    written so far, in whole blocks: no ring wraps at max_len) and the
+    internal fragmentation of the slot-mapped blocks after the tick's
+    writes.  Yields the dict the numbers land in; the wrapper goes on exit
+    (no engine -> wrapper -> engine cycle keeps a KV cache alive)."""
+    trace = {"unshared_peak_blocks": 0, "fragmentation": []}
+    prepare = engine._prepare_writes
+
+    def wrapped(slot_rows):
+        prepare(slot_rows)
+        bs = engine.block_size
+        need = sum(max(rows) // bs + 1 for _, rows in slot_rows)
+        used = sum(max(rows) + 1 for _, rows in slot_rows)
+        trace["unshared_peak_blocks"] = max(trace["unshared_peak_blocks"], need)
+        trace["fragmentation"].append(1.0 - used / (int((engine._bt > 0).sum()) * bs))
+
+    engine._prepare_writes = wrapped
+    try:
+        yield trace
+    finally:
+        del engine._prepare_writes
+
+
+def trace_summary(trace):
+    frag = trace["fragmentation"] or [0.0]
+    return {"unshared_peak_blocks": trace["unshared_peak_blocks"],
+            "fragmentation_mean": float(np.mean(frag)), "fragmentation_max": float(max(frag))}
+
+
+def decode_profile(make, traffic):
+    """One decode tick of a fresh engine with all LM_SLOTS slots decoding,
+    under the profiler."""
+    eng = make(False)
+    for r in lm_requests(traffic, set(range(LM_SLOTS)), prompt_len=LM_PROMPTS[0]):
+        eng.submit(r)
+    while eng.scheduler.depth or any(eng.slot_pending[i] for i in range(LM_SLOTS)):
+        eng.tick()
+    eng.tick()
+    prof = profiled(eng.tick)
+    return {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_events", "idle_share",
+                                 "top")}
+
+
+def timed_serve(make, reqs):
+    """(generations, ticks, engine, peak bytes, bytes at the engine's start,
+    the paged engine's block trace) of one engine serving ``reqs``."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    eng = make(True)
+    with block_trace(eng) if hasattr(eng, "pool") else contextlib.nullcontext() as trace:
+        gens, ticks = lm_serve(eng, reqs)
+    return gens, ticks, eng, torch.cuda.max_memory_allocated(), start, trace
+
+
+def lm_paged_phase(sc, card):
+    """Phase 12: ``PagedLMEngine`` at smollm-360m's full width against
+    ``LMEngine`` (phase 12 of the module docstring).  No hand-written kernel
+    lies on this path: the launch counts are set to 0 before it and must
+    still read 0 after."""
+    import asyncio
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models.lm import init_lm
+    from repro_torch.precision import get_policy
+    from repro_torch.serve import AsyncServeFrontend, LMEngine, PagedLMEngine, Request
+
+    t0 = time.perf_counter()
+    zero_counts(sc)
+    fa.launches_flash, rn.launches_rmsnorm = 0, 0
+    cfg = get_config(LM_ARCH)
+    # phase 11's seeded weights
+    model = init_lm(torch.Generator(device="cuda").manual_seed(SEED + 80), cfg)
+    traffic = lm_traffic(cfg, SEED + 81)
+    shared = paged_traffic(cfg, SEED + 84)
+    rows = {}
+
+    def makers(policy, **paged_kw):
+        def dense(record):
+            return LMEngine(model, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN, policy=policy,
+                            prefill_chunk=8, seed=SEED, telemetry=True, record_logits=record)
+
+        def paged(record):
+            return PagedLMEngine(model, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                                 policy=policy, prefill_chunk=8, seed=SEED, telemetry=True,
+                                 record_logits=record, block_size=PAGED_BLOCK, **paged_kw)
+        return dense, paged
+
+    # (a) phase 11's traffic, prefix sharing off: bit for bit against dense
+    for name in LM_POLICIES:
+        policy = get_policy(name)
+        dense, paged = makers(policy, prefix_sharing=False)
+        lm_serve(paged(False), lm_requests(traffic, {0, 1}))   # warm-up
+        row = {"policy": name, "card": card, "requests": LM_REQUESTS, "block_size": PAGED_BLOCK}
+        runs = {}
+        for tag, make in (("dense", dense), ("paged", paged)):
+            gens, ticks, eng, peak, start, trace = timed_serve(make, lm_requests(traffic))
+            runs[tag] = (gens, eng, trace)
+            row[tag] = {**lm_rates(ticks), "peak_memory_bytes": peak,
+                        "peak_above_start_bytes": peak - start,
+                        "cache_bytes": sum(t.numel() * t.element_size()
+                                           for t in eng.cache.values())}
+        (dg, de, _), (pg, pe, trace) = runs["dense"], runs["paged"]
+        st = pe.stats()["paged"]
+        row["pool"] = {**{k: st[k] for k in ("num_blocks", "peak_live_blocks", "cow_copies",
+                                             "allocs", "frees")}, **trace_summary(trace)}
+        row["tokens_equal"] = pg == dg
+        row["logits_bit_identical"] = lm_same_bits(pe, de, range(LM_REQUESTS))
+        null_block_untouched(pe, f"a, {name}")
+        del runs, de, pe
+        if not (row["tokens_equal"] and row["logits_bit_identical"]):
+            fail(f"paged LM serving under {name}: not bit-identical to LMEngine "
+                 f"(tokens equal {row['tokens_equal']})")
+        row["dense"]["decode_tick_profile"] = decode_profile(dense, traffic)
+        row["paged"]["decode_tick_profile"] = decode_profile(paged, traffic)
+        emit("lm_paged_vs_dense", **row)
+        rows[name] = row
+
+    # (b) a shared 256-token system prompt, prefix sharing on
+    agree = {}
+    for name in LM_POLICIES:
+        dense, paged = makers(get_policy(name))
+        d_eng, p_eng = dense(True), paged(True)
+        dg, _ = lm_serve(d_eng, lm_requests(shared))
+        t1 = time.perf_counter()
+        with block_trace(p_eng) as trace:
+            pg, pticks = lm_serve(p_eng, lm_requests(shared))
+        wall = time.perf_counter() - t1
+        ps, ds = p_eng.stats(), d_eng.stats()
+        errs = [rel_l2(b, a) for u in range(PAGED_REQUESTS)
+                for a, b in zip(d_eng.logits_for(u), p_eng.logits_for(u), strict=True)]
+        equal = sum(int(a == b) for u in dg for a, b in zip(dg[u], pg[u], strict=True))
+        agree[name] = [equal, PAGED_REQUESTS * PAGED_NEW]
+        prefix = ps["paged"]["prefix"]
+        row = {"policy": name, "card": card, "requests": PAGED_REQUESTS,
+               "system_tokens": PAGED_SYSTEM, "prompt_tokens": ps["prompt_tokens"],
+               "dense_prompt_tokens": ds["prompt_tokens"], "prefix": prefix,
+               "peak_live_blocks": ps["paged"]["peak_live_blocks"],
+               "cow_copies": ps["paged"]["cow_copies"], **trace_summary(trace),
+               "tokens_equal": agree[name],
+               "max_rel_l2": max(errs), "wall_s": wall, **lm_rates(pticks)}
+        emit("lm_paged_prefix", **row)
+        null_block_untouched(p_eng, f"b, {name}")
+        if name == "full":
+            shared_gens = pg
+            if prefix["hits"] < PAGED_REQUESTS // 2 \
+                    or ps["prompt_tokens"] > ds["prompt_tokens"] - 8 * PAGED_SYSTEM \
+                    or row["peak_live_blocks"] >= row["unshared_peak_blocks"] \
+                    or pg != dg or max(errs) > LM_SMOKE_TOL:
+                fail(f"paged LM serving, shared prefix under full: {row}")
+        del d_eng, p_eng
+
+    # (c) copy-on-write of a running slot's forked block, against dense
+    prompt, _, _ = traffic[0]
+    prompt = prompt[:64]
+    policy = get_policy("full")
+    out = {}
+    for tag in ("dense", "paged"):
+        kw = dict(n_slots=1, max_len=LM_MAX_LEN, policy=policy, prefill_chunk=8,
+                  record_logits=True)
+        eng = (LMEngine(model, cfg, **kw) if tag == "dense"
+               else PagedLMEngine(model, cfg, block_size=PAGED_BLOCK, **kw))
+        req = Request(uid=0, prompt=list(prompt), max_new_tokens=8)
+        eng.submit(req)
+        for _ in range(5):          # 40 of 64 prompt tokens: the next chunk writes block 2
+            eng.tick()
+        if tag == "paged":
+            forked = int(eng._bt[0, 2])
+            eng.pool.fork(forked)
+        while req.status != "done":
+            eng.tick()
+        out[tag] = (req.generated, eng)
+    pe, de = out["paged"][1], out["dense"][1]
+    cow = {"cow_copies": pe.pool.cow_copies, "block_rehomed": int(pe._bt[0, 2]) != forked,
+           "tokens_equal": out["paged"][0] == out["dense"][0],
+           "logits_bit_identical": lm_same_bits(pe, de, [0])}
+    null_block_untouched(pe, "c")
+    emit("lm_paged_cow", card=card, **cow)
+    if not (cow["cow_copies"] == 1 and cow["block_rehomed"] and cow["tokens_equal"]
+            and cow["logits_bit_identical"]):
+        fail(f"paged LM serving, copy-on-write: {cow}")
+    del out, pe, de
+
+    # (d) traffic (b) through the async frontend, a 250 ms deadline each
+    eng = PagedLMEngine(model, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN, policy=policy,
+                        prefill_chunk=8, seed=SEED, block_size=PAGED_BLOCK)
+    front = AsyncServeFrontend(eng)
+    reqs = lm_requests(shared)
+
+    async def serve_all():
+        return await asyncio.gather(*[front.submit_async(r, deadline_ms=PAGED_DEADLINE_MS)
+                                      for r in reqs])
+
+    done = asyncio.run(serve_all())
+    metrics = front.metrics()
+    ttft = sorted(r["ttft_ms"] for r in front.records)
+    metrics["ttft_ms"] = {"p50": ttft[len(ttft) // 2], "max": ttft[-1]}
+    emit("lm_paged_frontend", card=card, deadline_ms=PAGED_DEADLINE_MS, **metrics)
+    null_block_untouched(eng, "d")
+    if metrics["completed"] != PAGED_REQUESTS \
+            or {r.uid: r.generated for r in done} != shared_gens:
+        fail(f"paged LM serving through the frontend: {metrics}")
+    del eng, front, model
+    torch.cuda.empty_cache()
+
+    launched = {**counts(sc), "launches_rmsnorm": rn.launches_rmsnorm,
+                "launches_flash": fa.launches_flash}
+    if any(launched.values()):
+        fail(f"the paged LM path launched a spectral, RMSNorm or flash kernel: {launched}")
+    emit("lm_paged_serving", card=card, seconds=time.perf_counter() - t0,
+         kernel_launches=sum(launched.values()), prefix_tokens_equal=agree,
+         **{name: {tag: {k: r[tag][k] for k in ("prefill_tokens_per_s", "decode_tokens_per_s",
+                                                 "ms_per_prefill_tick", "ms_per_decode_tick",
+                                                 "peak_memory_bytes", "peak_above_start_bytes")}
+                    | {"decode_tick_idle_share": r[tag]["decode_tick_profile"]["idle_share"]}
+                    for tag in ("dense", "paged")}
+            for name, r in rows.items()})
+
+
+def serve_smoke_phase(card):
+    """``repro_torch.launch.serve_smoke`` on the card (its smoke configs):
+    the three engines' stats in one line; its artifact goes to build/."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve_smoke
+
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "chip_smoke_serve_smoke.json"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rec = serve_smoke.main(["--out", str(out)])
+    keys = ("engine", "device", "ticks", "completed", "failed", "tokens_per_s", "fields_per_s",
+            "prompt_tokens", "tokens_generated")
+    emit("serve_smoke", card=card, seconds=time.perf_counter() - t0, artifact=str(out),
+         **{k: {f: v["stats"][f] for f in keys if f in v["stats"]}
+            | ({"prefix": v["stats"]["paged"]["prefix"]} if "paged" in v["stats"] else {})
+            | ({"memo": v["stats"]["memo"]} if "memo" in v["stats"] else {})
+            for k, v in rec.items()})
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -3211,6 +3508,8 @@ def main():
     analyzed = analyze_phase(sc, darcy)
     del darcy
     lm_phase(sc, card)
+    lm_paged_phase(sc, card)
+    serve_smoke_phase(card)
     launches = {"fwd": served + trained["fwd"] + gino["fwd"] + auto["fwd"] + analyzed["fwd"],
                 "bwd_x": trained["bwd_x"] + gino["bwd_x"] + auto["bwd_x"] + analyzed["bwd_x"],
                 "bwd_w": trained["bwd_w"] + gino["bwd_w"] + auto["bwd_w"] + analyzed["bwd_w"],

@@ -1,0 +1,1 @@
+"""Launch entry points of the port (``python -m repro_torch.launch.<name>``)."""

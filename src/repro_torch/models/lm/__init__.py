@@ -1,6 +1,6 @@
 """The LM architecture pool (decoder-only, MoE, SSM, hybrid,
 encoder-decoder audio, VLM) on one layer substrate, and its serving
-steps.  The paged-cache entry points wait for the paged serving slice."""
+steps over a dense or a paged KV cache."""
 from .common import (  # noqa: F401
     blocked_attention,
     chunk_attention,
@@ -13,9 +13,12 @@ from .model import (  # noqa: F401
     LM,
     init_cache,
     init_lm,
+    init_paged_cache,
     layer_windows,
     lm_decode_step,
     lm_forward,
+    lm_paged_decode_step,
+    lm_paged_prefill_chunk,
     lm_params_from_jax,
     lm_prefill_chunk,
 )

@@ -19,6 +19,11 @@ position); :func:`lm_decode_step` and :func:`lm_prefill_chunk` update it
 in place under ``torch.inference_mode()`` and return the logits.  A
 padding token of a chunk writes nothing: its row is left out of the
 scatter (the reference drops it at an out-of-range row).
+
+Paged serving: :func:`init_paged_cache` keeps the KV rows in fixed-size
+blocks; :func:`lm_paged_decode_step` and :func:`lm_paged_prefill_chunk`
+gather each layer's dense view through a block table, run the dense
+step's attention on it and scatter back the rows it wrote.
 """
 from __future__ import annotations
 
@@ -437,16 +442,26 @@ def lm_decode_step(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One serve step: (logits (B, V) f32, the cache updated in place).
     ``cache["step"]`` holds the per-slot position clocks."""
+    return _decode(params, cache, tokens, cfg, policy), cache
+
+
+def _decode(params, cache, tokens, cfg, policy, paged=None, active_slots=None):
+    """The decode step's body over a dense cache, or over ``paged``'s
+    per-layer views (written back for ``active_slots`` only)."""
     dtype, router_dtype, head_dtype = _dtypes(policy)
     pos = cache["step"]
     h = params.embed[tokens].to(dtype)                  # (B, d)
     at = None
     if "kv_pos" in cache:
+        W = cache["kv_pos"].shape[-1] if paged is None else paged.width
         at = (torch.arange(h.shape[0], device=h.device),
-              torch.remainder(pos, cache["kv_pos"].shape[-1]).long(),
+              torch.remainder(pos, W).long(),
               rope_cs(pos[:, None], _rope_dim(cfg), cfg.rope_theta))
-    layers = zip(params.layers, layer_windows(cfg).tolist(), _layer_caches(cache), strict=True)
-    for lp, window, lc in layers:
+        if paged is not None:
+            paged.index(active_slots, at[1][active_slots])
+    lcs = _layer_caches(cache) if paged is None else None
+    for i, (lp, window) in enumerate(zip(params.layers, layer_windows(cfg).tolist(), strict=True)):
+        lc = lcs[i] if paged is None else paged.view(i)
         hn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
         if cfg.mixer == "attn":
             mix = _attn_decode(lp["attn"], hn, lc, pos, window, cfg, dtype, at)
@@ -458,6 +473,8 @@ def lm_decode_step(
             s, state = ssd_decode_step(lp["ssd"], hn, lc["ssd_state"], cfg, policy)
             lc["ssd_state"].copy_(state)
             mix = 0.5 * (a + s)
+        if paged is not None:
+            paged.commit(i, lc)
         h = h + mix
         if "ffn" in lp:
             f, _ = _ffn(lp["ffn"], rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg, dtype, router_dtype)
@@ -465,7 +482,7 @@ def lm_decode_step(
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
     logits = _head(params, h, head_dtype)
     cache["step"] += 1
-    return logits, cache
+    return logits
 
 
 def _attn_prefill_chunk(ap, h, lc, q_pos, rows, window, cfg: LMArchConfig, dtype):
@@ -533,6 +550,12 @@ def lm_prefill_chunk(
 
     A slot with ``n_valid == 0`` is untouched (no writes, clock kept); a
     slot with ``n_valid == 1`` behaves as one ``lm_decode_step`` tick."""
+    return _prefill_chunk(params, cache, tokens, n_valid, cfg, policy), cache
+
+
+def _prefill_chunk(params, cache, tokens, n_valid, cfg, policy, paged=None):
+    """The chunk step's body over a dense cache, or over ``paged``'s
+    per-layer views (the valid tokens' rows written back)."""
     dtype, router_dtype, head_dtype = _dtypes(policy)
     B, K = tokens.shape
     dev = tokens.device
@@ -541,21 +564,25 @@ def lm_prefill_chunk(
     q_pos = pos0.long()[:, None] + j[None, :]             # (B, K)
     rows = None
     if "kv_pos" in cache:
+        W = cache["kv_pos"].shape[-1] if paged is None else paged.width
         # the valid tokens' (slot, chunk index), found where n_valid lives:
         # no device sync when the caller passes it on the CPU
         jn = torch.arange(K, device=n_valid.device)
         vb, vj = (jn[None, :] < n_valid[:, None]).nonzero(as_tuple=True)
         vb, vj = vb.to(dev), vj.to(dev)
-        rows = (vb, vj, torch.remainder(q_pos[vb, vj], cache["kv_pos"].shape[-1]),
+        rows = (vb, vj, torch.remainder(q_pos[vb, vj], W),
                 rope_cs(q_pos[:, None, :], _rope_dim(cfg), cfg.rope_theta))
+        if paged is not None:
+            paged.index(vb, rows[2])
     n_valid = n_valid.to(dev)
     valid = j[None, :] < n_valid[:, None]                 # (B, K)
 
     h = params.embed[tokens].to(dtype)                    # (B, K, d)
     h = torch.where(valid[..., None], h, 0)               # padding rows inert
 
-    layers = zip(params.layers, layer_windows(cfg).tolist(), _layer_caches(cache), strict=True)
-    for lp, window, lc in layers:
+    lcs = _layer_caches(cache) if paged is None else None
+    for i, (lp, window) in enumerate(zip(params.layers, layer_windows(cfg).tolist(), strict=True)):
+        lc = lcs[i] if paged is None else paged.view(i)
         hn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
         if cfg.mixer == "attn":
             mix = _attn_prefill_chunk(lp["attn"], hn, lc, q_pos, rows, window, cfg, dtype)
@@ -567,6 +594,8 @@ def lm_prefill_chunk(
             s, state = _ssd_prefill_chunk(lp["ssd"], hn, lc["ssd_state"], valid, cfg, policy)
             lc["ssd_state"].copy_(state)
             mix = 0.5 * (a + s)
+        if paged is not None:
+            paged.commit(i, lc)
         h = h + mix
         if "ffn" in lp:
             f, _ = _ffn(lp["ffn"], rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg, dtype, router_dtype)
@@ -576,4 +605,140 @@ def lm_prefill_chunk(
     last = torch.clamp(n_valid.long() - 1, 0, K - 1)
     logits = _head(params, h[torch.arange(B, device=dev), last], head_dtype)
     cache["step"] += n_valid.to(torch.int32)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (block-table gather, then a scatter of the written rows)
+# ---------------------------------------------------------------------------
+
+
+def init_paged_cache(cfg: LMArchConfig, batch: int, num_blocks: int, block_size: int,
+                     max_len: int, dtype=torch.float32,
+                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The paged decode cache on ``device``: KV rows live in ``num_blocks``
+    fixed-size blocks instead of per-slot ``(batch, W)`` strips.  One
+    physical block id addresses all L layers at once, so a block table is
+    one ``(batch, W // block_size)`` array shared by every layer: k and v
+    ``(L, Nb, Hk, bs, hd)``, MLA's ``c_kv`` and ``k_rope`` ``(L, Nb, bs,
+    r)``, ``kv_pos`` ``(L, Nb, bs)``.
+
+    Block 0 is the *null block*: its ``kv_pos`` stays -1, so unallocated
+    table entries gather an all-masked view.  ``ssd_state`` (O(1)
+    recurrent state) is not paged: a dense per-slot array as in
+    :func:`init_cache`."""
+    dev = resolve_device(device)
+    L = cfg.n_layers
+    cache = {"step": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if cfg.mixer in ("attn", "hymba"):
+        W = max_len if cfg.attn_window <= 0 else min(max_len, cfg.attn_window)
+        if W % block_size:
+            raise ValueError(f"cache width {W} (max_len/window) must be a multiple of "
+                             f"block_size {block_size}")
+        if cfg.mla_kv_lora:
+            cache["c_kv"] = torch.zeros((L, num_blocks, block_size, cfg.mla_kv_lora), dtype=dtype,
+                                        device=dev)
+            cache["k_rope"] = torch.zeros((L, num_blocks, block_size, cfg.mla_rope_dim),
+                                          dtype=dtype, device=dev)
+        else:
+            shape = (L, num_blocks, cfg.n_kv_heads, block_size, cfg.hd)
+            cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+            cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["kv_pos"] = torch.full((L, num_blocks, block_size), -1, dtype=torch.int32,
+                                     device=dev)
+    if cfg.mixer in ("ssd", "hymba"):
+        cache["ssd_state"] = torch.zeros(
+            (L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), device=dev)
+    return cache
+
+
+class _PagedViews:
+    """A paged cache read through a block table: each layer's dense view is
+    gathered into the exact layout, dtype and strides of the dense cache's
+    layer slice (so the dense attention step runs the same kernels on it),
+    the dense step writes its rows into that copy, and only the rows
+    written this tick go back into the blocks.  Rows of inactive slots and
+    padding tokens are never in the written set, so nothing is written
+    through the null block they map to."""
+
+    def __init__(self, cache: Dict[str, torch.Tensor], block_table: torch.Tensor):
+        self.cache = cache
+        self.bt = block_table.long()                      # (B, nbt)
+        self.bs = cache["kv_pos"].shape[-1]
+        self.width = self.bt.shape[1] * self.bs
+        if "k" in cache:
+            self.heads = torch.arange(cache["k"].shape[2], device=self.bt.device)[None, :, None]
+
+    def index(self, vb: torch.Tensor, rows: torch.Tensor) -> None:
+        """The rows this tick writes: slot ``vb`` at ring row ``rows``, and
+        their (block, offset) in the block arrays, once a tick."""
+        self.vb, self.rows = vb, rows
+        self.wb = self.bt[vb, rows // self.bs]
+        self.wo = torch.remainder(rows, self.bs)
+
+    def view(self, i: int) -> Dict[str, torch.Tensor]:
+        c, bt = self.cache, self.bt
+        B, W = bt.shape[0], self.width
+        lc = {"kv_pos": c["kv_pos"][i][bt].view(B, W)}
+        if "c_kv" in c:
+            for k in ("c_kv", "k_rope"):
+                lc[k] = c[k][i][bt].contiguous().view(B, W, c[k].shape[-1])
+        else:
+            for k in ("k", "v"):
+                g = c[k][i][bt[:, None, :], self.heads]  # (B, Hk, nbt, bs, hd)
+                lc[k] = g.contiguous().view(B, g.shape[1], W, g.shape[-1])
+        if "ssd_state" in c:
+            lc["ssd_state"] = c["ssd_state"][i]
+        return lc
+
+    def commit(self, i: int, lc: Dict[str, torch.Tensor]) -> None:
+        c, vb, rows, wb, wo = self.cache, self.vb, self.rows, self.wb, self.wo
+        c["kv_pos"][i][wb, wo] = lc["kv_pos"][vb, rows]
+        if "c_kv" in c:
+            for k in ("c_kv", "k_rope"):
+                c[k][i][wb, wo] = lc[k][vb, rows]
+        else:
+            for k in ("k", "v"):
+                c[k][i][wb, :, wo] = lc[k][vb, :, rows]
+
+
+@torch.inference_mode()
+def lm_paged_decode_step(
+    params: LM,
+    cache: Dict[str, torch.Tensor],
+    block_table: torch.Tensor,   # (B, W // block_size) physical block ids
+    active: torch.Tensor,        # (B,) bool: the slot holds a live request
+    tokens: torch.Tensor,        # (B,) next token ids
+    cfg: LMArchConfig,
+    policy: PrecisionPolicy = FULL,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One paged serve step: each layer's dense view gathered from the block
+    arrays, the exact dense decode step on it, the written rows scattered
+    back; (logits (B, V) f32, the cache updated in place).  The same shapes
+    and strides as :func:`lm_decode_step` over an equally filled dense
+    cache, so the same logits bit for bit.  ``active`` masks the write-back
+    only; on the CPU it costs no device sync."""
+    if "kv_pos" not in cache:
+        return _decode(params, cache, tokens, cfg, policy), cache
+    vb = torch.as_tensor(active).nonzero().flatten().to(tokens.device)
+    logits = _decode(params, cache, tokens, cfg, policy,
+                     _PagedViews(cache, block_table.to(tokens.device)), vb)
     return logits, cache
+
+
+@torch.inference_mode()
+def lm_paged_prefill_chunk(
+    params: LM,
+    cache: Dict[str, torch.Tensor],
+    block_table: torch.Tensor,   # (B, W // block_size) physical block ids
+    tokens: torch.Tensor,        # (B, K) next chunk of token ids a slot
+    n_valid: torch.Tensor,       # (B,) valid prefix length a slot (0..K)
+    cfg: LMArchConfig,
+    policy: PrecisionPolicy = FULL,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Paged chunked prefill: the block-table twin of
+    :func:`lm_prefill_chunk` (gather the view, the exact dense chunk step,
+    scatter the valid tokens' rows).  A slot with ``n_valid == 0`` neither
+    writes nor advances."""
+    paged = (_PagedViews(cache, block_table.to(tokens.device)) if "kv_pos" in cache else None)
+    return _prefill_chunk(params, cache, tokens, n_valid, cfg, policy, paged), cache

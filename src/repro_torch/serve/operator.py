@@ -32,7 +32,6 @@ included.
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -48,17 +47,8 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.precision import FULL, PrecisionPolicy
 
 from .engine import EngineBase
+from .paged.prefix import content_key
 from .scheduler import Scheduler
-
-
-def content_key(x) -> str:
-    """Content hash of an operator input field: exact bytes of the
-    f32-normalised array plus its shape.  Two fields with equal keys are
-    bitwise-identical inputs, so memoised outputs are bitwise-valid."""
-    a = np.ascontiguousarray(np.asarray(x, np.float32))
-    h = hashlib.sha1(a.tobytes())
-    h.update(str(a.shape).encode())
-    return h.hexdigest()
 
 
 @dataclasses.dataclass(eq=False)

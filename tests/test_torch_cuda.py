@@ -15,7 +15,10 @@ stale or oversized entry leaving every launch as it was, ``measure`` and
 the oracle on the card, the engine serving calibrated tiles; and the LM
 pool (one smoke config a family: forward against the CPU, decode against
 the forward, ``LMEngine`` chunk 1 against 8 and rerun bit for bit,
-Whisper's decode against the CPU), whose path runs none of these kernels.
+Whisper's decode against the CPU) and ``PagedLMEngine`` (bit-equal to
+``LMEngine`` for four archs under ``full`` and ``amp_bf16``, copy-on-write,
+a shared prefix, an exhausted pool, the null block untouched), whose path
+runs none of these kernels.
 
 Imports no JAX (the GPU machine has none).  Every test carries the
 ``cuda`` marker and skips, from inside a fixture, where no card is
@@ -2135,3 +2138,110 @@ def test_whisper_decode_on_the_card_matches_cpu(cuda):
         lc, cache_cpu = whisper_decode_step(net_cpu, cache_cpu, toks[:, t], cfg)
         assert _rel_l2(lg.cpu(), lc) <= 1e-5, t
         assert _rel_l2(lg.cpu(), fwd[:, t].cpu()) <= 1e-5, t
+
+
+# -- paged LM serving (no hand-written kernel on its path either) ----------------------------
+#: the reference's paged bar: pure attention, the pure-SSD fallback, the
+#: hybrid SWA ring and MLA (MoE stripped: capacity routing depends on the batch)
+PAGED_ARCHS = ["smollm-360m", "mamba2-370m", "hymba-1.5b", "deepseek-v2-lite-16b"]
+
+
+def _paged_model(arch, seed=5):
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_lm
+
+    cfg = get_config(arch, smoke=True)
+    if cfg.moe_experts:
+        cfg = dataclasses.replace(cfg, moe_experts=0, moe_shared=0, d_ff=32)
+    return cfg, init_lm(torch.Generator().manual_seed(seed), cfg)
+
+
+def _null_block_untouched(engine):
+    c = engine.cache
+    assert bool((c["kv_pos"][:, 0] == -1).all())
+    for k in ("k", "v", "c_kv", "k_rope"):
+        if k in c:
+            assert not bool(c[k][:, 0].any()), k
+
+
+def _serve_pair(cfg, net, prompts, policy_name="full", new=4, **paged_kw):
+    """The same traffic through LMEngine and PagedLMEngine on the card."""
+    from repro_torch.serve import LMEngine, PagedLMEngine, Request
+
+    kw = dict(n_slots=2, max_len=2 * cfg.attn_window if cfg.attn_window else 48,
+              prefill_chunk=4, record_logits=True, policy=get_policy(policy_name))
+    out = []
+    for eng in (LMEngine(net, cfg, **kw), PagedLMEngine(net, cfg, block_size=8, **kw, **paged_kw)):
+        done, _ = eng.run_until_done([Request(uid=i, prompt=list(p), max_new_tokens=new)
+                                      for i, p in enumerate(prompts)])
+        assert all(r.status == "done" for r in done)
+        out.append(({r.uid: r.generated for r in done}, eng))
+    return out
+
+
+@pytest.mark.parametrize("arch", PAGED_ARCHS)
+@pytest.mark.parametrize("policy_name", ["full", "amp_bf16"])
+def test_paged_engine_on_the_card_bit_equal_to_dense(cuda, arch, policy_name):
+    """Paged against dense on the card: the same tokens and every per-step
+    logits row bit for bit (the view has the dense layer slice's layout,
+    so every GEMM is the same), block 0 untouched."""
+    cfg, net = _paged_model(arch)
+    rng = np.random.RandomState(6)
+    lens = (5, 11, 3, 20) if not cfg.attn_window else (5, cfg.attn_window + 6, 3, 20)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab, n)] for n in lens]
+    (dg, dense), (pg, paged) = _serve_pair(cfg, net, prompts, policy_name)
+    assert pg == dg
+    for uid in range(len(prompts)):
+        assert all(np.array_equal(a, b) for a, b in zip(dense.logits_for(uid),
+                                                        paged.logits_for(uid), strict=True))
+    if cfg.mixer == "ssd":
+        assert paged.stats()["paged"]["active"] is False
+    else:
+        assert paged.cache["kv_pos"].device.type == "cuda"
+        _null_block_untouched(paged)
+
+
+def test_paged_engine_on_the_card_cow_prefix_and_exhaustion(cuda):
+    """Copy-on-write of a forked running block bit-equal to dense; a shared
+    prefix reused (the same tokens, logits within 1e-5: skipped prefill
+    changes which rows share a GEMM); an exhausted pool raises."""
+    from repro_torch.serve import LMEngine, PagedLMEngine, Request
+
+    cfg, net = _paged_model("smollm-360m")
+    prompt = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8]
+    kw = dict(n_slots=1, max_len=32, prefill_chunk=4, record_logits=True)
+    dense = LMEngine(net, cfg, **kw)
+    d_done, _ = dense.run_until_done([Request(uid=0, prompt=list(prompt), max_new_tokens=4)])
+    paged = PagedLMEngine(net, cfg, block_size=8, **kw)
+    req = Request(uid=0, prompt=list(prompt), max_new_tokens=4)
+    paged.submit(req)
+    for _ in range(3):
+        paged.tick()
+    shared = int(paged._bt[0, 1])
+    paged.pool.fork(shared)
+    while req.status != "done":
+        paged.tick()
+    assert int(paged._bt[0, 1]) != shared and paged.pool.cow_copies == 1
+    assert req.generated == d_done[0].generated
+    assert all(np.array_equal(a, b) for a, b in zip(dense.logits_for(0), paged.logits_for(0),
+                                                    strict=True))
+    _null_block_untouched(paged)
+
+    shared_prompt = [int(t) for t in np.random.RandomState(7).randint(1, cfg.vocab, 16)]
+    prompts = [shared_prompt + [u + 1, u + 2] for u in range(6)]
+    (dg, dense), (pg, paged) = _serve_pair(cfg, net, prompts)
+    assert pg == dg
+    assert paged.stats()["paged"]["prefix"]["hits"] >= 4
+    assert paged.stats()["prompt_tokens"] < dense.stats()["prompt_tokens"]
+    for uid in range(6):
+        for a, b in zip(dense.logits_for(uid), paged.logits_for(uid), strict=True):
+            assert _rel_l2(b, a) <= 1e-5
+    _null_block_untouched(paged)
+
+    full = PagedLMEngine(net, cfg, n_slots=2, max_len=32, prefill_chunk=4, block_size=8,
+                         num_blocks=4, prefix_sharing=False)
+    for u in range(2):
+        full.submit(Request(uid=u, prompt=list(range(1, 10)), max_new_tokens=4))
+    with pytest.raises(RuntimeError, match="pool exhausted"):
+        full.drain()
+    _null_block_untouched(full)
