@@ -266,6 +266,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    decode tick.  Then ``repro_torch.launch.serve_smoke`` on the card (its
    smoke configs): the three engines' stats in one line.
 
+13. Distribution (``repro_torch.dist``, ``launch.steps``, the dry-runs) on
+   a one-rank NCCL world (a file store) and ``make_debug_mesh(1, "cuda")``,
+   a 1x1 ("data", "model") mesh.  (b) ``FNO_DARCY`` at 128², batch 8,
+   ``mixed_fno_bf16``: 4 steps of ``build_fno_train_step`` on the mesh
+   (parameters and moments DTensors, the gradients all-reduced over NCCL,
+   the fused kernels launched on the local tensors) against the same step
+   with ``mesh=None``: losses and parameters bit for bit; the fused
+   kernels' launches of the mesh run counted into the kernels line; then
+   one step with ``make_dp_allreduce``'s bf16 all-reduce: its first
+   gradient, and every one, within 2^-8 relative L2 of the f32
+   all-reduce's (and whether the reference's "< 1e-3" holds).  (c) ``LMEngine`` at smollm-360m's full
+   width on the mesh, ``full``, 8 seeded greedy requests of 16 new tokens,
+   against ``mesh=None``: the same tokens; the logits' largest difference,
+   whether they are bit-equal, ms a decode tick of both.  (d) 4
+   ``amp_bf16`` steps of ``build_train_step`` at smollm-360m, batch 2 x 512
+   tokens, on the mesh and off it: bit for bit, the loss finite and lower
+   after 4 steps.  (e) ``repro_torch.launch.dryrun --arch smollm-360m
+   --shape decode_32k --mesh both`` and ``repro_torch.launch.dryrun_fno
+   --cell fno-darcy --mesh both`` as subprocesses on the CPU (fake process
+   groups of 256 and 512 ranks): every cell ok, each record's roofline
+   (derived counts, not timings) and seconds printed.
+
 The line before the last is ``{"kernels": [...]}`` (twelve kernels); the
 last is ``{"ok": true, "device": {...}}``.
 """
@@ -375,6 +397,21 @@ LM_SMOKE_TOL = 1e-5
 #: 32 new tokens each; the frontend's deadline
 PAGED_BLOCK, PAGED_REQUESTS, PAGED_SYSTEM, PAGED_OWN, PAGED_NEW = 16, 16, 256, (16, 128), 32
 PAGED_DEADLINE_MS = 250.0
+#: phase 13: FNO_DARCY's data-parallel step (128², batch 8, mixed_fno_bf16, 4
+#: steps); smollm-360m served on the mesh (8 greedy requests of 16-128 prompt
+#: tokens, 16 new tokens each, full) and trained (4 amp_bf16 steps, batch
+#: 2 x 512 tokens of data.tokens); the two dry-runs as subprocesses
+DIST_FNO_POLICY, DIST_FNO_BATCH, DIST_FNO_STEPS = "mixed_fno_bf16", 8, 4
+DIST_LM_REQUESTS, DIST_LM_NEW, DIST_LM_PROMPTS, DIST_LM_MAX_LEN = 8, 16, (16, 128), 256
+DIST_TRAIN_BATCH, DIST_TRAIN_SEQ, DIST_TRAIN_STEPS, DIST_TRAIN_LR = 2, 512, 4, 1e-3
+DIST_DRYRUNS = {
+    "dryrun_lm": ("repro_torch.launch.dryrun", "--arch", "smollm-360m", "--shape", "decode_32k",
+                  "--mesh", "both"),
+    "dryrun_fno": ("repro_torch.launch.dryrun_fno", "--cell", "fno-darcy", "--mesh", "both"),
+}
+DIST_DRYRUN_TIMEOUT = 300
+#: bf16's unit roundoff: the compressed all-reduce's budget a gradient
+BF16_UNIT_ROUNDOFF = 2.0 ** -8
 #: every kernel's launch count on ``repro_torch.kernels.spectral_contract``
 LAUNCH_COUNTERS = ("launches", "launches_bwd_x", "launches_bwd_w",
                    "launches_cp_fwd", "launches_cp_bwd", "launches_ls_fwd",
@@ -3476,6 +3513,283 @@ def serve_smoke_phase(card):
             | ({"memo": v["stats"]["memo"]} if "memo" in v["stats"] else {})
             for k, v in rec.items()})
 
+# -- phase 13: distribution ----------------------------------------------------------
+def _bits_equal(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def dist_fno(sc, card, mesh, darcy):
+    """13(b): FNO_DARCY's data-parallel step on the one-rank mesh against
+    the same step off the mesh; then one step with the bf16-compressed
+    all-reduce.  Returns the fused kernels' launches of the mesh run."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.fno_paper import FNO_DARCY
+    from repro_torch.dist import distribute, fno_param_specs
+    from repro_torch.launch.steps import build_fno_train_step, fno_batch_specs
+    from repro_torch.models import init_fno
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.grad_comm import make_dp_allreduce
+    from repro_torch.precision import get_policy
+
+    policy = get_policy(DIST_FNO_POLICY)
+    B = DIST_FNO_BATCH
+    batch = {"x": torch.from_numpy(darcy["a"][:B]).cuda(),
+             "y": torch.from_numpy(darcy["u"][:B]).cuda()}
+    opt = AdamW(lr=1e-3)
+
+    def fresh():
+        return init_fno(torch.Generator().manual_seed(SEED + 130), FNO_DARCY)
+
+    def placed():
+        model = fresh()
+        distribute(model, mesh, fno_param_specs(model, mesh))
+        with implicit_replication():
+            state = opt.init(dict(model.named_parameters()))
+        return model, state
+
+    ref = fresh()
+    ref_state = opt.init(dict(ref.named_parameters()))
+    plain = build_fno_train_step(policy, None, opt)
+    dbatch = distribute(batch, mesh, fno_batch_specs(batch, mesh))
+    dp = build_fno_train_step(policy, mesh, opt)
+    model, state = placed()
+    plain_losses, dp_losses = [], []
+    for _ in range(DIST_FNO_STEPS):
+        ref, ref_state, loss = plain(ref, ref_state, batch)
+        plain_losses.append(loss.detach())
+    torch.cuda.synchronize()
+    zero_counts(sc)
+    for _ in range(DIST_FNO_STEPS):
+        model, state, loss = dp(model, state, dbatch)
+        dp_losses.append(loss.detach())
+    # one step with the bf16-compressed all-reduce, its gradients caught
+    # beside the f32 all-reduce of the same partial gradients
+    caught = {}
+    compressed = make_dp_allreduce(mesh, dtype=torch.bfloat16)
+    uncompressed = make_dp_allreduce(mesh, dtype=torch.float32)
+
+    def spy(grads):
+        caught["f32"], caught["bf16"] = uncompressed(grads), compressed(grads)
+        return caught["bf16"]
+
+    cmodel, cstate = placed()
+    _, _, closs = build_fno_train_step(policy, mesh, opt, grad_reduce=spy)(cmodel, cstate, dbatch)
+    torch.cuda.synchronize()
+    launched = {"fused_fwd": sc.launches_fused_fwd, "fused_bwd": sc.launches_fused_bwd}
+    same_losses = all(_bits_equal(a, b) for a, b in zip(plain_losses, dp_losses, strict=True))
+    ref_named = dict(ref.named_parameters())
+    same_params = all(_bits_equal(p.full_tensor().detach(), ref_named[k].detach())
+                      for k, p in model.named_parameters())
+    # relative L2 a leaf, in the model's order (leaves whose gradient is 0 left out)
+    rel = {k: float((caught["bf16"][k] - g).norm() / g.norm())
+           for k, g in caught["f32"].items() if float(g.norm()) > 0}
+    first = next(iter(rel))
+    emit("dist_fno_train", card=card, config="FNO_DARCY", grid=TRAIN_GRID, batch=B,
+         policy=DIST_FNO_POLICY, steps=DIST_FNO_STEPS, mesh=str(tuple(mesh.shape)),
+         losses=[float(v) for v in dp_losses], plain_losses=[float(v) for v in plain_losses],
+         losses_bit_equal=same_losses, params_bit_equal=same_params, launches=launched,
+         compressed_loss=float(closs), first_grad=first,
+         first_grad_rel_l2_bf16=rel[first], max_grad_rel_l2_bf16=max(rel.values()),
+         bound_bf16=BF16_UNIT_ROUNDOFF,
+         reference_claim_1e3_holds_first=rel[first] < 1e-3,
+         reference_claim_1e3_holds_all=max(rel.values()) < 1e-3)
+    if not (same_losses and same_params):
+        fail("the data-parallel FNO step on the one-rank mesh differs from mesh=None")
+    if not launched["fused_fwd"] or not launched["fused_bwd"]:
+        fail(f"the data-parallel FNO step launched no fused kernel: {launched}")
+    # the first gradient, and every one: a leaf cast to bf16 in the forward
+    # has a gradient bf16 already holds exactly, so the first may read 0
+    if not np.isfinite(float(closs)) or max(rel.values()) > BF16_UNIT_ROUNDOFF:
+        fail(f"the bf16 all-reduce's gradients are up to {max(rel.values())} from f32's "
+             f"(bound {BF16_UNIT_ROUNDOFF}; the first {rel[first]})")
+    return launched
+
+
+def dist_lm_serve(card, mesh):
+    """13(c): LMEngine at smollm-360m's full width on the mesh against
+    mesh=None, under full."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_lm
+    from repro_torch.precision import get_policy
+    from repro_torch.serve import GREEDY, LMEngine
+
+    cfg = get_config(LM_ARCH)
+    model = init_lm(torch.Generator(device="cuda").manual_seed(SEED + 131), cfg)
+    rng = np.random.RandomState(SEED + 132)
+    lens = rng.randint(DIST_LM_PROMPTS[0], DIST_LM_PROMPTS[1] + 1, DIST_LM_REQUESTS)
+    traffic = [([int(t) for t in rng.randint(1, cfg.vocab, n)], DIST_LM_NEW, GREEDY)
+               for n in lens]
+
+    def engine(m):
+        return LMEngine(model, cfg, n_slots=DIST_LM_REQUESTS, max_len=DIST_LM_MAX_LEN,
+                        policy=get_policy("full"), mesh=m, seed=SEED, record_logits=True)
+
+    plain, sharded = engine(None), engine(mesh)
+    gens0, ticks0 = lm_serve(plain, lm_requests(traffic))
+    gens1, ticks1 = lm_serve(sharded, lm_requests(traffic))
+    uids = sorted(gens0)
+    diff = max(float(np.abs(x - y).max()) for u in uids
+               for x, y in zip(plain.logits_for(u), sharded.logits_for(u), strict=True))
+    r0, r1 = lm_rates(ticks0), lm_rates(ticks1)
+    emit("dist_lm_serve", card=card, arch=cfg.name, policy="full",
+         requests=DIST_LM_REQUESTS, new_tokens=DIST_LM_NEW, mesh=str(tuple(mesh.shape)),
+         tokens_equal=gens0 == gens1, logits_max_abs_diff=diff,
+         logits_bit_equal=lm_same_bits(plain, sharded, uids),
+         ms_per_decode_tick={"mesh_none": r0["ms_per_decode_tick"],
+                             "mesh": r1["ms_per_decode_tick"]},
+         ms_per_decode_tick_median={"mesh_none": r0["ms_per_decode_tick_median"],
+                                    "mesh": r1["ms_per_decode_tick_median"]},
+         ms_per_prefill_tick={"mesh_none": r0["ms_per_prefill_tick"],
+                              "mesh": r1["ms_per_prefill_tick"]},
+         decode_ticks=[r0["decode_ticks"], r1["decode_ticks"]])
+    if gens0 != gens1:
+        fail("LMEngine on the mesh generated other tokens than mesh=None")
+
+
+def dist_lm_train(card, mesh):
+    """13(d): build_train_step at smollm-360m, amp_bf16, on the mesh and off
+    it: bit for bit, and the loss lower after the steps."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import lm_inputs
+    from repro_torch.dist import batch_specs, distribute, lm_param_specs, use_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim import AdamW
+    from repro_torch.precision import get_policy
+
+    cfg = get_config(LM_ARCH)
+    B, S = DIST_TRAIN_BATCH, DIST_TRAIN_SEQ
+    batch = {k: v.to(torch.int32).cuda()
+             for k, v in lm_inputs(SEED + 133, 0, B, S, cfg.vocab).items()}
+    opt = AdamW(lr=DIST_TRAIN_LR)
+    bundle = build_train_step(cfg, ShapeConfig(f"train_{S}", S, B, "train"),
+                              get_policy("amp_bf16"), opt)
+
+    def fresh():
+        return init_lm(torch.Generator(device="cuda").manual_seed(SEED + 134), cfg)
+
+    p0 = fresh()
+    s0 = opt.init(dict(p0.named_parameters()))
+    losses0 = []
+    t0 = time.perf_counter()
+    for _ in range(DIST_TRAIN_STEPS):
+        p0, s0, loss = bundle.step_fn(p0, s0, batch)
+        losses0.append(loss)
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t0
+    p1 = fresh()
+    distribute(p1, mesh, lm_param_specs(p1, mesh))
+    losses1 = []
+    t0 = time.perf_counter()
+    with use_mesh(mesh), implicit_replication():
+        s1 = opt.init(dict(p1.named_parameters()))
+        dbatch = distribute(batch, mesh, batch_specs(batch, mesh))
+        for _ in range(DIST_TRAIN_STEPS):
+            p1, s1, loss = bundle.step_fn(p1, s1, dbatch)
+            losses1.append(loss.full_tensor())
+    torch.cuda.synchronize()
+    on_s = time.perf_counter() - t0
+    same_losses = all(_bits_equal(a, b) for a, b in zip(losses0, losses1, strict=True))
+    n0 = dict(p0.named_parameters())
+    same_params = all(_bits_equal(p.full_tensor().detach(), n0[k].detach())
+                      for k, p in p1.named_parameters())
+    vals = [float(v) for v in losses1]
+    emit("dist_lm_train", card=card, arch=cfg.name, policy="amp_bf16", batch=B, seq=S,
+         steps=DIST_TRAIN_STEPS, lr=DIST_TRAIN_LR, losses=vals,
+         plain_losses=[float(v) for v in losses0], losses_bit_equal=same_losses,
+         params_bit_equal=same_params, seconds_off_mesh=off_s, seconds_on_mesh=on_s)
+    if not (same_losses and same_params):
+        fail("the LM train step on the one-rank mesh differs from mesh=None")
+    if not (all(np.isfinite(vals)) and vals[-1] < vals[0]):
+        fail(f"the LM train step's loss did not fall: {vals}")
+    del p0, p1, s0, s1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def start_dryruns():
+    """13(e): the two dry-runs, as the CLI runs them, on the host's CPU, one
+    thread each (the card's process group is not theirs: each makes a fake
+    one)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    procs = {}
+    for name, args in DIST_DRYRUNS.items():
+        out = ROOT / "build" / f"chip_smoke_{name}.json"
+        if out.exists():
+            out.unlink()
+        log = open(ROOT / "build" / f"chip_smoke_{name}.log", "w")
+        procs[name] = (subprocess.Popen([sys.executable, "-m", *args, "--out", str(out)],
+                                        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT),
+                       out, log, time.perf_counter())
+    return procs
+
+
+def finish_dryruns(procs):
+    for name, (proc, out, log, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=DIST_DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        log.close()
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            tail = (ROOT / "build" / f"chip_smoke_{name}.log").read_text()[-2000:]
+            fail(f"the {name} dry-run exited {rc}: {tail}")
+        recs = json.loads(out.read_text())
+        emit(f"dist_{name}", seconds=seconds, note="derived counts, not timings",
+             torch=torch.__version__,
+             cells=[{"arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+                     "status": r["status"], "roofline": r.get("roofline"),
+                     "collective_bytes_by_kind": r.get("collective_bytes_by_kind"),
+                     "memory_analysis": r.get("memory_analysis"),
+                     "spectral_kernel": r.get("spectral_kernel"),
+                     "compile_s": r.get("compile_s")} for r in recs])
+        if any(r["status"] != "ok" for r in recs):
+            fail(f"the {name} dry-run has a cell that is not ok")
+
+
+def dist_phase(sc, card, darcy):
+    """Phase 13: distribution on the card's one-rank NCCL world."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    t0 = time.perf_counter()
+    store = os.path.join(tempfile.mkdtemp(), "store")
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    procs = {}
+    try:
+        mesh = make_debug_mesh(1, "cuda")
+        emit("dist_setup", backend=str(dist.get_backend()), world=dist.get_world_size(),
+             mesh=str(tuple(mesh.shape)), axes=list(mesh.mesh_dim_names),
+             device_type=mesh.device_type)
+        # the dry-runs are CPU work on the host: they overlap the card's
+        procs = start_dryruns()
+        launched = dist_fno(sc, card, mesh, darcy)
+        dist_lm_serve(card, mesh)
+        dist_lm_train(card, mesh)
+        finish_dryruns(procs)
+    finally:
+        for proc, _, log, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        dist.destroy_process_group()
+    emit("distribution", card=card, seconds=time.perf_counter() - t0, launches=launched)
+    return launched
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -3506,10 +3820,11 @@ def main():
     tuned = tune_phase(sc, darcy, card)
     observed = obs_phase(sc, darcy)
     analyzed = analyze_phase(sc, darcy)
-    del darcy
     lm_phase(sc, card)
     lm_paged_phase(sc, card)
     serve_smoke_phase(card)
+    distributed = dist_phase(sc, card, darcy)
+    del darcy
     launches = {"fwd": served + trained["fwd"] + gino["fwd"] + auto["fwd"] + analyzed["fwd"],
                 "bwd_x": trained["bwd_x"] + gino["bwd_x"] + auto["bwd_x"] + analyzed["bwd_x"],
                 "bwd_w": trained["bwd_w"] + gino["bwd_w"] + auto["bwd_w"] + analyzed["bwd_w"],
@@ -3517,14 +3832,16 @@ def main():
                 "cp_bwd": tfno_trained["cp_bwd"], "ls_fwd": sfno_served + sfno_trained["ls_fwd"],
                 "ls_bwd_x": sfno_trained["ls_bwd_x"], "ls_bwd_w": sfno_trained["ls_bwd_w"],
                 "fused_fwd": fused_served + fused_trained["fused_fwd"] + gino["fused_fwd"]
-                + tuned["fused_fwd"] + observed["fused_fwd"] + analyzed["fused_fwd"],
+                + tuned["fused_fwd"] + observed["fused_fwd"] + analyzed["fused_fwd"]
+                + distributed["fused_fwd"],
                 "fused_bwd": fused_trained["fused_bwd"] + gino["fused_bwd"]
-                + tuned["fused_bwd"] + observed["fused_bwd"] + analyzed["fused_bwd"]}
+                + tuned["fused_bwd"] + observed["fused_bwd"] + analyzed["fused_bwd"]
+                + distributed["fused_bwd"]}
     emit("launches_by_path", serve={"fwd": served}, train=trained,
          fused_serve={"fused_fwd": fused_served}, fused_train=fused_trained,
          tfno_serve={"cp_fwd": tfno_served}, tfno_train=tfno_trained,
          sfno_serve={"ls_fwd": sfno_served}, sfno_train=sfno_trained, gino=gino,
-         autoprec=auto, tune=tuned, obs=observed, analyze=analyzed)
+         autoprec=auto, tune=tuned, obs=observed, analyze=analyzed, distribution=distributed)
     entries = (timing_phase(sc, max_err, launches) + cp_timing_phase(sc, max_err, launches)
                + ls_timing_phase(sc, max_err, launches)
                + fused_timing_phase(sc, max_err, launches) + lm_kernel_phase())

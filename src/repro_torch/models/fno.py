@@ -32,6 +32,7 @@ from repro_torch.core.spectral import (
     spectral_weight_shapes,
 )
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.constrain import constrain_spatial
 from repro_torch.precision import FULL, PrecisionPolicy
 
 
@@ -169,6 +170,7 @@ class FNO(nn.Module):
         h = h.movedim(-1, 1).to(cdt)  # (B, hidden, *spatial)
 
         for layer in range(cfg.n_layers):
+            h = constrain_spatial(h)
             ldt = policy.at(f"fno/layer{layer}/dense").compute_dtype
             spect = {name: p[layer] for name, p in self.spectral.items()}
             y = spectral_conv_apply(

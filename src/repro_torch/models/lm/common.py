@@ -18,7 +18,9 @@ each op rounded).  Masked scores are
 ``NEG_INF = -1e30``, not ``-inf``: a padding query whose every key is
 masked gets a finite uniform row instead of a NaN.
 
-These helpers sit below the rule table and never consult it.  GQA folds
+These helpers sit below the rule table; only ``blocked_attention`` reads
+the ambient mesh (its default query chunk and the chunked queries'
+layout, as the reference's does).  GQA folds
 the query heads of one KV head into the row dimension of one product
 instead of repeating the KV heads: the same dot products, no copy.
 """
@@ -28,6 +30,9 @@ import math
 from typing import Dict, Optional, Union
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.dist.constrain import constrain, logical_axis_size
 
 NEG_INF = -1e30
 
@@ -107,13 +112,61 @@ def apply_rope_chunk(x: torch.Tensor, pos: torch.Tensor, theta: float = 10000.0)
 # ---------------------------------------------------------------------------
 
 
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  Token ids sharded on one dim over several mesh
+    dims (the multi-pod batch over ("pod", "data")) keep only the first of
+    them: torch 2.11's DTensor gathers no rows by such ids (the ids are a
+    few ints a rank; the next constraint reshards the rows)."""
+    if isinstance(tokens, DTensor):
+        from torch.distributed.tensor import Replicate, Shard
+
+        seen, pl = set(), []
+        for p in tokens.placements:
+            hybrid = isinstance(p, Shard) and p.dim in seen
+            pl.append(Replicate() if hybrid else p)
+            if isinstance(p, Shard):
+                seen.add(p.dim)
+        if pl != list(tokens.placements):
+            tokens = tokens.redistribute(tokens.device_mesh, pl)
+    return table[tokens]
+
+
+def _whole_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x with everything but its batch dim whole on the ambient mesh's tp
+    axis unless that axis divides n heads: a DTensor cannot split a dim
+    sharded into uneven head blocks (GSPMD reshards such a reshape by
+    itself).  Off-mesh, and on a plain tensor, the identity."""
+    if n % logical_axis_size("heads"):
+        return constrain(x, "dp", *([None] * (x.ndim - 1)))
+    return x
+
+
+def split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(..., n * d) -> (..., n, d), the features whole on tp first where it
+    does not divide the n heads."""
+    return _whole_heads(x, n).reshape(*x.shape[:-1], n, d)
+
+
+def _unfolded(x: torch.Tensor, Hk: int) -> torch.Tensor:
+    """The fold's twin: where :func:`_whole_heads` made the heads whole, the
+    gradient that comes back to the unfolded (B, H, ...) result must be
+    whole on them too before it is folded again (a redistribution to the
+    placements x already has: the identity forward)."""
+    if Hk % logical_axis_size("heads") and isinstance(x, DTensor):
+        return x.redistribute(x.device_mesh, x.placements)
+    return x
+
+
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """(B, H, Q, D) x (B, Hk, S, D) -> (B, H, Q, S) f32, H = g * Hk, query
     head h reading KV head h // g (``jnp.repeat(k, g, axis=1)``)."""
     B, H, Q, D = q.shape
     Hk = k.shape[1]
+    # GQA folds H = g * Hk heads into (Hk, g)
+    q, k = _whole_heads(q, Hk), _whole_heads(k, Hk)
     qg = q.float().reshape(B, Hk, (H // Hk) * Q, D)
-    return torch.matmul(qg, k.float().transpose(-1, -2)).reshape(B, H, Q, k.shape[2])
+    return _unfolded(torch.matmul(qg, k.float().transpose(-1, -2)).reshape(B, H, Q, k.shape[2]),
+                     Hk)
 
 
 def _mix(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -121,8 +174,9 @@ def _mix(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     v's dtype first."""
     B, H, Q, S = p.shape
     Hk = v.shape[1]
+    p, v = _whole_heads(p, Hk), _whole_heads(v, Hk)
     pg = p.to(v.dtype).float().reshape(B, Hk, (H // Hk) * Q, S)
-    return torch.matmul(pg, v.float()).reshape(B, H, Q, v.shape[-1])
+    return _unfolded(torch.matmul(pg, v.float()).reshape(B, H, Q, v.shape[-1]), Hk)
 
 
 def _mask_scores(s, q_pos, k_pos, window):
@@ -145,13 +199,18 @@ def blocked_attention(q, k, v, q_pos, k_pos, window: Window, q_chunk: int = 0,
                       k_chunk: int = 512) -> torch.Tensor:
     """Online-softmax attention over (query chunk x ``k_chunk``-key) tiles,
     the key blocks in order (the reference's ``lax.scan``).  ``q_chunk``
-    defaults to ``max(64, min(512, S))``.  Blocks outside the causal or
-    window band still run (masked), as in the reference."""
+    defaults to ``max(64, min(512, S // m))``, m the ambient mesh's size
+    of the "heads" axis (1 off-mesh), so the chunk grid aligns with the
+    sequence sharding; the chunked queries are constrained heads over tp
+    when the heads divide, else the chunk axis (context parallelism).
+    Blocks outside the causal or window band still run (masked), as in
+    the reference."""
     B, H, S, D = q.shape
     Dv = v.shape[-1]
     Sk = k.shape[2]
+    msize = logical_axis_size("heads")
     if q_chunk <= 0:
-        q_chunk = max(64, min(512, S))
+        q_chunk = max(64, min(512, S // max(msize, 1)))
     pad_q = (-S) % q_chunk
     pad_k = (-Sk) % k_chunk
     if pad_q:
@@ -163,7 +222,12 @@ def blocked_attention(q, k, v, q_pos, k_pos, window: Window, q_chunk: int = 0,
         k_pos = torch.cat([k_pos, k_pos.new_full((pad_k,), 2 ** 30)])
     nq, nk = q.shape[2] // q_chunk, k.shape[2] // k_chunk
     scale = 1.0 / (D ** 0.5)
-    qb = q.reshape(B, H, nq * q_chunk, D)
+    qb = q.reshape(B, H, nq, q_chunk, D)
+    if H % max(msize, 1) == 0:
+        qb = constrain(qb, "dp", "heads", None, None, None)
+    else:
+        qb = constrain(qb, "dp", None, "seq", None, None)
+    qb = qb.reshape(B, H, nq * q_chunk, D)
     qpb = q_pos.reshape(nq, q_chunk)
 
     acc = q.new_zeros((B, H, nq, q_chunk, Dv), dtype=torch.float32)

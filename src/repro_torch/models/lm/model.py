@@ -32,16 +32,20 @@ from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMArchConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.constrain import constrain, constrain_bhsd, constrain_bsd
+from repro_torch.dist.sharding import write_rows
 from repro_torch.precision import FULL, PrecisionPolicy
 
 from .common import (
     chunk_attention,
     decode_attention,
     dense,
+    embed_rows,
     gen_device,
     gqa_attention,
     init_swiglu,
@@ -49,6 +53,7 @@ from .common import (
     rmsnorm,
     rope_cs,
     rotate,
+    split_heads,
     swiglu,
 )
 from .moe import init_moe, moe_apply
@@ -186,10 +191,16 @@ def layer_windows(cfg: LMArchConfig, n_layers: Optional[int] = None) -> torch.Te
     ``n_full_attn_layers`` layers get full attention (first, middle, last),
     picked as the reference picks them: an f32 ``jnp.linspace`` over the
     layer indices, truncated."""
+    return torch.tensor(window_list(cfg, n_layers), dtype=torch.int32)
+
+
+def window_list(cfg: LMArchConfig, n_layers: Optional[int] = None) -> List[int]:
+    """:func:`layer_windows` as a list of ints, computed on the host with
+    numpy (no tensor op: a step traced on fake tensors needs the values)."""
     L = n_layers or cfg.n_layers
     if cfg.attn_window <= 0:
-        return torch.full((L,), FULL_WINDOW, dtype=torch.int32)
-    w = torch.full((L,), cfg.attn_window, dtype=torch.int32)
+        return [FULL_WINDOW] * L
+    w = np.full((L,), cfg.attn_window, dtype=np.int64)
     n = cfg.n_full_attn_layers
     if n > 0:
         stop = np.float32(L - 1)
@@ -200,8 +211,8 @@ def layer_windows(cfg: LMArchConfig, n_layers: Optional[int] = None) -> torch.Te
             step = np.arange(n - 1, dtype=np.float32) / np.float32(n - 1)
             pts = np.concatenate([np.float32(0.0) * (np.float32(1.0) - step) + stop * step,
                                   [stop]]).astype(np.float32)
-        w[torch.from_numpy(pts.astype(np.int32)).long()] = FULL_WINDOW
-    return w
+        w[pts.astype(np.int32)] = FULL_WINDOW
+    return [int(v) for v in w]
 
 
 def init_lm(generator: torch.Generator, cfg: LMArchConfig, device: DeviceLike = None) -> LM:
@@ -255,20 +266,21 @@ def _attn_forward(ap, h, positions, window, cfg: LMArchConfig, dtype, cs=None):
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     if cfg.mla_kv_lora:
         dn, dr, dv = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
-        q = dense(h, ap["wq"], dtype).reshape(B, S, H, dn + dr)
+        q = split_heads(dense(h, ap["wq"], dtype), H, dn + dr)
         q_nope, q_rope = q[..., :dn], q[..., dn:]
         q = torch.cat([q_nope.transpose(1, 2), rotate(q_rope.transpose(1, 2), cs)], dim=-1)
         c_kv = dense(h, ap["w_dkv"], dtype)                           # (B, S, r)
         k_r = rotate(dense(h, ap["w_kr"], dtype)[:, None], cs)        # (B, 1, S, dr)
-        k_n = dense(c_kv, ap["w_uk"], dtype).reshape(B, S, H, dn).transpose(1, 2)
-        k = torch.cat([k_n, k_r.expand(B, H, S, dr)], dim=-1)
-        v = dense(c_kv, ap["w_uv"], dtype).reshape(B, S, H, dv).transpose(1, 2)
+        k_n = split_heads(dense(c_kv, ap["w_uk"], dtype), H, dn).transpose(1, 2)
+        k = constrain_bhsd(torch.cat([k_n, k_r.expand(B, H, S, dr)], dim=-1))
+        v = constrain_bhsd(split_heads(dense(c_kv, ap["w_uv"], dtype), H, dv).transpose(1, 2))
+        q = constrain_bhsd(q)
         o = gqa_attention(q, k, v, positions, positions, window)
         o = o.transpose(1, 2).reshape(B, S, H * dv)
     else:
-        q = dense(h, ap["wq"], dtype).reshape(B, S, H, hd).transpose(1, 2)
-        k = dense(h, ap["wk"], dtype).reshape(B, S, Hk, hd).transpose(1, 2)
-        v = dense(h, ap["wv"], dtype).reshape(B, S, Hk, hd).transpose(1, 2)
+        q = constrain_bhsd(split_heads(dense(h, ap["wq"], dtype), H, hd).transpose(1, 2))
+        k = constrain_bhsd(split_heads(dense(h, ap["wk"], dtype), Hk, hd).transpose(1, 2))
+        v = constrain_bhsd(split_heads(dense(h, ap["wv"], dtype), Hk, hd).transpose(1, 2))
         o = gqa_attention(rotate(q, cs), rotate(k, cs), v, positions, positions, window)
         o = o.transpose(1, 2).reshape(B, S, H * hd)
     return dense(o, ap["wo"], dtype)
@@ -295,6 +307,7 @@ def _head(params: LM, h: torch.Tensor, head_dtype) -> torch.Tensor:
 
 
 def _block(lp, h, positions, window, cfg, policy, dtype, router_dtype, cs=None):
+    h = constrain_bsd(h)
     hn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
     if cfg.mixer == "attn":
         mix = _attn_forward(lp["attn"], hn, positions, window, cfg, dtype, cs)
@@ -333,20 +346,22 @@ def lm_forward(
     if inputs_embeds is not None:
         h = inputs_embeds.to(dtype)
     else:
-        h = params.embed[tokens].to(dtype)
+        h = embed_rows(params.embed, tokens).to(dtype)
     if patch_embeds is not None:
         h = torch.cat([dense(patch_embeds, params.patch_proj, dtype), h], dim=1)
+    h = constrain_bsd(h)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
     cs = rope_cs(positions, _rope_dim(cfg), cfg.rope_theta)
     aux = h.new_zeros((), dtype=torch.float32)
-    for lp, window in zip(params.layers, layer_windows(cfg).tolist(), strict=True):
+    for lp, window in zip(params.layers, window_list(cfg), strict=True):
         args = (lp, h, positions, window, cfg, policy, dtype, router_dtype, cs)
         h, a = checkpoint(_block, *args, use_reentrant=False) if remat else _block(*args)
         if a is not None:
             aux = aux + a
-    h = rmsnorm(h, params.final_norm, cfg.norm_eps)
-    return _head(params, h, head_dtype), aux
+    h = constrain_bsd(rmsnorm(h, params.final_norm, cfg.norm_eps))
+    logits = constrain(_head(params, h, head_dtype), "dp", "seq", None)  # S-sharded CE
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -395,9 +410,9 @@ def _mla_expand(ap, lc, B, cfg: LMArchConfig, dtype):
     cache: (B, H, W, dn + dr) and (B, H, W, dv)."""
     H, dn, dr, dv = cfg.n_heads, cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
     W = lc["kv_pos"].shape[-1]
-    k_n = dense(lc["c_kv"], ap["w_uk"], dtype).reshape(B, W, H, dn).transpose(1, 2)
+    k_n = split_heads(dense(lc["c_kv"], ap["w_uk"], dtype), H, dn).transpose(1, 2)
     k_full = torch.cat([k_n, lc["k_rope"].to(dtype)[:, None].expand(B, H, W, dr)], dim=-1)
-    v_full = dense(lc["c_kv"], ap["w_uv"], dtype).reshape(B, W, H, dv).transpose(1, 2)
+    v_full = split_heads(dense(lc["c_kv"], ap["w_uv"], dtype), H, dv).transpose(1, 2)
     return k_full, v_full
 
 
@@ -410,29 +425,34 @@ def _attn_decode(ap, h, lc, pos, window, cfg: LMArchConfig, dtype, at):
     b_idx, slot, cs = at
     if cfg.mla_kv_lora:
         dn, dv = cfg.mla_nope_dim, cfg.mla_v_dim
-        q = dense(h, ap["wq"], dtype).reshape(B, H, -1)
+        q = split_heads(dense(h, ap["wq"], dtype), H, -1)
         q = torch.cat([q[:, :, :dn], rotate(q[:, :, dn:], cs)], dim=-1)[:, :, None, :]
         c_kv = dense(h, ap["w_dkv"], dtype)
         k_r = rotate(dense(h, ap["w_kr"], dtype)[:, None, :], cs)[:, 0]
-        lc["c_kv"][b_idx, slot] = c_kv.to(lc["c_kv"].dtype)
-        lc["k_rope"][b_idx, slot] = k_r.to(lc["k_rope"].dtype)
-        lc["kv_pos"][b_idx, slot] = pos
+        write_rows(lc["c_kv"], b_idx, slot, c_kv.to(lc["c_kv"].dtype))
+        write_rows(lc["k_rope"], b_idx, slot, k_r.to(lc["k_rope"].dtype))
+        write_rows(lc["kv_pos"], b_idx, slot, pos)
         k_full, v_full = _mla_expand(ap, lc, B, cfg, dtype)
         o = decode_attention(q, k_full, v_full, lc["kv_pos"], pos, window)
         o = o[:, :, 0].reshape(B, H * dv)
     else:
-        q = rotate(dense(h, ap["wq"], dtype).reshape(B, H, hd), cs)[:, :, None, :]
-        k = rotate(dense(h, ap["wk"], dtype).reshape(B, Hk, hd), cs)
-        v = dense(h, ap["wv"], dtype).reshape(B, Hk, hd)
-        lc["k"][b_idx, :, slot] = k.to(lc["k"].dtype)
-        lc["v"][b_idx, :, slot] = v.to(lc["v"].dtype)
-        lc["kv_pos"][b_idx, slot] = pos
+        q = rotate(split_heads(dense(h, ap["wq"], dtype), H, hd), cs)[:, :, None, :]
+        k = rotate(split_heads(dense(h, ap["wk"], dtype), Hk, hd), cs)
+        v = split_heads(dense(h, ap["wv"], dtype), Hk, hd)
+        write_rows(lc["k"], b_idx, slot, k.to(lc["k"].dtype), row_dim=2)
+        write_rows(lc["v"], b_idx, slot, v.to(lc["v"].dtype), row_dim=2)
+        write_rows(lc["kv_pos"], b_idx, slot, pos)
         o = decode_attention(q, lc["k"].to(dtype), lc["v"].to(dtype), lc["kv_pos"], pos, window)
         o = o[:, :, 0].reshape(B, H * hd)
     return dense(o, ap["wo"], dtype)
 
 
-@torch.inference_mode()
+def _grad_off(cache: Dict[str, torch.Tensor]):
+    """Inference mode for plain caches; ``no_grad`` for a sharded one
+    (DTensors cannot be made under inference mode)."""
+    return torch.no_grad() if isinstance(cache["step"], DTensor) else torch.inference_mode()
+
+
 def lm_decode_step(
     params: LM,
     cache: Dict[str, torch.Tensor],
@@ -442,7 +462,8 @@ def lm_decode_step(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One serve step: (logits (B, V) f32, the cache updated in place).
     ``cache["step"]`` holds the per-slot position clocks."""
-    return _decode(params, cache, tokens, cfg, policy), cache
+    with _grad_off(cache):
+        return _decode(params, cache, tokens, cfg, policy), cache
 
 
 def _decode(params, cache, tokens, cfg, policy, paged=None, active_slots=None):
@@ -450,17 +471,18 @@ def _decode(params, cache, tokens, cfg, policy, paged=None, active_slots=None):
     per-layer views (written back for ``active_slots`` only)."""
     dtype, router_dtype, head_dtype = _dtypes(policy)
     pos = cache["step"]
-    h = params.embed[tokens].to(dtype)                  # (B, d)
+    h = embed_rows(params.embed, tokens).to(dtype)                  # (B, d)
     at = None
     if "kv_pos" in cache:
         W = cache["kv_pos"].shape[-1] if paged is None else paged.width
-        at = (torch.arange(h.shape[0], device=h.device),
-              torch.remainder(pos, W).long(),
+        # every slot writes its row; a sharded cache takes the rank's slots
+        b_idx = None if isinstance(pos, DTensor) else torch.arange(h.shape[0], device=h.device)
+        at = (b_idx, torch.remainder(pos, W).long(),
               rope_cs(pos[:, None], _rope_dim(cfg), cfg.rope_theta))
         if paged is not None:
             paged.index(active_slots, at[1][active_slots])
     lcs = _layer_caches(cache) if paged is None else None
-    for i, (lp, window) in enumerate(zip(params.layers, layer_windows(cfg).tolist(), strict=True)):
+    for i, (lp, window) in enumerate(zip(params.layers, window_list(cfg), strict=True)):
         lc = lcs[i] if paged is None else paged.view(i)
         hn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
         if cfg.mixer == "attn":
@@ -498,26 +520,26 @@ def _attn_prefill_chunk(ap, h, lc, q_pos, rows, window, cfg: LMArchConfig, dtype
     vb, vj, ws, cs = rows
     if cfg.mla_kv_lora:
         dn, dv = cfg.mla_nope_dim, cfg.mla_v_dim
-        q = dense(h, ap["wq"], dtype).reshape(B, K, H, -1)
+        q = split_heads(dense(h, ap["wq"], dtype), H, -1)
         q_nope, q_rope = q[..., :dn], q[..., dn:]
         q = torch.cat([q_nope.transpose(1, 2), rotate(q_rope.transpose(1, 2), cs)], dim=-1)
         c_kv = dense(h, ap["w_dkv"], dtype)                             # (B, K, r)
         k_r = rotate(dense(h, ap["w_kr"], dtype)[:, None], cs)[:, 0]    # (B, K, dr)
-        lc["c_kv"][vb, ws] = c_kv[vb, vj].to(lc["c_kv"].dtype)
-        lc["k_rope"][vb, ws] = k_r[vb, vj].to(lc["k_rope"].dtype)
-        lc["kv_pos"][vb, ws] = q_pos[vb, vj].to(torch.int32)
+        write_rows(lc["c_kv"], vb, ws, c_kv[vb, vj].to(lc["c_kv"].dtype))
+        write_rows(lc["k_rope"], vb, ws, k_r[vb, vj].to(lc["k_rope"].dtype))
+        write_rows(lc["kv_pos"], vb, ws, q_pos[vb, vj].to(torch.int32))
         k_full, v_full = _mla_expand(ap, lc, B, cfg, dtype)
         o = chunk_attention(q, k_full, v_full, lc["kv_pos"], q_pos, window)
         o = o.transpose(1, 2).reshape(B, K, H * dv)
     else:
-        q = dense(h, ap["wq"], dtype).reshape(B, K, H, hd).transpose(1, 2)
-        k = dense(h, ap["wk"], dtype).reshape(B, K, Hk, hd).transpose(1, 2)
-        v = dense(h, ap["wv"], dtype).reshape(B, K, Hk, hd)
+        q = split_heads(dense(h, ap["wq"], dtype), H, hd).transpose(1, 2)
+        k = split_heads(dense(h, ap["wk"], dtype), Hk, hd).transpose(1, 2)
+        v = split_heads(dense(h, ap["wv"], dtype), Hk, hd)
         q = rotate(q, cs)
         k = rotate(k, cs).transpose(1, 2)                               # (B, K, Hk, hd)
-        lc["k"][vb, :, ws] = k[vb, vj].to(lc["k"].dtype)
-        lc["v"][vb, :, ws] = v[vb, vj].to(lc["v"].dtype)
-        lc["kv_pos"][vb, ws] = q_pos[vb, vj].to(torch.int32)
+        write_rows(lc["k"], vb, ws, k[vb, vj].to(lc["k"].dtype), row_dim=2)
+        write_rows(lc["v"], vb, ws, v[vb, vj].to(lc["v"].dtype), row_dim=2)
+        write_rows(lc["kv_pos"], vb, ws, q_pos[vb, vj].to(torch.int32))
         o = chunk_attention(q, lc["k"].to(dtype), lc["v"].to(dtype), lc["kv_pos"], q_pos,
                             window)
         o = o.transpose(1, 2).reshape(B, K, H * hd)
@@ -535,7 +557,6 @@ def _ssd_prefill_chunk(sp, h, state, valid, cfg: LMArchConfig, policy):
     return torch.stack(ys, dim=1), state
 
 
-@torch.inference_mode()
 def lm_prefill_chunk(
     params: LM,
     cache: Dict[str, torch.Tensor],
@@ -550,7 +571,8 @@ def lm_prefill_chunk(
 
     A slot with ``n_valid == 0`` is untouched (no writes, clock kept); a
     slot with ``n_valid == 1`` behaves as one ``lm_decode_step`` tick."""
-    return _prefill_chunk(params, cache, tokens, n_valid, cfg, policy), cache
+    with _grad_off(cache):
+        return _prefill_chunk(params, cache, tokens, n_valid, cfg, policy), cache
 
 
 def _prefill_chunk(params, cache, tokens, n_valid, cfg, policy, paged=None):
@@ -577,11 +599,11 @@ def _prefill_chunk(params, cache, tokens, n_valid, cfg, policy, paged=None):
     n_valid = n_valid.to(dev)
     valid = j[None, :] < n_valid[:, None]                 # (B, K)
 
-    h = params.embed[tokens].to(dtype)                    # (B, K, d)
+    h = embed_rows(params.embed, tokens).to(dtype)                    # (B, K, d)
     h = torch.where(valid[..., None], h, 0)               # padding rows inert
 
     lcs = _layer_caches(cache) if paged is None else None
-    for i, (lp, window) in enumerate(zip(params.layers, layer_windows(cfg).tolist(), strict=True)):
+    for i, (lp, window) in enumerate(zip(params.layers, window_list(cfg), strict=True)):
         lc = lcs[i] if paged is None else paged.view(i)
         hn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
         if cfg.mixer == "attn":

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.dist.constrain import constrain_bsd
 from repro_torch.precision import FULL
 
 from .common import dense, gen_device, randn, silu
@@ -70,7 +71,9 @@ def ssd_forward(params, u: torch.Tensor, cfg, policy=FULL) -> torch.Tensor:
     Q = cfg.ssm_chunk
     d_inner = cfg.d_inner
 
+    u = constrain_bsd(u)
     x, z, Bc, Cc, dt = _split_proj(params, u, d_inner, N, dtype)
+    x = constrain_bsd(x)
     A = -torch.exp(params["A_log"])                    # (H,) negative
 
     pad = (-S) % Q

@@ -17,15 +17,19 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMArchConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.constrain import constrain_bhsd, constrain_bsd
+from repro_torch.dist.sharding import write_rows
 from repro_torch.precision import FULL
 
 from .common import (
     decode_attention,
     dense,
+    embed_rows,
     gen_device,
     gqa_attention,
     init_swiglu,
@@ -33,9 +37,19 @@ from .common import (
     rmsnorm,
     rope_cs,
     rotate,
+    split_heads,
     swiglu,
 )
-from .model import FULL_WINDOW, ParamTree, _init_attn, flat_items, jax_leaves, load_tree, unstack_jax
+from .model import (
+    FULL_WINDOW,
+    ParamTree,
+    _grad_off,
+    _init_attn,
+    flat_items,
+    jax_leaves,
+    load_tree,
+    unstack_jax,
+)
 
 
 def _init_block(generator, cfg: LMArchConfig, cross: bool) -> dict:
@@ -106,21 +120,25 @@ def _mha(ap, hq, hkv, q_pos, k_pos, causal: bool, cfg: LMArchConfig, dtype, q_cs
     B, Sq, _ = hq.shape
     Sk = hkv.shape[1]
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = rotate(dense(hq, ap["wq"], dtype).reshape(B, Sq, H, hd).transpose(1, 2), q_cs)
-    k = rotate(dense(hkv, ap["wk"], dtype).reshape(B, Sk, Hk, hd).transpose(1, 2), k_cs)
-    v = dense(hkv, ap["wv"], dtype).reshape(B, Sk, Hk, hd).transpose(1, 2)
+    q = rotate(constrain_bhsd(split_heads(dense(hq, ap["wq"], dtype), H, hd).transpose(1, 2)),
+               q_cs)
+    k = rotate(constrain_bhsd(split_heads(dense(hkv, ap["wk"], dtype), Hk, hd).transpose(1, 2)),
+               k_cs)
+    v = constrain_bhsd(split_heads(dense(hkv, ap["wv"], dtype), Hk, hd).transpose(1, 2))
     # bidirectional: every key precedes the shifted query positions
     o = gqa_attention(q, k, v, q_pos if causal else q_pos + Sk, k_pos, FULL_WINDOW)
     return dense(o.transpose(1, 2).reshape(B, Sq, H * hd), ap["wo"], dtype)
 
 
 def _enc_block(lp, h, pos, cfg, dtype, cs):
+    h = constrain_bsd(h)
     hn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
     h = h + _mha(lp["attn"], hn, hn, pos, pos, False, cfg, dtype, cs, cs)
     return h + swiglu(lp["ffn"], rmsnorm(h, lp["ln2"], cfg.norm_eps), dtype)
 
 
 def _dec_block(lp, h, memory, dpos, epos, cfg, dtype, dcs, ecs):
+    h = constrain_bsd(h)
     hn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
     h = h + _mha(lp["attn"], hn, hn, dpos, dpos, True, cfg, dtype, dcs, dcs)
     hn = rmsnorm(h, lp["ln_x"], cfg.norm_eps)
@@ -148,7 +166,7 @@ def whisper_forward(params: Whisper, frames: torch.Tensor, dec_tokens: torch.Ten
     dtype = policy.at("lm/dense").compute_dtype
     head_dt = policy.at("lm/proj_out").compute_dtype
     memory = whisper_encode(params, frames, cfg, policy, remat=remat)
-    h = params.embed[dec_tokens].to(dtype)
+    h = embed_rows(params.embed, dec_tokens).to(dtype)
     dpos = torch.arange(h.shape[1], device=h.device)
     epos = torch.arange(memory.shape[1], device=h.device)
     dcs, ecs = rope_cs(dpos, cfg.hd, cfg.rope_theta), rope_cs(epos, cfg.hd, cfg.rope_theta)
@@ -195,21 +213,25 @@ def init_whisper_cache(params: Whisper, memory: torch.Tensor, cfg: LMArchConfig,
     }
 
 
-@torch.inference_mode()
 def whisper_decode_step(params: Whisper, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
                         cfg: LMArchConfig, policy=FULL
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decoder token a slot against the cached self- and cross-KV:
     (logits (B, V) f32, the cache updated in place)."""
+    with _grad_off(cache):
+        return _whisper_decode(params, cache, tokens, cfg, policy)
+
+
+def _whisper_decode(params, cache, tokens, cfg, policy):
     dtype = policy.at("lm/dense").compute_dtype
     head_dt = policy.at("lm/proj_out").compute_dtype
     pos = cache["step"]                           # (B,) per-slot clocks
-    h = params.embed[tokens].to(dtype)
+    h = embed_rows(params.embed, tokens).to(dtype)
     B = h.shape[0]
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     W = cache["self_pos"].shape[-1]
     slot = torch.remainder(pos, W).long()
-    b_idx = torch.arange(B, device=h.device)
+    b_idx = None if isinstance(pos, DTensor) else torch.arange(B, device=h.device)
     zeros = torch.zeros_like(pos)
     cs = rope_cs(pos[:, None], hd, cfg.rope_theta)
     for i, lp in enumerate(params.dec):
@@ -217,18 +239,18 @@ def whisper_decode_step(params: Whisper, cache: Dict[str, torch.Tensor], tokens:
         # self attention
         hn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
         ap = lp["attn"]
-        q = rotate(dense(hn, ap["wq"], dtype).reshape(B, H, hd), cs)[:, :, None, :]
-        k = rotate(dense(hn, ap["wk"], dtype).reshape(B, Hk, hd), cs)
-        v = dense(hn, ap["wv"], dtype).reshape(B, Hk, hd)
-        sk[b_idx, :, slot] = k.to(sk.dtype)
-        sv[b_idx, :, slot] = v.to(sv.dtype)
-        sp[b_idx, slot] = pos
+        q = rotate(split_heads(dense(hn, ap["wq"], dtype), H, hd), cs)[:, :, None, :]
+        k = rotate(split_heads(dense(hn, ap["wk"], dtype), Hk, hd), cs)
+        v = split_heads(dense(hn, ap["wv"], dtype), Hk, hd)
+        write_rows(sk, b_idx, slot, k.to(sk.dtype), row_dim=2)
+        write_rows(sv, b_idx, slot, v.to(sv.dtype), row_dim=2)
+        write_rows(sp, b_idx, slot, pos)
         o = decode_attention(q, sk.to(dtype), sv.to(dtype), sp, pos, FULL_WINDOW)
         h = h + dense(o[:, :, 0].reshape(B, H * hd), ap["wo"], dtype)
         # cross attention: every frame is visible
         hn = rmsnorm(h, lp["ln_x"], cfg.norm_eps)
         xp = lp["xattn"]
-        qx = rotate(dense(hn, xp["wq"], dtype).reshape(B, H, hd), cs)[:, :, None, :]
+        qx = rotate(split_heads(dense(hn, xp["wq"], dtype), H, hd), cs)[:, :, None, :]
         ox = decode_attention(qx, cache["cross_k"][i].to(dtype), cache["cross_v"][i].to(dtype),
                               cache["cross_pos"][i] * 0, zeros, FULL_WINDOW)
         h = h + dense(ox[:, :, 0].reshape(B, H * hd), xp["wo"], dtype)

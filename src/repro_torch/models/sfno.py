@@ -28,6 +28,7 @@ from torch import nn
 
 from repro_torch.autoprec.telemetry import fmt_of, tap
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.constrain import constrain_spatial
 from repro_torch.kernels import ops as kops
 from repro_torch.precision import FULL, PrecisionPolicy, site_scope
 
@@ -98,6 +99,7 @@ class SFNO(nn.Module):
         h = h.movedim(-1, 1).to(cdt)
 
         for layer in range(cfg.n_layers):
+            h = constrain_spatial(h)
             ldt = policy.at(f"sfno/layer{layer}/dense").compute_dtype
             y = _spherical_conv(h, self.spectral["w_re"][layer], self.spectral["w_im"][layer],
                                 cfg, policy, site=f"sfno/layer{layer}/spectral").to(ldt)

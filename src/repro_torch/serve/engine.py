@@ -20,6 +20,13 @@ Each tick copies the (B, V) f32 logits to the host once; greedy picks
 its token there with ``argmax``.  The steps dispatch op by op (the
 reference jits them), so small ticks are host-bound.
 
+With ``mesh`` (a named ``DeviceMesh``, one process a rank) the engine
+serves sharded through the ``repro_torch.dist`` rule tables, as the
+reference does: the parameters placed as DTensors by ``lm_param_specs``,
+the slot cache by ``cache_specs``, each tick's tokens by ``batch_specs``.
+Every rank runs the same engine on the same requests in lockstep; the
+logits are gathered whole on every rank, so each samples the same tokens.
+
 With tracing on (``repro_torch.obs.trace``), each accepted request is an
 async ``request`` track from submit to finish, each tick a
 ``serve/tick`` span (and ``serve/prefill`` or ``serve/decode`` for the
@@ -28,15 +35,20 @@ LM engine); ``stats()`` publishes its numbers into the obs registry as
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import LMArchConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.constrain import use_mesh
+from repro_torch.dist.sharding import fill_slots
 from repro_torch.models.lm import init_cache, lm_decode_step, lm_prefill_chunk
 from repro_torch.obs import numerics_event, registry
 from repro_torch.obs import trace as obs_trace
@@ -192,8 +204,9 @@ class LMEngine(EngineBase):
     ``telemetry`` keeps numerics counters over the logits (running amax,
     non-finite count, a ``nonfinite_logits`` numerics event per bad
     tick); ``record_logits`` keeps every request's per-step logits rows
-    (:meth:`logits_for`).  ``mesh`` must be None: sharded serving waits
-    for the distribution slice.
+    (:meth:`logits_for`).  ``mesh``: serve sharded on this named
+    ``DeviceMesh`` (its device type must be the engine's); None serves
+    on one device.
     """
 
     kind = "lm"
@@ -213,9 +226,6 @@ class LMEngine(EngineBase):
         record_logits: bool = False,
         device: DeviceLike = None,
     ):
-        if mesh is not None:
-            raise ValueError("LMEngine(mesh=...) needs sharded serving, which waits for "
-                             "ROADMAP queue 1, item 4 (distribution); pass mesh=None")
         if cfg.encoder_decoder:
             raise ValueError(f"{cfg.name} is an encoder-decoder model; LMEngine serves "
                              "decoder-only archs (use whisper_decode_step directly)")
@@ -227,6 +237,11 @@ class LMEngine(EngineBase):
         held = {p.device for p in params.parameters()}
         if held != {self.device}:
             raise ValueError(f"model parameters live on {sorted(map(str, held))}, "
+                             f"but the engine runs on {self.device}")
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise ValueError(f"mesh must be a named DeviceMesh, got {type(mesh).__name__}")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device_type} devices, "
                              f"but the engine runs on {self.device}")
         super().__init__(
             Scheduler(scheduler, capacity_check=self._capacity_check,
@@ -276,9 +291,55 @@ class LMEngine(EngineBase):
                           device=self.device)
 
     def _build_steps(self):
+        if self.mesh is not None:
+            self._place_on_mesh()
         params, cfg, policy = self.params, self.cfg, self.policy
         self._decode = lambda c, t: lm_decode_step(params, c, t, cfg, policy)
         self._chunk = lambda c, t, n: lm_prefill_chunk(params, c, t, n, cfg, policy)
+
+    def _place_on_mesh(self):
+        """Shard the serving state through the rule tables the dry-run
+        derives its placements from: params by ``lm_param_specs``, the slot
+        cache by ``cache_specs`` (tokens by ``batch_specs``, each tick).
+        The caller's model is left as it was: a skeleton on the meta device
+        takes its tensors, which the placement then splits."""
+        from repro_torch.dist import cache_specs, distribute, lm_param_specs
+        from repro_torch.models.lm import LM
+
+        placed = LM(self.cfg)
+        placed.load_state_dict(self.params.state_dict(), strict=True, assign=True)
+        self.params = distribute(placed, self.mesh, lm_param_specs(placed, self.mesh))
+        self.cache = distribute(self.cache, self.mesh,
+                                cache_specs(self.cache, self.mesh, self.cfg))
+
+    def _on_mesh(self):
+        """The scope a step runs in: the mesh ambient on this thread (the
+        engine may step on another thread than the one that built it), and
+        on a mesh ``implicit_replication``, which lets the plain tensors a
+        step makes (positions, masks, RoPE tables) meet the DTensors as
+        replicated ones."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        stack = contextlib.ExitStack()
+        stack.enter_context(use_mesh(self.mesh))
+        stack.enter_context(implicit_replication())
+        return stack
+
+    def _tokens_in(self, tokens: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(tokens).to(self.device)
+        if self.mesh is None:
+            return t
+        from repro_torch.dist import batch_specs, distribute
+
+        return distribute(t, self.mesh, batch_specs(t, self.mesh))
+
+    @staticmethod
+    def _logits_out(logits: torch.Tensor) -> np.ndarray:
+        if isinstance(logits, DTensor):
+            logits = logits.full_tensor()
+        return logits.cpu().numpy()
 
     # -- admission -------------------------------------------------------------
     def _capacity_check(self, req: Request) -> Tuple[bool, str]:
@@ -297,7 +358,7 @@ class LMEngine(EngineBase):
         del i, req
         return 0
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def _reset_slots(self, admitted: List[Tuple[int, int]]):
         """Reset the admitted slots' clocks and invalidate their cache rows,
         one indexed update per array: the other slots keep decoding
@@ -305,11 +366,11 @@ class LMEngine(EngineBase):
         ids = torch.tensor([i for i, _ in admitted], dtype=torch.long, device=self.device)
         starts = torch.tensor([s for _, s in admitted], dtype=torch.int32, device=self.device)
         c = self.cache
-        c["step"][ids] = starts
+        fill_slots(c["step"], ids, starts)
         if "kv_pos" in c:
-            c["kv_pos"][:, ids] = -1
+            fill_slots(c["kv_pos"], ids, -1, slot_dim=1)
         if "ssd_state" in c:
-            c["ssd_state"][:, ids] = 0.0
+            fill_slots(c["ssd_state"], ids, 0.0, slot_dim=1)
 
     def _release_slot(self, i: int):
         """Slot-release hook (the request finished)."""
@@ -450,13 +511,15 @@ class LMEngine(EngineBase):
 
     def _run_chunk(self, tokens: np.ndarray, n_valid: np.ndarray) -> np.ndarray:
         # n_valid stays on the host: the step finds its write rows there
-        logits, self.cache = self._chunk(self.cache, torch.from_numpy(tokens).to(self.device),
-                                         torch.from_numpy(n_valid))
-        return logits.cpu().numpy()
+        with self._on_mesh():
+            logits, self.cache = self._chunk(self.cache, self._tokens_in(tokens),
+                                             torch.from_numpy(n_valid))
+            return self._logits_out(logits)
 
     def _run_decode(self, tokens: np.ndarray) -> np.ndarray:
-        logits, self.cache = self._decode(self.cache, torch.from_numpy(tokens).to(self.device))
-        return logits.cpu().numpy()
+        with self._on_mesh():
+            logits, self.cache = self._decode(self.cache, self._tokens_in(tokens))
+            return self._logits_out(logits)
 
     def _tick_decode(self) -> List[Request]:
         """One one-token decode step for the slot pool (also the prefill

@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 _SEP = "|"
 _DICT_KEY = re.compile(r"^\['(.*)'\]$")
@@ -47,6 +48,8 @@ def _flatten(tree, prefix=()) -> Dict[str, np.ndarray]:
     """Path-keyed host copies of every leaf."""
     items = _items(tree)
     if items is None:
+        if isinstance(tree, DTensor):
+            tree = tree.full_tensor()
         arr = tree.detach().cpu().numpy() if torch.is_tensor(tree) else tree
         return {_SEP.join(prefix): np.array(arr, copy=True)}
     out = {}
@@ -55,16 +58,35 @@ def _flatten(tree, prefix=()) -> Dict[str, np.ndarray]:
     return out
 
 
-def _unflatten(target, data, prefix=()):
+def _child(place, step: str):
+    """The entry of a placements tree at one path step of its target."""
+    if place is None:
+        return None
+    if step.startswith("."):
+        return getattr(place, step[1:])
+    m = _DICT_KEY.match(step)
+    return place[m.group(1)] if m else place[int(step[1:-1])]
+
+
+def _unflatten(target, data, prefix=(), place=None):
     """``target``'s structure with each leaf read from ``data`` onto the
-    leaf's device and dtype."""
+    leaf's device and dtype, or placed by ``place``'s (mesh, placements)
+    at the same path."""
     items = _items(target)
     if items is None:
         arr = torch.from_numpy(np.asarray(data[_SEP.join(prefix)]))
         if torch.is_tensor(target):
-            return arr.to(device=target.device, dtype=target.dtype)
+            arr = arr.to(dtype=target.dtype)
+            if place is not None:
+                from torch.distributed.tensor import distribute_tensor
+
+                mesh, placements = place
+                return distribute_tensor(arr.to(mesh.device_type), mesh, list(placements),
+                                         src_data_rank=None)
+            return arr.to(device=target.device)
         return arr
-    kids = [_unflatten(child, data, prefix + (step,)) for step, child in items]
+    kids = [_unflatten(child, data, prefix + (step,), _child(place, step))
+            for step, child in items]
     if isinstance(target, dict):
         return dict(zip(sorted(target), kids))
     if hasattr(target, "_fields"):
@@ -135,11 +157,18 @@ def _load(ckpt_dir: str, step: Optional[int]) -> Tuple[Dict[str, np.ndarray], in
         return {k: data[k] for k in data.files}, step
 
 
-def restore(ckpt_dir: str, target: Any, step: Optional[int] = None):
+def restore(ckpt_dir: str, target: Any, step: Optional[int] = None,
+            placements: Any = None):
     """Restore into the structure of ``target``; each leaf lands on the
-    device and dtype of ``target``'s.  Returns ``(tree, step)``."""
+    device and dtype of ``target``'s.  Returns ``(tree, step)``.
+
+    ``placements``: the elastic path, a tree of ``target``'s structure
+    whose leaves are ``(mesh, [Placement, ...])`` pairs (or None for a
+    plain leaf): each array becomes a DTensor on the *current* mesh,
+    however many ranks wrote the checkpoint (every rank reads the file and
+    keeps its own block)."""
     data, step = _load(ckpt_dir, step)
-    return _unflatten(target, data), step
+    return _unflatten(target, data, place=placements), step
 
 
 def read_subtree(ckpt_dir: str, root: str, step: Optional[int] = None):

@@ -40,3 +40,13 @@ def relative_h1(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-8) -> 
     num = torch.sum(e ** 2, dim=dims) + _spectral_grad_sq(e)
     den = torch.sum(target ** 2, dim=dims) + _spectral_grad_sq(target)
     return torch.mean(torch.sqrt(num) / (torch.sqrt(den) + eps))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean CE for the LM pool. logits (B, S, V) f32, labels (B, S)."""
+    logits = logits.to(torch.float32)
+    m = logits.amax(-1, keepdim=True)
+    logz = torch.log(torch.sum(torch.exp(logits - m), -1))
+    logz = logz + logits.amax(-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    return torch.mean(logz - gold)

@@ -18,7 +18,10 @@ the forward, ``LMEngine`` chunk 1 against 8 and rerun bit for bit,
 Whisper's decode against the CPU) and ``PagedLMEngine`` (bit-equal to
 ``LMEngine`` for four archs under ``full`` and ``amp_bf16``, copy-on-write,
 a shared prefix, an exhausted pool, the null block untouched), whose path
-runs none of these kernels.
+runs none of these kernels; and the distribution layer on a one-rank NCCL
+mesh (``FNO_DARCY_SMOKE``'s data-parallel step bit-equal to ``mesh=None``
+with the fused kernels launched, ``LMEngine(mesh=...)``'s tokens and logits
+equal to ``mesh=None``'s, the bf16 all-reduce within bf16's unit roundoff).
 
 Imports no JAX (the GPU machine has none).  Every test carries the
 ``cuda`` marker and skips, from inside a fixture, where no card is
@@ -2245,3 +2248,93 @@ def test_paged_engine_on_the_card_cow_prefix_and_exhaustion(cuda):
     with pytest.raises(RuntimeError, match="pool exhausted"):
         full.drain()
     _null_block_untouched(full)
+
+
+# ---------------------------------------------------------------------------
+# Distribution on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank NCCL world and its 1x1 ("data", "model") mesh for the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        yield make_debug_mesh(1, "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dist_fno_step_on_the_card_bit_equal_to_one_device(nccl_mesh):
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist import distribute, fno_param_specs
+    from repro_torch.launch.steps import build_fno_train_step, fno_batch_specs
+    from repro_torch.optim import AdamW
+
+    policy = get_policy("mixed_fno_bf16")
+    g = torch.Generator().manual_seed(7)
+    batch = {"x": torch.randn(4, 1, 32, 32, generator=g).cuda(),
+             "y": torch.randn(4, 1, 32, 32, generator=g).cuda()}
+    opt = AdamW(lr=1e-3)
+    ref = init_fno(torch.Generator().manual_seed(0), FNO_DARCY_SMOKE)
+    ref_state = opt.init(dict(ref.named_parameters()))
+    model = init_fno(torch.Generator().manual_seed(0), FNO_DARCY_SMOKE)
+    distribute(model, nccl_mesh, fno_param_specs(model, nccl_mesh))
+    with implicit_replication():
+        state = opt.init(dict(model.named_parameters()))
+    dbatch = distribute(batch, nccl_mesh, fno_batch_specs(batch, nccl_mesh))
+    plain, dp = build_fno_train_step(policy, None, opt), build_fno_train_step(policy, nccl_mesh, opt)
+    for _ in range(2):
+        ref, ref_state, l0 = plain(ref, ref_state, batch)
+        before = sc.launches_fused_fwd
+        model, state, l1 = dp(model, state, dbatch)
+        assert sc.launches_fused_fwd > before
+        assert torch.equal(l0, l1)
+    named = dict(ref.named_parameters())
+    for k, p in model.named_parameters():
+        assert torch.equal(p.full_tensor(), named[k]), k
+
+
+def test_sharded_lm_engine_on_the_card(nccl_mesh):
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve import LMEngine, Request
+
+    cfg = get_config("smollm-360m", smoke=True)
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+
+    def reqs():
+        return [Request(uid=i, prompt=list(range(1 + i, 9 + 3 * i)), max_new_tokens=6)
+                for i in range(6)]
+
+    plain = LMEngine(params, cfg, n_slots=4, max_len=64, record_logits=True)
+    sharded = LMEngine(params, cfg, n_slots=4, max_len=64, mesh=nccl_mesh, record_logits=True)
+    d0, _ = plain.run_until_done(reqs())
+    d1, _ = sharded.run_until_done(reqs())
+    assert {r.uid: r.generated for r in d0} == {r.uid: r.generated for r in d1}
+    for u in range(6):
+        for a, b in zip(plain.logits_for(u), sharded.logits_for(u), strict=True):
+            assert np.array_equal(a, b)
+    with pytest.raises(ValueError, match="mesh is on cuda"):
+        LMEngine(init_lm(torch.Generator().manual_seed(0), cfg, device="cpu"), cfg,
+                 mesh=nccl_mesh, device="cpu")
+
+
+def test_compressed_allreduce_on_the_card(nccl_mesh):
+    from repro_torch.optim.grad_comm import make_dp_allreduce
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    grads = {"a": torch.randn(4096, generator=g, device="cuda"),
+             "b": torch.randn(64, 33, generator=g, device="cuda")}
+    exact = make_dp_allreduce(nccl_mesh, dtype=torch.float32)(grads)
+    small = make_dp_allreduce(nccl_mesh)(grads)
+    for k, v in grads.items():
+        assert torch.equal(exact[k], v)
+        rel = float((small[k] - v).norm() / v.norm())
+        assert small[k].dtype == torch.float32 and 0 < rel <= 2.0 ** -8, (k, rel)

@@ -400,7 +400,7 @@ def test_spans_telemetry_and_stats_as_the_reference():
 
 def test_refusals_and_alias():
     cfg, params = _params("smollm-360m")
-    with pytest.raises(ValueError, match="queue 1, item 4"):
+    with pytest.raises(ValueError, match="named DeviceMesh"):
         _engine(params, cfg, mesh=object())
     wcfg = get_config("whisper-large-v3", smoke=True)
     with pytest.raises(ValueError, match="encoder-decoder"):
