@@ -282,11 +282,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    whether they are bit-equal, ms a decode tick of both.  (d) 4
    ``amp_bf16`` steps of ``build_train_step`` at smollm-360m, batch 2 x 512
    tokens, on the mesh and off it: bit for bit, the loss finite and lower
-   after 4 steps.  (e) ``repro_torch.launch.dryrun --arch smollm-360m
-   --shape decode_32k --mesh both`` and ``repro_torch.launch.dryrun_fno
-   --cell fno-darcy --mesh both`` as subprocesses on the CPU (fake process
-   groups of 256 and 512 ranks): every cell ok, each record's roofline
-   (derived counts, not timings) and seconds printed.
+   after 4 steps.  (e) the dry-runs as niced subprocesses on the host's
+   CPU (fake process groups of 256 and 512 ranks), started with the script
+   so that they overlap every phase before this one, on half of the
+   script's CPU cores (``cpu_split``; the timed phases run on the other
+   half from the end of phase 2 on): smollm-360m's ``decode_32k``,
+   ``prefill_32k`` and ``train_4k`` on both production meshes (the
+   sequence-parallel cells the card machine's torch refused before the
+   port's local folds), ``granite-moe-3b-a800m``'s and
+   ``whisper-large-v3``'s ``train_4k`` on the 16x16 mesh, and
+   ``repro_torch.launch.dryrun_fno --cell fno-darcy --mesh both``: one line
+   a cell with its status, seconds and roofline (derived counts, not
+   timings); a cell that is not ok fails the run.  (f)
+   ``repro_torch.launch.parity`` on four gloo ranks on the same side cores: the
+   MoE and Whisper train steps on a 2x2 mesh against one device (loss within
+   1e-5 relative, every parameter within 1e-5 relative L2) and
+   ``cross_entropy`` on vocabulary-sharded logits, on this machine's torch.
 
 The line before the last is ``{"kernels": [...]}`` (twelve kernels); the
 last is ``{"ok": true, "device": {...}}``.
@@ -407,9 +418,21 @@ DIST_TRAIN_BATCH, DIST_TRAIN_SEQ, DIST_TRAIN_STEPS, DIST_TRAIN_LR = 2, 512, 4, 1
 DIST_DRYRUNS = {
     "dryrun_lm": ("repro_torch.launch.dryrun", "--arch", "smollm-360m", "--shape", "decode_32k",
                   "--mesh", "both"),
+    **{f"dryrun_lm_{shape.split('_')[0]}_{mesh}": (
+        "repro_torch.launch.dryrun", "--arch", "smollm-360m", "--shape", shape, "--mesh", mesh)
+       for shape in ("prefill_32k", "train_4k") for mesh in ("single", "multi")},
+    **{f"dryrun_{name}_train": ("repro_torch.launch.dryrun", "--arch", arch, "--shape", "train_4k",
+                                "--mesh", "single")
+       for name, arch in (("moe", "granite-moe-3b-a800m"), ("whisper", "whisper-large-v3"))},
     "dryrun_fno": ("repro_torch.launch.dryrun_fno", "--cell", "fno-darcy", "--mesh", "both"),
 }
-DIST_DRYRUN_TIMEOUT = 300
+#: the dry-runs start with the script (niced, on the host's CPU cores that
+#: the timed phases leave them) and must be done this long after their start
+DIST_DRYRUN_TIMEOUT = 900
+#: phase 13(f): the four-rank parity checks and their time limit
+DIST_PARITY = ("repro_torch.launch.parity", "--arch", "granite-moe-3b-a800m",
+               "--arch", "whisper-large-v3")
+DIST_PARITY_TIMEOUT = 400
 #: bf16's unit roundoff: the compressed all-reduce's budget a gradient
 BF16_UNIT_ROUNDOFF = 2.0 ** -8
 #: every kernel's launch count on ``repro_torch.kernels.spectral_contract``
@@ -3710,54 +3733,135 @@ def dist_lm_train(card, mesh):
     torch.cuda.empty_cache()
 
 
-def start_dryruns():
-    """13(e): the two dry-runs, as the CLI runs them, on the host's CPU, one
-    thread each (the card's process group is not theirs: each makes a fake
-    one)."""
+def _cpu_env():
+    """The environment of the phase's CPU subprocesses: this checkout's
+    port, no card, one thread each (the card's process group is not
+    theirs: each makes its own)."""
     import os
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
-               OMP_NUM_THREADS="1")
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+                OMP_NUM_THREADS="1")
+
+
+def core_split():
+    """(main, side): this process's CPU cores in two halves.  The phase
+    subprocesses run on the side half, and the timed phases keep the main
+    half to themselves (on one core both share it)."""
+    import os
+
+    cores = sorted(os.sched_getaffinity(0))
+    half = len(cores) // 2
+    return set(cores[:half]) or set(cores), set(cores[half:])
+
+
+def pin_threads(cores):
+    """Every thread of this process, and so every one it starts later, on
+    ``cores``."""
+    import os
+
+    for tid in os.listdir("/proc/self/task"):
+        with contextlib.suppress(ProcessLookupError):     # a thread that has ended
+            os.sched_setaffinity(int(tid), cores)
+
+
+def _spawn(args, log, cores):
+    """A niced CPU subprocess on ``cores``, in a session of its own (so it and
+    every process it starts can be stopped together), stopped at exit."""
+    import atexit
+    import os
+
+    def child():
+        os.nice(19)
+        os.sched_setaffinity(0, cores)
+
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=_cpu_env(), stdout=log,
+                            stderr=subprocess.STDOUT, start_new_session=True, preexec_fn=child)
+    atexit.register(_kill, proc)
+    return proc
+
+
+def start_dryruns(cores):
+    """13(e): the dry-runs, as the CLI runs them, on the host's CPU ``cores``;
+    started with the script, so that they overlap every phase before 13."""
     procs = {}
+    (ROOT / "build").mkdir(exist_ok=True)
     for name, args in DIST_DRYRUNS.items():
         out = ROOT / "build" / f"chip_smoke_{name}.json"
         if out.exists():
             out.unlink()
         log = open(ROOT / "build" / f"chip_smoke_{name}.log", "w")
-        procs[name] = (subprocess.Popen([sys.executable, "-m", *args, "--out", str(out)],
-                                        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT),
-                       out, log, time.perf_counter())
+        procs[name] = (_spawn((*args, "--out", str(out)), log, cores), out, log,
+                       time.perf_counter())
     return procs
+
+
+def start_parity(cores):
+    """13(f): the four-rank parity checks on the host's CPU ``cores``."""
+    log = open(ROOT / "build" / "chip_smoke_parity.log", "w")
+    return {"parity": (_spawn(DIST_PARITY, log, cores), None, log, time.perf_counter())}
+
+
+def _kill(proc):
+    """Stop a phase subprocess and every process it started (its session)."""
+    import os
+    import signal
+
+    if proc.poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _wait(proc, log, t0, limit):
+    """(exit code or "timeout", seconds) of a phase subprocess; its log
+    closed."""
+    try:
+        rc = proc.wait(timeout=max(1.0, limit - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        _kill(proc)
+        rc = "timeout"
+    log.close()
+    return rc, time.perf_counter() - t0
 
 
 def finish_dryruns(procs):
     for name, (proc, out, log, t0) in procs.items():
-        try:
-            rc = proc.wait(timeout=DIST_DRYRUN_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-            rc = "timeout"
-        log.close()
-        seconds = time.perf_counter() - t0
+        rc, seconds = _wait(proc, log, t0, DIST_DRYRUN_TIMEOUT)
         if rc != 0:
             tail = (ROOT / "build" / f"chip_smoke_{name}.log").read_text()[-2000:]
             fail(f"the {name} dry-run exited {rc}: {tail}")
         recs = json.loads(out.read_text())
-        emit(f"dist_{name}", seconds=seconds, note="derived counts, not timings",
-             torch=torch.__version__,
-             cells=[{"arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
-                     "status": r["status"], "roofline": r.get("roofline"),
-                     "collective_bytes_by_kind": r.get("collective_bytes_by_kind"),
-                     "memory_analysis": r.get("memory_analysis"),
-                     "spectral_kernel": r.get("spectral_kernel"),
-                     "compile_s": r.get("compile_s")} for r in recs])
+        emit(f"dist_{name}", seconds=seconds, cells=len(recs), torch=torch.__version__)
+        for r in recs:
+            mem = r.get("memory_analysis") or {}
+            emit("dist_dryrun_cell", run=name, arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
+                 status=r["status"], seconds=r.get("compile_s"),
+                 note="derived counts, not timings", torch=torch.__version__,
+                 peak_gb_a_device=mem.get("peak_bytes", 0) / 1e9, fits_hbm=mem.get("fits_hbm"),
+                 roofline=r.get("roofline"),
+                 collective_bytes_by_kind=r.get("collective_bytes_by_kind"),
+                 spectral_kernel=r.get("spectral_kernel"), error=r.get("error"))
         if any(r["status"] != "ok" for r in recs):
             fail(f"the {name} dry-run has a cell that is not ok")
 
 
-def dist_phase(sc, card, darcy):
-    """Phase 13: distribution on the card's one-rank NCCL world."""
+def finish_parity(procs):
+    proc, _, log, t0 = procs["parity"]
+    rc, seconds = _wait(proc, log, t0, DIST_PARITY_TIMEOUT)
+    text = (ROOT / "build" / "chip_smoke_parity.log").read_text()
+    recs = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+    for r in recs:
+        emit("dist_parity", torch=torch.__version__, ranks=4, mesh="2x2", **r)
+    emit("dist_parity_run", rc=rc, seconds=seconds, checks=len(recs))
+    want = {(r.get("check"), r.get("arch")) for r in recs if r.get("ok")}
+    need = {("cross_entropy", None)} | {("train_step", a) for a in DIST_PARITY[2::2]}
+    if rc != 0 or not need <= want:
+        fail(f"the four-rank parity checks failed (exit {rc}): {text[-2000:]}")
+
+
+def dist_phase(sc, card, darcy, dryruns, cores):
+    """Phase 13: distribution on the card's one-rank NCCL world; ``dryruns``
+    from :func:`start_dryruns`, (f) on the CPU ``cores``."""
     import os
 
     import torch.distributed as dist
@@ -3767,23 +3871,22 @@ def dist_phase(sc, card, darcy):
     t0 = time.perf_counter()
     store = os.path.join(tempfile.mkdtemp(), "store")
     dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
-    procs = {}
+    procs = dict(dryruns)
     try:
         mesh = make_debug_mesh(1, "cuda")
         emit("dist_setup", backend=str(dist.get_backend()), world=dist.get_world_size(),
              mesh=str(tuple(mesh.shape)), axes=list(mesh.mesh_dim_names),
              device_type=mesh.device_type)
-        # the dry-runs are CPU work on the host: they overlap the card's
-        procs = start_dryruns()
+        # the four-rank checks are CPU work on the host: they overlap the card's
+        procs.update(start_parity(cores))
         launched = dist_fno(sc, card, mesh, darcy)
         dist_lm_serve(card, mesh)
         dist_lm_train(card, mesh)
-        finish_dryruns(procs)
+        finish_parity(procs)
+        finish_dryruns(dryruns)
     finally:
         for proc, _, log, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            _kill(proc)
             log.close()
         dist.destroy_process_group()
     emit("distribution", card=card, seconds=time.perf_counter() - t0, launches=launched)
@@ -3798,7 +3901,11 @@ def main():
 
     t0 = time.perf_counter()
     card = device_phase()
+    main_cores, side_cores = core_split()
+    emit("cpu_split", main=sorted(main_cores), side=sorted(side_cores))
+    dryruns = start_dryruns(side_cores)     # 13(e), on the side cores meanwhile
     build_phase()
+    pin_threads(main_cores)                 # the timed phases off the side cores
     max_err = {"fwd": kernel_phase(sc), **backward_kernel_phase(sc), **cp_kernel_phase(sc),
                **ls_kernel_phase(sc), **fused_kernel_phase(sc)}
     served, staged_serve = serve_phase(sc)
@@ -3823,7 +3930,7 @@ def main():
     lm_phase(sc, card)
     lm_paged_phase(sc, card)
     serve_smoke_phase(card)
-    distributed = dist_phase(sc, card, darcy)
+    distributed = dist_phase(sc, card, darcy, dryruns, side_cores)
     del darcy
     launches = {"fwd": served + trained["fwd"] + gino["fwd"] + auto["fwd"] + analyzed["fwd"],
                 "bwd_x": trained["bwd_x"] + gino["bwd_x"] + auto["bwd_x"] + analyzed["bwd_x"],

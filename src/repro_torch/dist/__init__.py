@@ -20,6 +20,7 @@ from .constrain import (  # noqa: F401
     constrain_spatial,
     constrain_tokens,
     logical_axis_size,
+    pin,
     use_mesh,
 )
 from .rules import DEFAULT_RULES, axis_rules, current_rules  # noqa: F401

@@ -14,7 +14,9 @@ for DTensors:
   prefix of the resolved axes is kept).
 
 On a DTensor it ``redistribute``s to the placements the resolved spec
-gives.  Models never name a physical mesh axis; the shape helpers
+gives, and where a gradient is recorded it brings the cotangent to the
+same placements in the backward, as the reference's constraint does to
+its transpose.  Models never name a physical mesh axis; the shape helpers
 (:func:`constrain_bsd`, :func:`constrain_bhsd`, :func:`constrain_tokens`,
 :func:`constrain_spatial`) own the standard layout decisions for their
 tensor shapes so call sites stay one line.
@@ -46,6 +48,9 @@ def use_mesh(mesh) -> Iterator[Optional[object]]:
     if mesh is None:
         yield None
         return
+    from .local import ensure_rules
+
+    ensure_rules()
     prev = ambient_mesh()
     _local.mesh = mesh
     try:
@@ -118,10 +123,57 @@ def constrain(x: torch.Tensor, *spec: Entry) -> torch.Tensor:
         return x
     from .sharding import to_placements
 
-    target = tuple(to_placements(mesh, p))
-    if tuple(x.placements) == target:
+    return to_layout(x, to_placements(mesh, p))
+
+
+def to_layout(x: torch.Tensor, placements) -> torch.Tensor:
+    """A DTensor redistributed to ``placements`` (physical), its cotangent
+    brought to them too in the backward where a gradient is recorded (the
+    reference constraint's transpose).  The identity off-mesh, on a trivial
+    mesh and on a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if _trivial(ambient_mesh()) or not isinstance(x, DTensor):
         return x
-    return x.redistribute(x.device_mesh, target)
+    target = tuple(placements)
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x if tuple(x.placements) == target else x.redistribute(x.device_mesh, target)
+    return _Constrain.apply(x, target)
+
+
+def pin(x: torch.Tensor) -> torch.Tensor:
+    """x itself, with its cotangent brought back to x's own placements in the
+    backward (a constraint to the layout x has).  An op that redistributed
+    an operand in the forward hands back that operand's cotangent in its
+    own output's layout; where x's producer is a view, the view's backward
+    must see the layout its forward made.  The identity off-mesh, on a
+    trivial mesh, on a plain tensor, and where no gradient is recorded."""
+    if not (torch.is_grad_enabled() and getattr(x, "requires_grad", False)):
+        return x
+    return to_layout(x, getattr(x, "placements", ()))
+
+
+class _Constrain(torch.autograd.Function):
+    """``with_sharding_constraint``'s transpose: the forward redistributes to
+    ``target``, and so does the backward, whatever the cotangent's layout.
+    (``DTensor.redistribute``'s own backward sends the cotangent back to the
+    input's placements, which may be a layout no view can reshape.)"""
+
+    @staticmethod
+    def forward(ctx, x, target):
+        # a partial sum's cotangent is the same on every rank
+        from torch.distributed.tensor import Replicate
+
+        ctx.target = tuple(Replicate() if p.is_partial() else p for p in target)
+        if tuple(x.placements) == target:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, target)
+
+    @staticmethod
+    def backward(ctx, g):
+        if hasattr(g, "placements") and tuple(g.placements) != ctx.target:
+            g = g.redistribute(g.device_mesh, ctx.target)
+        return g, None
 
 
 def constrain_bsd(x: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,11 @@ strategy) is a bug in the system, not a skip.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --jobs 8 --skip-done
+
+``--jobs N`` runs N cells at a time, each as this CLI in a process of its
+own (one thread each; its record and log under ``<out>.cells/``), and
+merges their records into ``--out``.
 """
 from __future__ import annotations
 
@@ -318,6 +323,58 @@ def save_result(rec: dict, path=RESULTS):
     write_json_atomic(path, results)
 
 
+def _cell_args(args, arch: str, shape: str, mp: bool) -> list:
+    """The CLI's arguments that run one cell as ``args`` asks."""
+    out = ["--arch", arch, "--shape", shape, "--mesh", "multi" if mp else "single",
+           "--policy", args.policy, "--prefill-chunk", str(args.prefill_chunk)]
+    return out + (["--telemetry"] if args.telemetry else [])
+
+
+def _run_jobs(cells, args) -> list:
+    """Run ``cells`` ((arch, shape, multi_pod) each) ``args.jobs`` at a time,
+    each as this CLI in a process of its own, one thread each; their
+    records go into ``args.out`` as each ends.  The records."""
+    import subprocess
+    import sys
+    from concurrent.futures import ThreadPoolExecutor, as_completed
+
+    cell_dir = Path(args.out + ".cells")
+    cell_dir.mkdir(parents=True, exist_ok=True)
+    src = str(Path(__file__).resolve().parents[2])
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join([src] + [p for p in os.environ.get(
+                   "PYTHONPATH", "").split(os.pathsep) if p]))
+
+    def run(cell):
+        arch, shape, mp = cell
+        stem = f"{arch}.{shape}.{'multi' if mp else 'single'}"
+        out, log_path = cell_dir / f"{stem}.json", cell_dir / f"{stem}.log"
+        if out.exists():
+            out.unlink()
+        with open(log_path, "w") as log:
+            subprocess.call([sys.executable, "-m", "repro_torch.launch.dryrun",
+                             *_cell_args(args, arch, shape, mp), "--out", str(out)],
+                            env=env, stdout=log, stderr=subprocess.STDOUT)
+        recs = load_results(str(out))
+        if not recs:
+            tail = log_path.read_text()[-400:]
+            recs = [{"arch": arch, "shape": shape, "mesh": mesh_name(production_shape(mp)[0]),
+                     "policy": args.policy, "status": "FAILED",
+                     "error": f"no record; the log ends: {tail}"}]
+        return recs
+
+    recs = []
+    with ThreadPoolExecutor(args.jobs) as pool:
+        for f in as_completed([pool.submit(run, c) for c in cells]):
+            for rec in f.result():
+                rec.pop("meta", None)
+                save_result(rec, args.out)
+                print(f"-- {rec['arch']} {rec['shape']} {rec['mesh']}: {rec['status']}"
+                      f" {rec.get('compile_s', '')}", flush=True)
+                recs.append(rec)
+    return recs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, choices=ARCH_IDS + [None])
@@ -332,6 +389,8 @@ def main(argv=None):
                          "train cells and record the telemetry overhead")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--skip-done", action="store_true")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells run at once, each in a process of its own")
     ap.add_argument("--out", default=RESULTS, help="the results file")
     args = ap.parse_args(argv)
 
@@ -343,25 +402,32 @@ def main(argv=None):
             for r in load_results(args.out)
             if r.get("status") in ("ok", "skipped")} if args.skip_done else set()
 
-    failures = []
+    cells = []
     for arch in archs:
         for shape in shapes:
             for mp in meshes:
                 mname = mesh_name(production_shape(mp)[0])
                 if (arch, shape, mname, args.policy) in done:
                     print(f"-- {arch} {shape} {mname}: already done")
-                    continue
-                try:
-                    rec = run_cell(arch, shape, mp, args.policy,
-                                   prefill_chunk=args.prefill_chunk,
-                                   telemetry=args.telemetry)
-                except Exception as e:  # a failure here is a bug
-                    traceback.print_exc()
-                    rec = {"arch": arch, "shape": shape, "mesh": mname,
-                           "policy": args.policy,
-                           "status": "FAILED", "error": f"{type(e).__name__}: {e}"}
-                    failures.append(rec)
-                save_result(rec, args.out)
+                else:
+                    cells.append((arch, shape, mp))
+
+    if args.jobs > 1:
+        failures = [r for r in _run_jobs(cells, args) if r["status"] == "FAILED"]
+    else:
+        failures = []
+        for arch, shape, mp in cells:
+            try:
+                rec = run_cell(arch, shape, mp, args.policy,
+                               prefill_chunk=args.prefill_chunk,
+                               telemetry=args.telemetry)
+            except Exception as e:  # a failure here is a bug
+                traceback.print_exc()
+                rec = {"arch": arch, "shape": shape, "mesh": mesh_name(production_shape(mp)[0]),
+                       "policy": args.policy,
+                       "status": "FAILED", "error": f"{type(e).__name__}: {e}"}
+                failures.append(rec)
+            save_result(rec, args.out)
     if failures:
         print(f"\n{len(failures)} FAILURES:")
         for f in failures:

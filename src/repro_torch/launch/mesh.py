@@ -22,7 +22,7 @@ def production_shape(multi_pod: bool = False):
     return (16, 16), ("data", "model")
 
 
-def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cpu") -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") -> DeviceMesh:
     """Single pod: 16x16 = 256 ranks ("data", "model").  Multi-pod:
     2x16x16 = 512 ranks ("pod", "data", "model").  The default process
     group must have exactly that many ranks."""

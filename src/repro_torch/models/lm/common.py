@@ -30,9 +30,10 @@ import math
 from typing import Dict, Optional, Union
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.dist.constrain import constrain, logical_axis_size
+from repro_torch.dist.constrain import constrain, logical_axis_size, pin, to_layout
+from repro_torch.dist.local import matmul, take_rows
 
 NEG_INF = -1e30
 
@@ -42,7 +43,7 @@ Window = Union[int, torch.Tensor]
 def dense(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``einsum("...d,de->...e", x.astype(dtype), w.astype(dtype),
     preferred_element_type=f32).astype(dtype)``."""
-    return torch.matmul(x.to(dtype).float(), w.to(dtype).float()).to(dtype)
+    return matmul(x.to(dtype).float(), w.to(dtype).float()).to(dtype)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -113,10 +114,11 @@ def apply_rope_chunk(x: torch.Tensor, pos: torch.Tensor, theta: float = 10000.0)
 
 
 def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``.  Token ids sharded on one dim over several mesh
-    dims (the multi-pod batch over ("pod", "data")) keep only the first of
-    them: torch 2.11's DTensor gathers no rows by such ids (the ids are a
-    few ints a rank; the next constraint reshards the rows)."""
+    """``table[tokens]`` (:func:`~repro_torch.dist.local.take_rows`).  Token
+    ids sharded on one dim over several mesh dims (the multi-pod batch over
+    ("pod", "data")) keep only the first of them: torch 2.11's DTensor
+    gathers no rows by such ids (the ids are a few ints a rank; the next
+    constraint reshards the rows)."""
     if isinstance(tokens, DTensor):
         from torch.distributed.tensor import Replicate, Shard
 
@@ -128,17 +130,23 @@ def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
                 seen.add(p.dim)
         if pl != list(tokens.placements):
             tokens = tokens.redistribute(tokens.device_mesh, pl)
-    return table[tokens]
+    # the rows' cotangent in the gather's own layout, the ids' (the layout
+    # the gather's backward takes them in)
+    return pin(take_rows(table, tokens))
 
 
 def _whole_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     """x with everything but its batch dim whole on the ambient mesh's tp
     axis unless that axis divides n heads: a DTensor cannot split a dim
     sharded into uneven head blocks (GSPMD reshards such a reshape by
-    itself).  Off-mesh, and on a plain tensor, the identity."""
-    if n % logical_axis_size("heads"):
-        return constrain(x, "dp", *([None] * (x.ndim - 1)))
-    return x
+    itself).  Where no dp axis divides the batch (one sequence), every dim
+    is made whole.  Off-mesh, and on a plain tensor, the identity."""
+    if not n % logical_axis_size("heads") or not isinstance(x, DTensor):
+        return x
+    x = constrain(x, "dp", *([None] * (x.ndim - 1)))
+    whole = [p if isinstance(p, Shard) and p.dim % x.ndim == 0 else Replicate()
+             for p in x.placements]
+    return x if whole == list(x.placements) else to_layout(x, whole)
 
 
 def split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
@@ -150,11 +158,8 @@ def split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
 def _unfolded(x: torch.Tensor, Hk: int) -> torch.Tensor:
     """The fold's twin: where :func:`_whole_heads` made the heads whole, the
     gradient that comes back to the unfolded (B, H, ...) result must be
-    whole on them too before it is folded again (a redistribution to the
-    placements x already has: the identity forward)."""
-    if Hk % logical_axis_size("heads") and isinstance(x, DTensor):
-        return x.redistribute(x.device_mesh, x.placements)
-    return x
+    whole on them too before it is folded again."""
+    return pin(x) if Hk % logical_axis_size("heads") else x
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -165,7 +170,7 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     # GQA folds H = g * Hk heads into (Hk, g)
     q, k = _whole_heads(q, Hk), _whole_heads(k, Hk)
     qg = q.float().reshape(B, Hk, (H // Hk) * Q, D)
-    return _unfolded(torch.matmul(qg, k.float().transpose(-1, -2)).reshape(B, H, Q, k.shape[2]),
+    return _unfolded(matmul(qg, k.float().transpose(-1, -2)).reshape(B, H, Q, k.shape[2]),
                      Hk)
 
 
@@ -176,7 +181,7 @@ def _mix(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     Hk = v.shape[1]
     p, v = _whole_heads(p, Hk), _whole_heads(v, Hk)
     pg = p.to(v.dtype).float().reshape(B, Hk, (H // Hk) * Q, S)
-    return _unfolded(torch.matmul(pg, v.float()).reshape(B, H, Q, v.shape[-1]), Hk)
+    return _unfolded(matmul(pg, v.float()).reshape(B, H, Q, v.shape[-1]), Hk)
 
 
 def _mask_scores(s, q_pos, k_pos, window):

@@ -37,7 +37,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist.constrain import constrain, constrain_bhsd, constrain_bsd
+from repro_torch.dist.constrain import constrain, constrain_bhsd, constrain_bsd, pin
+from repro_torch.dist.local import matmul
 from repro_torch.dist.sharding import write_rows
 from repro_torch.precision import FULL, PrecisionPolicy
 
@@ -290,9 +291,12 @@ def _ffn(fp, h, cfg: LMArchConfig, dtype, router_dtype):
     """(out, aux loss) of the layer's FFN over h (..., d)."""
     if cfg.moe_experts:
         shape = h.shape
-        out, aux = moe_apply(fp, h.reshape(-1, shape[-1]), cfg.moe_top_k,
-                             cfg.capacity_factor, dtype, router_dtype=router_dtype)
-        return out.reshape(shape), aux
+        # the tokens in (batch, sequence) order: the sequence whole first
+        # (dispatch drops tokens by their order; no view folds a sharded S)
+        out, aux = moe_apply(fp, constrain(h, "dp", None, None).reshape(-1, shape[-1]),
+                             cfg.moe_top_k, cfg.capacity_factor, dtype,
+                             router_dtype=router_dtype)
+        return pin(out.reshape(shape)), aux
     return swiglu(fp, h, dtype), None
 
 
@@ -303,7 +307,7 @@ def _dtypes(policy: PrecisionPolicy):
 
 def _head(params: LM, h: torch.Tensor, head_dtype) -> torch.Tensor:
     unembed = params.unembed if hasattr(params, "unembed") else params.embed
-    return torch.matmul(h.to(head_dtype), unembed.to(head_dtype).t())
+    return matmul(h.to(head_dtype), unembed.to(head_dtype).t())
 
 
 def _block(lp, h, positions, window, cfg, policy, dtype, router_dtype, cs=None):

@@ -30,7 +30,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.dist.constrain import constrain, constrain_tokens, logical_axis_size
+from repro_torch.dist.constrain import constrain, constrain_tokens, logical_axis_size, pin
+from repro_torch.dist.local import take_rows
 
 from .common import init_swiglu, randn, silu, swiglu
 
@@ -102,7 +103,9 @@ def route(params, x: torch.Tensor, top_k: int, capacity_factor: float,
     hit = (counts[:, None] > c).reshape(-1)
     w = torch.clamp(seg_start[:, None] + last, 0, T * top_k - 1).reshape(-1)
     table = torch.where(hit & valid[w], stok[w], T).reshape(E, C)
-    gates = torch.where(hit & valid[w], sg[w], 0.0).reshape(E, C)
+    # the gates' cotangent in the gather's own layout: an expert-sharded one
+    # is a layout torch 2.11's index_put refuses
+    gates = torch.where(hit & valid[w], pin(sg[w]), 0.0).reshape(E, C)
     return expert_ids, table, gates, aux
 
 
@@ -134,7 +137,7 @@ def moe_apply(params, x: torch.Tensor, top_k: int, capacity_factor: float,
         outs, auxes = zip(*(_moe_one_group(params, xg[g], top_k, capacity_factor, dtype,
                                            router_dtype, use_constraints=False)
                             for g in range(G)), strict=True)
-        out = constrain(torch.stack(outs), "dp", None, None).reshape(T, d)
+        out = pin(constrain(torch.stack(outs), "dp", None, None).reshape(T, d))
         return out, torch.stack(auxes).mean()
     return _moe_one_group(params, x, top_k, capacity_factor, dtype, router_dtype)
 
@@ -151,7 +154,7 @@ def _moe_one_group(params, x: torch.Tensor, top_k: int, capacity_factor: float,
     E, C = table.shape
 
     x_pad = torch.cat([x, x.new_zeros((1, d))], dim=0)
-    expert_in = x_pad[table].to(dtype)                            # (E, C, d)
+    expert_in = take_rows(x_pad, table).to(dtype)                 # (E, C, d)
     if use_constraints:
         expert_in = constrain(expert_in, "expert", None, None)   # EP when E divides
 
@@ -167,7 +170,7 @@ def _moe_one_group(params, x: torch.Tensor, top_k: int, capacity_factor: float,
     slots = _combine_slots(table, T, top_k)
     out = x.new_zeros((T, d), dtype=torch.float32)
     for j in range(top_k):
-        out = out + rows[slots[:, j]]
+        out = out + take_rows(rows, slots[:, j])
     if "shared" in params:
         out = out + swiglu(params["shared"], x, dtype).float()
     return out.to(dtype), aux

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LMArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist.constrain import constrain_bhsd, constrain_bsd
+from repro_torch.dist.local import matmul
 from repro_torch.dist.sharding import write_rows
 from repro_torch.precision import FULL
 
@@ -174,7 +175,7 @@ def whisper_forward(params: Whisper, frames: torch.Tensor, dec_tokens: torch.Ten
         args = (lp, h, memory, dpos, epos, cfg, dtype, dcs, ecs)
         h = checkpoint(_dec_block, *args, use_reentrant=False) if remat else _dec_block(*args)
     h = rmsnorm(h, params.dec_norm, cfg.norm_eps)
-    return torch.matmul(h.to(head_dt), params.embed.to(head_dt).t())
+    return matmul(h.to(head_dt), params.embed.to(head_dt).t())
 
 
 @torch.no_grad()
@@ -196,8 +197,8 @@ def init_whisper_cache(params: Whisper, memory: torch.Tensor, cfg: LMArchConfig,
     mem = memory.to(cdt).float()
     xk, xv = [], []
     for lp in params.dec:
-        k = torch.matmul(mem, lp["xattn"]["wk"].to(cdt).float())
-        v = torch.matmul(mem, lp["xattn"]["wv"].to(cdt).float())
+        k = matmul(mem, lp["xattn"]["wk"].to(cdt).float())
+        v = matmul(mem, lp["xattn"]["wv"].to(cdt).float())
         k = rotate(k.reshape(batch, S, Hk, hd).transpose(1, 2), ecs)
         xk.append(k.to(dtype))
         xv.append(v.reshape(batch, S, Hk, hd).transpose(1, 2).to(dtype))
@@ -257,6 +258,6 @@ def _whisper_decode(params, cache, tokens, cfg, policy):
         # ffn
         h = h + swiglu(lp["ffn"], rmsnorm(h, lp["ln2"], cfg.norm_eps), dtype)
     h = rmsnorm(h, params.dec_norm, cfg.norm_eps)
-    logits = torch.matmul(h.to(head_dt), params.embed.to(head_dt).t())
+    logits = matmul(h.to(head_dt), params.embed.to(head_dt).t())
     cache["step"] += 1
     return logits, cache

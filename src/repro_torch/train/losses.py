@@ -43,10 +43,28 @@ def relative_h1(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-8) -> 
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Token-mean CE for the LM pool. logits (B, S, V) f32, labels (B, S)."""
-    logits = logits.to(torch.float32)
+    """Token-mean CE for the LM pool. logits (B, S, V) f32, labels (B, S).
+    On a DTensor, V is made whole first and the batch and sequence shards
+    stay: DTensor's gather of the gold logit on a V-sharded tensor fails,
+    and on torch 2.11 the loss's gradient over a sharded V came out NaN."""
+    logits = _whole_v(logits.to(torch.float32))
     m = logits.amax(-1, keepdim=True)
     logz = torch.log(torch.sum(torch.exp(logits - m), -1))
     logz = logz + logits.amax(-1)
     gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
     return torch.mean(logz - gold)
+
+
+def _whole_v(logits: torch.Tensor) -> torch.Tensor:
+    """logits with no mesh dim sharding their last dim (the identity on a
+    plain tensor and where none does)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(logits, DTensor):
+        return logits
+    vd = logits.ndim - 1
+    placements = [Replicate() if isinstance(p, Shard) and p.dim % logits.ndim == vd else p
+                  for p in logits.placements]
+    if placements == list(logits.placements):
+        return logits
+    return logits.redistribute(logits.device_mesh, placements)

@@ -2338,3 +2338,38 @@ def test_compressed_allreduce_on_the_card(nccl_mesh):
         assert torch.equal(exact[k], v)
         rel = float((small[k] - v).norm() / v.norm())
         assert small[k].dtype == torch.float32 and 0 < rel <= 2.0 ** -8, (k, rel)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "whisper-large-v3"])
+def test_moe_and_whisper_train_steps_on_the_one_rank_mesh(nccl_mesh, arch):
+    """The smoke train step on the 1x1 NCCL mesh bit-equal to ``mesh=None``:
+    losses and every parameter after the step."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.dist import distribute, lm_param_specs, use_mesh
+    from repro_torch.dist.sharding import batch_specs
+    from repro_torch.launch.parity import train_batch
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.lm import init_lm, init_whisper
+    from repro_torch.optim import AdamW
+
+    cfg = get_config(arch, smoke=True)
+    init = init_whisper if cfg.encoder_decoder else init_lm
+    bundle = build_train_step(cfg, ShapeConfig("t", 16, 4, "train"), get_policy("full"),
+                              AdamW(lr=1e-3))
+    batch = {k: v.cuda() for k, v in train_batch(cfg, 4, 16).items()}
+    p0 = init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    s0 = AdamW(lr=1e-3).init(dict(p0.named_parameters()))
+    p0, s0, l0 = bundle.step_fn(p0, s0, batch)
+    p1 = init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    distribute(p1, nccl_mesh, lm_param_specs(p1, nccl_mesh))
+    with use_mesh(nccl_mesh), implicit_replication():
+        s1 = AdamW(lr=1e-3).init(dict(p1.named_parameters()))
+        p1, s1, l1 = bundle.step_fn(p1, s1, distribute(batch, nccl_mesh,
+                                                       batch_specs(batch, nccl_mesh)))
+        l1 = l1.full_tensor()
+    assert torch.isfinite(l0) and torch.equal(l0, l1)
+    n0 = dict(p0.named_parameters())
+    for k, p in p1.named_parameters():
+        assert torch.equal(p.full_tensor(), n0[k]), k

@@ -11,7 +11,8 @@ dryrun,dryrun_fno}``) against ``repro.launch`` on the CPU.
   reference's arithmetic with the port's H100 constants; the FNO cells'
   records and launch plans; ``dryrun_fno``'s CLI at ``fno-darcy``.
 * The LM train step (``build_train_step``) under ``full`` against the
-  reference's jitted one; its loss falls on a repeated batch.
+  reference's jitted one, for a dense, an MoE and the encoder-decoder arch,
+  every leaf after the step; its loss falls on a repeated batch.
 * The FNO data-parallel step on one gloo rank bit-equal to ``mesh=None``;
   on four gloo ranks (2x2) the FNO step and the LM train step within f32
   sum order of one device.
@@ -75,7 +76,7 @@ def test_production_mesh_needs_its_world():
         m = lmesh.make_debug_mesh(4, "cpu")
         assert m.mesh_dim_names == ("data", "model") and tuple(m.shape) == (1, 4)
     with lmesh.fake_world(256):
-        m = lmesh.make_production_mesh()
+        m = lmesh.make_production_mesh(device_type="cpu")
         assert m.mesh_dim_names == ("data", "model") and tuple(m.shape) == (16, 16)
     assert not dist.is_initialized()
 
@@ -239,32 +240,39 @@ def _lm_batch(cfg, B, S, seed=0):
     return {k: v.to(torch.int32) for k, v in lm_inputs(seed, 0, B, S, cfg.vocab).items()}
 
 
-def test_lm_train_step_matches_the_reference():
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m", "whisper-large-v3"])
+def test_lm_train_step_matches_the_reference(arch):
+    import jax.numpy as jnp
+
     from repro.launch.steps import build_train_step as jbuild
     from repro.models.lm import init_lm as jinit_lm
+    from repro.models.lm import init_whisper as jinit_whisper
     from repro.optim import AdamW as JAdamW
     from repro_torch.configs import get_config
+    from repro_torch.launch.parity import train_batch
     from repro_torch.launch.steps import build_train_step
-    from repro_torch.models.lm import lm_params_from_jax
+    from repro_torch.models.lm import lm_params_from_jax, whisper_params_from_jax
     from repro_torch.optim import AdamW
     from repro_torch.precision import get_policy
 
-    cfg, jcfg = get_config("smollm-360m", smoke=True), jget_config("smollm-360m", smoke=True)
+    cfg, jcfg = get_config(arch, smoke=True), jget_config(arch, smoke=True)
+    from_jax = whisper_params_from_jax if cfg.encoder_decoder else lm_params_from_jax
     shape = ShapeConfig("t", 16, 2, "train")
-    jparams = jinit_lm(jax.random.PRNGKey(0), jcfg)
-    batch = _lm_batch(cfg, 2, 16)
+    jparams = (jinit_whisper if cfg.encoder_decoder else jinit_lm)(jax.random.PRNGKey(0), jcfg)
+    batch = train_batch(cfg, 2, 16) if cfg.encoder_decoder else _lm_batch(cfg, 2, 16)
     jb = jbuild(jcfg, JShape("t", 16, 2, "train"), jget_policy("full"), JAdamW(lr=1e-3))
     jopt = JAdamW(lr=1e-3).init(jparams)
-    jnp_batch = {k: v.numpy() for k, v in batch.items()}
+    jnp_batch = {k: jnp.asarray(v.float().numpy()).astype(jnp.bfloat16)
+                 if v.dtype == torch.bfloat16 else v.numpy() for k, v in batch.items()}
     jp, _, jloss = jax.jit(jb.step_fn)(jparams, jopt, jnp_batch)
-    params = lm_params_from_jax(jparams, cfg, device="cpu")
+    params = from_jax(jparams, cfg, device="cpu")
     b = build_train_step(cfg, shape, get_policy("full"), AdamW(lr=1e-3))
     opt = AdamW(lr=1e-3).init(dict(params.named_parameters()))
     params, opt, loss = b.step_fn(params, opt, batch)
     assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
-    named = dict(params.named_parameters())
-    assert _rel(named["embed"].detach().numpy(), jp["embed"]) < 1e-5
-    assert _rel(named["layers.1.attn.wq"].detach().numpy(), jp["layers"]["attn"]["wq"][1]) < 1e-5
+    want = dict(from_jax(jp, cfg, device="cpu").named_parameters())
+    for k, p in params.named_parameters():
+        assert _rel(p.detach().numpy(), want[k].detach().numpy()) < 1e-5, k
     assert int(opt.count) == 1
 
 
