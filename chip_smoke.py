@@ -291,13 +291,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    sequence-parallel cells the card machine's torch refused before the
    port's local folds), ``granite-moe-3b-a800m``'s and
    ``whisper-large-v3``'s ``train_4k`` on the 16x16 mesh, and
-   ``repro_torch.launch.dryrun_fno --cell fno-darcy --mesh both``: one line
+   ``repro_torch.launch.dryrun_fno --mesh both`` (all four FNO cells): one line
    a cell with its status, seconds and roofline (derived counts, not
-   timings); a cell that is not ok fails the run.  (f)
+   timings); a cell that is not ok fails the run, and so does an FNO cell
+   whose channel layout is not ``DIST_FNO_CHANNELS``'s (``tfno-ns-hr`` and
+   ``sfno-swe`` "sharded over tp", the others "whole").  (f)
    ``repro_torch.launch.parity`` on four gloo ranks on the same side cores: the
    MoE and Whisper train steps on a 2x2 mesh against one device (loss within
-   1e-5 relative, every parameter within 1e-5 relative L2) and
-   ``cross_entropy`` on vocabulary-sharded logits, on this machine's torch.
+   1e-5 relative, every parameter within 1e-5 relative L2), ``cross_entropy``
+   on vocabulary-sharded logits, and the ``fno-darcy``, ``tfno-ns`` and
+   ``sfno-swe`` smoke steps with their channels split over "model" (3 steps,
+   ``full``, ``mixed_fno_bf16`` and ``mixed_fno_bf16`` with the 2σ-clip
+   stabiliser), on this machine's torch.  (g)
+   ``repro_torch.launch.rank_step`` in a subprocess (a fake world of 256
+   ranks, the 16x16 mesh on ``cuda``): rank 0 of ``tfno-ns-hr`` and of
+   ``sfno-swe`` at full width, 3 ``mixed_fno_bf16`` steps each with 4 of the
+   64 hidden channels: ms a step, peak memory and the launches of kernels
+   4-8 (counted into the kernels line), beside the dry-run's peak for the
+   same rank before the split and now; a fake group moves no data, so the
+   values mean nothing.  (h) ``dense_fwd``, ``cp_fwd`` and ``ls_fwd`` on an
+   output block of 4 of 64 channels at the paths' full widths, bit-equal to
+   the whole launch's slice (a zeroed block not), and every kernel of the
+   three on the block against its plain version.
 
 The line before the last is ``{"kernels": [...]}`` (twelve kernels); the
 last is ``{"ok": true, "device": {...}}``.
@@ -424,15 +439,34 @@ DIST_DRYRUNS = {
     **{f"dryrun_{name}_train": ("repro_torch.launch.dryrun", "--arch", arch, "--shape", "train_4k",
                                 "--mesh", "single")
        for name, arch in (("moe", "granite-moe-3b-a800m"), ("whisper", "whisper-large-v3"))},
-    "dryrun_fno": ("repro_torch.launch.dryrun_fno", "--cell", "fno-darcy", "--mesh", "both"),
+    "dryrun_fno": ("repro_torch.launch.dryrun_fno", "--mesh", "both"),
 }
+#: 13(e): what each FNO cell's record reads on both meshes (the batch covers
+#: the mesh, or the hidden channels split over tp where it does not)
+DIST_FNO_CHANNELS = {"tfno-ns": "whole", "fno-darcy": "whole",
+                     "tfno-ns-hr": "sharded over tp", "sfno-swe": "sharded over tp"}
 #: the dry-runs start with the script (niced, on the host's CPU cores that
 #: the timed phases leave them) and must be done this long after their start
 DIST_DRYRUN_TIMEOUT = 900
 #: phase 13(f): the four-rank parity checks and their time limit
-DIST_PARITY = ("repro_torch.launch.parity", "--arch", "granite-moe-3b-a800m",
-               "--arch", "whisper-large-v3")
+DIST_PARITY_ARCHS = ("granite-moe-3b-a800m", "whisper-large-v3")
+DIST_PARITY_FNO = ("fno-darcy", "tfno-ns", "sfno-swe")
+DIST_PARITY_FNO_POLICIES = ("full", "mixed_fno_bf16", "mixed_fno_bf16+sigma_clip")
+DIST_PARITY = ("repro_torch.launch.parity", *(a for arch in DIST_PARITY_ARCHS
+                                              for a in ("--arch", arch)),
+               *(a for cell in DIST_PARITY_FNO for a in ("--fno", cell)))
 DIST_PARITY_TIMEOUT = 400
+#: 13(g): rank 0 of each cell whose channels split, on the 16x16 mesh at full
+#: width (``repro_torch.launch.rank_step``, a subprocess: phase 13's NCCL world
+#: is the default group), its steps and the kernels its path launches
+DIST_RANK_CELLS = {"tfno-ns-hr": ("cp_fwd", "cp_bwd"),
+                   "sfno-swe": ("ls_fwd", "ls_bwd_x", "ls_bwd_w")}
+DIST_RANK_STEPS, DIST_RANK_TIMEOUT = 3, 600
+#: the same rank's peak a device (bytes) in the dry-run before the channels
+#: split (``launch.dryrun_fno`` at the parent commit, channels replicated over tp)
+DIST_RANK_PEAK_BEFORE = {"tfno-ns-hr": 9330973468, "sfno-swe": 6801542460}
+#: 13(h): a rank's output-channel block at tp = 16 (O = 4 of 64)
+BLOCK_O = 4
 #: bf16's unit roundoff: the compressed all-reduce's budget a gradient
 BF16_UNIT_ROUNDOFF = 2.0 ** -8
 #: every kernel's launch count on ``repro_torch.kernels.spectral_contract``
@@ -545,7 +579,7 @@ def bwd_magnitudes(xr, xi, wr, wi, gr, gi):
             torch.einsum("bim,bom->iom", torch.hypot(xr, xi), absg))
 
 
-def backward_kernel_phase(sc):
+def backward_kernel_phase(sc, shapes=(PATH_SHAPE, RAGGED_SHAPE), tag="kernel_vs_plain"):
     """dense_bwd_x and dense_bwd_w against their plain versions; returns
     each kernel's worst max-abs error at the path's shape.  A zeroed output
     must fall outside the budget, or the comparison could not see a wrong
@@ -554,7 +588,7 @@ def backward_kernel_phase(sc):
     from repro_torch.core.theory import contract_budget
 
     worst = {"bwd_x": 0.0, "bwd_w": 0.0}
-    for k, shape in enumerate((PATH_SHAPE, RAGGED_SHAPE)):
+    for k, shape in enumerate(shapes):
         ops = operands(shape, SEED + 10 + k)
         for cast_to, out_dtype in MODES:
             g = cotangent(shape, out_dtype, SEED + 20 + k)
@@ -571,7 +605,7 @@ def backward_kernel_phase(sc):
                 budget = contract_budget(FORMAT_EPS["float32"], mag)
                 err, excess = diff.max().item(), (diff - budget).max().item()
                 zero_excess = (torch.hypot(pr, pi) - budget).max().item()
-                emit("kernel_vs_plain", kernel=name, shape=list(shape), cast_to=str(cast_to),
+                emit(tag, kernel=name, shape=list(shape), cast_to=str(cast_to),
                      g_dtype=str(out_dtype), max_abs_err=err,
                      max_excess_over_budget=excess, zeroed_output_excess=zero_excess,
                      ok=excess <= 0 and zero_excess > 0)
@@ -597,7 +631,8 @@ def cp_operands(shape, dtype, seed):
             for sh, s in zip(shapes, scales, strict=True) for _ in range(2)]
 
 
-def cp_kernel_phase(sc):
+def cp_kernel_phase(sc, shapes=(CP_PATH_SHAPE, CP_RAGGED_SHAPE, CP_WIDE_SHAPE),
+                    tag="kernel_vs_plain"):
     """cp_fwd and cp_bwd against their plain versions; returns each
     kernel's worst max-abs error at the path's shape.  Both sum in f32 from
     the same operands, so each output is held to one rounding at its dtype
@@ -608,7 +643,7 @@ def cp_kernel_phase(sc):
 
     names = ("out", "out", "dx", "dx", "dU_i", "dU_i", "dU_o", "dU_o", "dW", "dW")
     worst = {"cp_fwd": 0.0, "cp_bwd": 0.0}
-    for k, shape in enumerate((CP_PATH_SHAPE, CP_RAGGED_SHAPE, CP_WIDE_SHAPE)):
+    for k, shape in enumerate(shapes):
         for dtype in CP_DTYPES:
             ops = cp_operands(shape, dtype, SEED + 30 + k)
             got = (*sc._launch_cp_fwd(*ops[:8]), *sc._launch_cp_bwd(*ops))
@@ -629,7 +664,7 @@ def cp_kernel_phase(sc):
             for kernel, keys in (("cp_fwd", ("out",)), ("cp_bwd", ("dx", "dU_i", "dU_o", "dW"))):
                 ok = all(excess[n] <= 0 for n in keys)
                 blind = [n for n in keys if zero_excess[n] <= 0]
-                emit("kernel_vs_plain", kernel=kernel, shape=list(shape), dtype=str(dtype),
+                emit(tag, kernel=kernel, shape=list(shape), dtype=str(dtype),
                      max_abs_err={n: errs[n] for n in keys},
                      max_excess_over_budget={n: excess[n] for n in keys},
                      zeroed_output_excess={n: zero_excess[n] for n in keys},
@@ -655,7 +690,8 @@ def ls_operands(shape, dtype, seed):
             for sh, s in zip(shapes, scales, strict=True) for _ in range(2)]
 
 
-def ls_kernel_phase(sc):
+def ls_kernel_phase(sc, shapes=(LS_PATH_SHAPE, LS_RAGGED_SHAPE, LS_WIDE_SHAPE),
+                    tag="kernel_vs_plain"):
     """ls_fwd, ls_bwd_x and ls_bwd_w against their plain versions, each
     result held to ``store_budget`` (one rounding at its dtype plus the f32
     order of its magnitude contraction: M = I for out, O for dx, B·M for
@@ -666,7 +702,7 @@ def ls_kernel_phase(sc):
 
     kernels = {"ls_fwd": "out", "ls_bwd_x": "dx", "ls_bwd_w": "dw"}
     worst = dict.fromkeys(kernels, 0.0)
-    for k, shape in enumerate((LS_PATH_SHAPE, LS_RAGGED_SHAPE, LS_WIDE_SHAPE)):
+    for k, shape in enumerate(shapes):
         for dtype in CP_DTYPES:
             xr, xi, wr, wi, gr, gi = ls_operands(shape, dtype, SEED + 40 + k)
             got = {"out": sc._launch_ls_fwd(xr, xi, wr, wi),
@@ -687,7 +723,7 @@ def ls_kernel_phase(sc):
                     err = max(err, diff.max().item())
                     excess = max(excess, (diff - budget).max().item())
                     zero_excess = max(zero_excess, (b.float().abs() - budget).max().item())
-                emit("kernel_vs_plain", kernel=kernel, shape=list(shape), dtype=str(dtype),
+                emit(tag, kernel=kernel, shape=list(shape), dtype=str(dtype),
                      max_abs_err=err, max_excess_over_budget=excess,
                      zeroed_output_excess=zero_excess, ok=excess <= 0 < zero_excess)
                 if excess > 0:
@@ -3825,6 +3861,9 @@ def _wait(proc, log, t0, limit):
 
 
 def finish_dryruns(procs):
+    """13(e): every dry-run's cells, each ok; the FNO cells' channel
+    layouts as ``DIST_FNO_CHANNELS`` says.  Returns the FNO records."""
+    records = {}
     for name, (proc, out, log, t0) in procs.items():
         rc, seconds = _wait(proc, log, t0, DIST_DRYRUN_TIMEOUT)
         if rc != 0:
@@ -3840,9 +3879,18 @@ def finish_dryruns(procs):
                  peak_gb_a_device=mem.get("peak_bytes", 0) / 1e9, fits_hbm=mem.get("fits_hbm"),
                  roofline=r.get("roofline"),
                  collective_bytes_by_kind=r.get("collective_bytes_by_kind"),
-                 spectral_kernel=r.get("spectral_kernel"), error=r.get("error"))
+                 spectral_kernel=r.get("spectral_kernel"),
+                 spectral_channels=r.get("spectral_channels"), error=r.get("error"))
         if any(r["status"] != "ok" for r in recs):
             fail(f"the {name} dry-run has a cell that is not ok")
+        if name == "dryrun_fno":
+            got = {(r["arch"], r["mesh"]): r.get("spectral_channels", "") for r in recs}
+            want = {(a, m): c for a, c in DIST_FNO_CHANNELS.items() for m in ("16x16", "2x16x16")}
+            wrong = {k: got.get(k) for k, c in want.items() if not (got.get(k) or "").startswith(c)}
+            if wrong:
+                fail(f"the FNO dry-run's channel layouts are not {DIST_FNO_CHANNELS}: {wrong}")
+            records[name] = recs
+    return records
 
 
 def finish_parity(procs):
@@ -3853,10 +3901,113 @@ def finish_parity(procs):
     for r in recs:
         emit("dist_parity", torch=torch.__version__, ranks=4, mesh="2x2", **r)
     emit("dist_parity_run", rc=rc, seconds=seconds, checks=len(recs))
-    want = {(r.get("check"), r.get("arch")) for r in recs if r.get("ok")}
-    need = {("cross_entropy", None)} | {("train_step", a) for a in DIST_PARITY[2::2]}
+    want = {(r.get("check"), r.get("arch") or r.get("cell"), r.get("policy"))
+            for r in recs if r.get("ok")}
+    need = ({("cross_entropy", None, None)} | {("train_step", a, "full") for a in DIST_PARITY_ARCHS}
+            | {("fno_step", c, p) for c in DIST_PARITY_FNO for p in DIST_PARITY_FNO_POLICIES})
     if rc != 0 or not need <= want:
         fail(f"the four-rank parity checks failed (exit {rc}): {text[-2000:]}")
+
+
+def dist_rank_steps(card, records):
+    """13(g): rank 0 of each cell whose channels split, at full width on the
+    card, in a fake world of 256 ranks (``repro_torch.launch.rank_step``):
+    ms a step, peak memory and the launches of its kernels, beside the
+    dry-run's derived peak of the same rank before the split and now.
+    Returns the launches, by kernel."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    args = [sys.executable, "-m", "repro_torch.launch.rank_step"]
+    for cell in DIST_RANK_CELLS:
+        args += ["--cell", cell]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(args, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=DIST_RANK_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"the one-rank steps ran past {DIST_RANK_TIMEOUT} s")
+    if proc.returncode != 0:
+        fail(f"the one-rank steps exited {proc.returncode}: {proc.stderr[-3000:]}")
+    recs = {r["cell"]: r for r in map(json.loads, proc.stdout.splitlines())
+            if r.get("cell") in DIST_RANK_CELLS}
+    dry = {r["arch"]: r for r in records if r["mesh"] == "16x16"}
+    total = {}
+    for cell, kernels in DIST_RANK_CELLS.items():
+        r = recs.get(cell)
+        if r is None:
+            fail(f"the one-rank steps printed no record of {cell}: {proc.stdout[-2000:]}")
+        launched = {k: r["launches"].get(k, 0) for k in kernels}
+        after = dry[cell]["memory_analysis"]["peak_bytes"]
+        emit("dist_rank_step", card=card, cell=cell, mesh=r["mesh"], rank=0,
+             policy=r["policy"], steps=r["steps"], local_batch=r["local_batch"],
+             channels_over=r["channels_over"], channels_a_rank=r["channels_a_rank"],
+             ms_per_step=r["ms_per_step"], max_memory_allocated_gb=r["max_memory_allocated_bytes"] / 1e9,
+             launches=r["launches"], dryrun_peak_gb={
+                 "channels_replicated": DIST_RANK_PEAK_BEFORE[cell] / 1e9,
+                 "channels_split": after / 1e9},
+             note=r["note"])
+        if r["channels_over"] != "model" or r["channels_a_rank"] != 4:
+            fail(f"{cell}'s rank did not split its channels 4 a rank: {r}")
+        if len(r["ms_per_step"]) != DIST_RANK_STEPS or not all(launched.values()):
+            fail(f"{cell}'s rank ran {len(r['ms_per_step'])} steps, launches {launched}")
+        for k, n in launched.items():
+            total[k] = total.get(k, 0) + n
+    emit("dist_rank_steps", seconds=time.perf_counter() - t0, launches=total)
+    return total
+
+
+def _equal_block(whole, block):
+    """(bit-equal, largest difference) of a block launch's re/im pair against
+    the first ``BLOCK_O`` output channels of the whole launch's."""
+    same = all(torch.equal(b, w[:, :BLOCK_O]) for b, w in zip(block, whole, strict=True))
+    diff = max((b.float() - w[:, :BLOCK_O].float()).abs().max().item()
+               for b, w in zip(block, whole, strict=True))
+    return same, diff
+
+
+def block_kernel_phase(sc):
+    """13(h): the forward kernels a rank launches on its output block (O =
+    ``BLOCK_O`` of 64) at the paths' full widths: ``dense_fwd`` at
+    FNO_DARCY's, ``cp_fwd`` at TFNO_NS's and ``ls_fwd`` at SFNO_SWE's
+    shapes, each equal bit for bit to the block's slice of the whole launch
+    (each output sums the same operands in the same order: the kernels
+    tile outputs, never a sum), and a zeroed block not; then every kernel
+    of the three, backward included, on the block against its plain
+    version (the budgets of phases 3-6)."""
+    B, I, O, M = PATH_SHAPE
+    checks = []
+    ops = operands(PATH_SHAPE, SEED + 140)
+    blk = [ops[0], ops[1], ops[2][:, :BLOCK_O].contiguous(), ops[3][:, :BLOCK_O].contiguous()]
+    for cast_to, out_dtype in MODES:
+        whole = sc._launch_fwd(*ops, cast_to, out_dtype)
+        checks.append(("dense_fwd", str(out_dtype), whole,
+                       sc._launch_fwd(*blk, cast_to, out_dtype)))
+    for dtype in CP_DTYPES:
+        cp = cp_operands(CP_PATH_SHAPE, dtype, SEED + 141)[:8]
+        cpb = cp[:4] + [t[:BLOCK_O].contiguous() for t in cp[4:6]] + cp[6:8]
+        checks.append(("cp_fwd", str(dtype), sc._launch_cp_fwd(*cp), sc._launch_cp_fwd(*cpb)))
+        xr, xi, wr, wi = ls_operands(LS_PATH_SHAPE, dtype, SEED + 142)[:4]
+        checks.append(("ls_fwd", str(dtype), sc._launch_ls_fwd(xr, xi, wr, wi),
+                       sc._launch_ls_fwd(xr, xi, wr[:, :BLOCK_O].contiguous(),
+                                         wi[:, :BLOCK_O].contiguous())))
+    torch.cuda.synchronize()
+    for kernel, dtype, whole, block in checks:
+        same, diff = _equal_block(whole, block)
+        zero_same, _ = _equal_block(whole, [torch.zeros_like(t) for t in block])
+        emit("block_kernel_vs_whole", kernel=kernel, dtype=dtype, block_o=BLOCK_O, of_o=O,
+             bit_equal=same, max_abs_diff=diff, zeroed_block_bit_equal=zero_same,
+             ok=same and not zero_same)
+        if not same:
+            fail(f"{kernel} ({dtype}) on an output block of {BLOCK_O} differs from the whole "
+                 f"launch's slice by up to {diff:.3e}")
+        if zero_same:
+            fail(f"{kernel} ({dtype}): a zeroed block reads as the whole launch's slice")
+    backward_kernel_phase(sc, shapes=((B, I, BLOCK_O, M),), tag="block_kernel_vs_plain")
+    cp_kernel_phase(sc, shapes=(CP_PATH_SHAPE[:2] + (BLOCK_O,) + CP_PATH_SHAPE[3:],),
+                    tag="block_kernel_vs_plain")
+    ls_kernel_phase(sc, shapes=(LS_PATH_SHAPE[:2] + (BLOCK_O,) + LS_PATH_SHAPE[3:],),
+                    tag="block_kernel_vs_plain")
 
 
 def dist_phase(sc, card, darcy, dryruns, cores):
@@ -3883,7 +4034,9 @@ def dist_phase(sc, card, darcy, dryruns, cores):
         dist_lm_serve(card, mesh)
         dist_lm_train(card, mesh)
         finish_parity(procs)
-        finish_dryruns(dryruns)
+        records = finish_dryruns(dryruns)
+        launched.update(dist_rank_steps(card, records["dryrun_fno"]))
+        block_kernel_phase(sc)
     finally:
         for proc, _, log, _ in procs.values():
             _kill(proc)
@@ -3935,9 +4088,11 @@ def main():
     launches = {"fwd": served + trained["fwd"] + gino["fwd"] + auto["fwd"] + analyzed["fwd"],
                 "bwd_x": trained["bwd_x"] + gino["bwd_x"] + auto["bwd_x"] + analyzed["bwd_x"],
                 "bwd_w": trained["bwd_w"] + gino["bwd_w"] + auto["bwd_w"] + analyzed["bwd_w"],
-                "cp_fwd": tfno_served + tfno_trained["cp_fwd"],
-                "cp_bwd": tfno_trained["cp_bwd"], "ls_fwd": sfno_served + sfno_trained["ls_fwd"],
-                "ls_bwd_x": sfno_trained["ls_bwd_x"], "ls_bwd_w": sfno_trained["ls_bwd_w"],
+                "cp_fwd": tfno_served + tfno_trained["cp_fwd"] + distributed["cp_fwd"],
+                "cp_bwd": tfno_trained["cp_bwd"] + distributed["cp_bwd"],
+                "ls_fwd": sfno_served + sfno_trained["ls_fwd"] + distributed["ls_fwd"],
+                "ls_bwd_x": sfno_trained["ls_bwd_x"] + distributed["ls_bwd_x"],
+                "ls_bwd_w": sfno_trained["ls_bwd_w"] + distributed["ls_bwd_w"],
                 "fused_fwd": fused_served + fused_trained["fused_fwd"] + gino["fused_fwd"]
                 + tuned["fused_fwd"] + observed["fused_fwd"] + analyzed["fused_fwd"]
                 + distributed["fused_fwd"],

@@ -23,6 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.autoprec.telemetry import fmt_of, tap
+from repro_torch.dist import channels
 from repro_torch.precision import FULL, PrecisionPolicy, site_scope
 
 
@@ -178,7 +179,12 @@ def spectral_conv_apply(
     """Apply the Fourier convolution to ``x`` of shape (batch, ch, *spatial).
 
     ``params``: dense ``{"w_re", "w_im"}`` (corners, I, O, *modes), or the
-    CP or Tucker factors of :func:`init_spectral_weights`.  ``fuse_spectral``:
+    CP or Tucker factors of :func:`init_spectral_weights`.  Inside a
+    ``dist.channels`` scope ``x`` holds this rank's block of the input
+    channels and ``params`` this rank's block of the output channels (the
+    dense weight's O, the CP and Tucker ``U_o`` rows): the transform runs
+    on the rank's own channels, the truncated spectrum is gathered over tp
+    for the contraction, and the result is the output block.  ``fuse_spectral``:
     tri-state (``kernels.ops.resolve_fuse_spectral``: ``None`` is on for a
     CUDA tensor, off for a CPU tensor).  Where it resolves on, the layer is
     dense and ``fused_spectral_viable`` admits its shapes and policy, the
@@ -217,20 +223,24 @@ def spectral_conv_apply(
                         dtype=torch.complex64, device=x.device)
     for c, sl in enumerate(_corner_slices(modes, spectrum_shape)):
         idx = (slice(None), slice(None), *sl)
+        # with the channels split over tp, x is this rank's input block and
+        # the weight its output block: every input channel's corner is
+        # gathered, so each output is the one-device sum over all of them
+        xc = channels.gather(xf[idx])
         if kind == "dense":
             out_f[idx] = kops.spectral_contract(
-                xf[idx], params["w_re"][c], params["w_im"][c], policy=ctr)
+                xc, params["w_re"][c], params["w_im"][c], policy=ctr)
         elif kind == "cp":
             factors = [_complex(params, f"U_m{k}", c) for k in range(ndim)]
             out_f[idx] = kops.spectral_contract_cp(
-                xf[idx], _complex(params, "lam", c), _complex(params, "U_i", c),
+                xc, _complex(params, "lam", c), _complex(params, "U_i", c),
                 _complex(params, "U_o", c), factors, policy=ctr)
         else:
             # Tucker has no kernel layout: the memory-greedy einsum path,
             # as in the reference
             ops = [_complex(params, "core", c)] + [
                 _complex(params, f"U_{nm}", c) for nm in _factor_names(ndim)]
-            yc = ctr.contract(_tucker_expr(ndim), xf[idx], *ops)
+            yc = ctr.contract(_tucker_expr(ndim), xc, *ops)
             if isinstance(yc, ComplexPair):
                 yc = yc.to_complex()
             out_f[idx] = yc.to(torch.complex64)

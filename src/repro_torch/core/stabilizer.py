@@ -6,9 +6,12 @@ sup-norm M and the Lipschitz constant L of the Theorem 3.1/3.2 bounds.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
+
+from repro_torch.dist import channels
 
 
 class _Tanh(torch.autograd.Function):
@@ -42,10 +45,21 @@ def hard_clip_stabilizer(x: torch.Tensor, limit: float = 3.0) -> torch.Tensor:
 
 def sigma_clip_stabilizer(x: torch.Tensor, k: float = 2.0) -> torch.Tensor:
     """2σ-clip baseline from Table 3: clip to mean ± k·std (per sample,
-    population std as ``jnp.std``)."""
+    population std as ``jnp.std``).  Inside a ``dist.channels`` scope ``x``
+    is this rank's channel block: the f32 sums behind both statistics are
+    summed over tp, so they span every channel, as GSPMD's reduction over
+    the shards does in the reference."""
     dims = tuple(range(1, x.ndim))
-    mu = torch.mean(x, dim=dims, keepdim=True)
-    sd = torch.std(x, dim=dims, keepdim=True, correction=0)
+    scope = channels.active()
+    if scope is None:
+        mu = torch.mean(x, dim=dims, keepdim=True)
+        sd = torch.std(x, dim=dims, keepdim=True, correction=0)
+    else:
+        n = math.prod(x.shape[1:]) * scope.size
+        xf = x.float()
+        mean = channels.all_reduce(xf.sum(dim=dims, keepdim=True)) / n
+        var = channels.all_reduce((xf - mean).square().sum(dim=dims, keepdim=True)) / n
+        mu, sd = mean.to(x.dtype), var.sqrt().to(x.dtype)
     return torch.clamp(x, mu - k * sd, mu + k * sd)
 
 

@@ -354,9 +354,13 @@ def fused_spectral_viable(fft_in, ctr, I: int, O: int, spatial: Sequence[int],
     (and one compute dtype when they quantise).  An active autoprec
     collector vetoes it, as in the reference: the staged path owns
     telemetry, since its taps read the spectrum the fused kernels never
-    write.  Decided before any launch; the batch does not enter (the
-    kernels tile it)."""
-    if telemetry_active():
+    write.  So does an active ``dist.channels`` scope (the channels split
+    over tp): the fused kernels transform the whole spatial input of every
+    input channel, where a rank holds its channel block only.  Decided
+    before any launch; the batch does not enter (the kernels tile it)."""
+    from repro_torch.dist import channels
+
+    if telemetry_active() or channels.active() is not None:
         return False
     spatial, modes = tuple(spatial), tuple(modes)
     if not fused_supported(spatial, modes) or len(modes) > 3:

@@ -14,11 +14,15 @@ the full-DP layout made explicit (each rank its share of the batch,
 sharded weights gathered before the forward, gradients summed in f32 into
 each parameter's placement).  No kernel can launch on a fake tensor, so
 the trace runs the spectral layers' plain versions on fake CPU tensors;
-the record carries the launch plan the card would run beside the counts
-(``spectral_kernel``, from ``roofline.spectral_kernel_smem``).  Where the
-batch does not cover the mesh the channels stay whole on every rank of
-the model axis (``"spectral_channels": "replicated over tp"``; the
-reference shards them over tp).
+the record carries the launch plan a rank would run on the card beside
+the counts (``spectral_kernel``, from ``roofline.spectral_kernel_smem``).
+Where the batch does not cover the mesh the hidden channels split over the
+model axis, as the reference's ``constrain_spatial`` lays them out
+(``"spectral_channels": "sharded over tp"``): each rank transforms its own
+channel block, gathers the truncated spectra over tp and contracts them
+against its output-channel block of the weight, so the plan is at (B a
+rank, I = H, O = H / tp), staged for a dense layer, and the collectives
+gain the spectra's all-gathers and their reduce-scatters.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun_fno --cell fno-darcy --mesh both
@@ -47,7 +51,12 @@ from repro_torch.launch.dryrun import (
 )
 from repro_torch.launch.mesh import production_shape
 from repro_torch.launch.roofline import analyze_counts, count_step, link_bw, spectral_kernel_smem
-from repro_torch.launch.steps import batch_axes, build_fno_train_step, fno_batch_specs
+from repro_torch.launch.steps import (
+    batch_axes,
+    build_fno_train_step,
+    channel_axis,
+    fno_batch_specs,
+)
 from repro_torch.optim import AdamW
 
 FNO_CELLS = {
@@ -66,20 +75,29 @@ def _model(spec):
         return (FNO if spec["kind"] == "fno" else SFNO)(spec["cfg"])
 
 
-def spectral_record(spec, B_local: int, policy) -> dict:
-    """The launch plan of the cell's first spectral layer on the card."""
+def spectral_record(spec, B_local: int, policy, tp: int = 1) -> dict:
+    """The launch plan of the cell's first spectral layer on one rank of
+    the card: every input channel against the rank's block of ``H / tp``
+    output channels (``tp`` 1: the channels whole).  Split channels are
+    planned in a ``dist.channels`` scope of ``tp`` ranks, as the step runs
+    them, so a dense layer plans the staged kernels."""
+    from repro_torch.dist import channels
+
     cfg = spec["cfg"]
     h = cfg.hidden_channels
+    o = h // tp
     if spec["kind"] == "sfno":
-        return spectral_kernel_smem(B_local, h, h, (cfg.lmax, cfg.mmax), l_shared=True,
+        return spectral_kernel_smem(B_local, h, o, (cfg.lmax, cfg.mmax), l_shared=True,
                                     policy=policy, site="sfno/layer0/spectral")
     rank = 0
     if getattr(cfg, "factorization", "dense") == "cp":
         from repro_torch.core.spectral import cp_rank
 
         rank = cp_rank(h, h, cfg.rank)
-    return spectral_kernel_smem(B_local, h, h, cfg.modes, spatial=spec["res"], rank=rank,
-                                policy=policy, site="fno/layer0/spectral")
+    # the plan reads the scope only; no collective runs, so no group
+    with channels.channel_scope(None, 0, tp):
+        return spectral_kernel_smem(B_local, h, o, cfg.modes, spatial=spec["res"],
+                                    rank=rank, policy=policy, site="fno/layer0/spectral")
 
 
 def run_fno_cell(name: str, multi_pod: bool, policy_name: str = "mixed_fno_bf16",
@@ -116,6 +134,7 @@ def run_fno_cell(name: str, multi_pod: bool, policy_name: str = "mixed_fno_bf16"
         rep = replication_report(model, param_specs)
         batch_shape = {"x": (B, cfg.in_channels, *res), "y": (B, cfg.out_channels, *res)}
         axes = batch_axes(mesh, batch_shape["x"])
+        ch_ax = channel_axis(mesh, batch_shape["x"], cfg.hidden_channels)
         fake = FakeTensorMode(allow_non_fake_inputs=True)
         with fake:
             model.to_empty(device="cpu")
@@ -145,9 +164,10 @@ def run_fno_cell(name: str, multi_pod: bool, policy_name: str = "mixed_fno_bf16"
     for ax in axes:
         n_batch *= int(mshape[names.index(ax)])
     covered = set(axes) == set(names)
-    rec["spectral_kernel"] = spectral_record(spec, max(1, B // n_batch), policy)
+    tp = int(mshape[names.index(ch_ax)]) if ch_ax else 1
+    rec["spectral_kernel"] = spectral_record(spec, max(1, B // n_batch), policy, tp)
     rec["spectral_channels"] = ("whole (full-DP: the batch covers the mesh)" if covered
-                                else "replicated over tp")
+                                else "sharded over tp" if ch_ax else "whole (replicated over tp)")
     rec.update({
         "status": "ok",
         "compile_s": round(time.perf_counter() - t0, 1),

@@ -1,4 +1,5 @@
-"""Four-rank parity of the LM train step on a 2x2 mesh (CPU, gloo).
+"""Four-rank parity of the LM and FNO-family train steps on a 2x2 mesh
+(CPU, gloo).
 
 Four processes form a ("data", "model") = (2, 2) mesh over gloo.  Each
 runs one ``build_train_step`` step of an arch's smoke config with its
@@ -6,19 +7,34 @@ parameters, optimizer state and batch placed by the rule tables, and,
 against it, the same step on plain tensors in the same process (one
 device).  An MoE arch runs the one-device step with the mesh ambient, so
 both dispatch in the mesh's dp = 2 groups.  ``cross_entropy`` is also
-held on logits whose vocabulary is sharded over "model".  Rank 0 prints
-one JSON line a check; any rank whose numbers miss the limits fails the
-run (exit 1).
+held on logits whose vocabulary is sharded over "model".
+
+``--fno NAME`` (``fno-darcy``, ``tfno-ns``, ``sfno-swe``) runs 3 steps of
+``build_fno_train_step`` at the config's smoke size with a batch of 2,
+which does not cover the mesh, so the hidden channels split over "model"
+(``dist.channels``), under each of ``FNO_POLICIES``: ``full``,
+``mixed_fno_bf16`` and ``mixed_fno_bf16`` with the 2σ-clip stabiliser
+(whose per-sample statistics span every channel, so they are summed over
+tp).  Under ``full`` the losses within 1e-5 relative and
+every leaf after the steps within 1e-5 relative L2 of one device; under a
+mixed policy each of those errors within a quarter of the one-device
+policy's own gap to ``full``.  AdamW's update hardly moves when every
+gradient is scaled alike, so the first step's gradients are also held to
+one device's, leaf by leaf (a gradient summed over tp where it should not
+be is tp times too large).  Rank 0 prints one JSON line a check; any rank
+whose numbers miss the limits fails the run (exit 1).
 
 Like the dry-runs this is a check of the distribution layer, and it runs
 on the CPU whatever the machine has:
 
     PYTHONPATH=src python -m repro_torch.launch.parity --arch granite-moe-3b-a800m --arch whisper-large-v3
+    PYTHONPATH=src python -m repro_torch.launch.parity --fno fno-darcy --fno tfno-ns --fno sfno-swe
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import socket
 from typing import Dict
@@ -93,6 +109,133 @@ def train_parity(mesh, arch: str, policy: str = "full", B: int = 4, S: int = 16)
             "worst": worst, "ok": loss_rel <= TOL and errs[worst] <= TOL}
 
 
+#: the FNO-family smoke cells of ``--fno``: (model kind, config name)
+FNO_SMOKE = {"fno-darcy": ("fno", "FNO_DARCY_SMOKE"), "tfno-ns": ("fno", "TFNO_NS_SMOKE"),
+             "sfno-swe": ("sfno", "SFNO_SWE_SMOKE")}
+FNO_STEPS = 3
+#: the policies of each ``--fno`` check; the last is ``mixed_fno_bf16`` with
+#: the 2σ-clip stabiliser before each forward transform
+SIGMA_CLIP = "mixed_fno_bf16+sigma_clip"
+FNO_POLICIES = ("full", "mixed_fno_bf16", SIGMA_CLIP)
+#: a mixed policy's error against one device, as a share of its own gap to full
+MIXED_SHARE = 0.25
+
+
+class GradCapture:
+    """An optimizer with AdamW's interface that keeps the gradients the step
+    hands it and leaves the parameters as they are."""
+
+    def init(self, params):
+        return ()
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return params, state
+
+
+def fno_model(name: str, seed: int = 0):
+    """A cell's smoke model on the CPU, drawn from ``seed``."""
+    from repro_torch.configs import fno_paper
+    from repro_torch.models import init_fno
+    from repro_torch.models.sfno import init_sfno
+
+    kind, cfg_name = FNO_SMOKE[name]
+    cfg = getattr(fno_paper, cfg_name)
+    init = init_sfno if kind == "sfno" else init_fno
+    return init(torch.Generator().manual_seed(seed), cfg, device="cpu")
+
+
+def fno_policy(name: str):
+    """A policy of ``FNO_POLICIES`` by name."""
+    from repro_torch.precision import SiteRule, get_policy
+
+    if name == SIGMA_CLIP:
+        return get_policy("mixed_fno_bf16").with_rules(
+            ("*/spectral/fft_in", SiteRule(stabilize="sigma_clip")), name=SIGMA_CLIP)
+    return get_policy(name)
+
+
+def fno_batch(cfg, B: int, seed: int = 1) -> Dict[str, torch.Tensor]:
+    """Standard normal inputs and targets at a smoke config's grid."""
+    spatial = (cfg.nlat, cfg.nlon) if hasattr(cfg, "nlat") else (16, 16)
+    g = torch.Generator().manual_seed(seed)
+    return {"x": torch.randn(B, cfg.in_channels, *spatial, generator=g),
+            "y": torch.randn(B, cfg.out_channels, *spatial, generator=g)}
+
+
+def _fno_run(mesh, name: str, policy: str, B: int, steps: int, optimizer):
+    """(losses, leaves after the steps, first step's gradients) of the FNO
+    step on ``mesh`` (None: one device), every value whole."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist import distribute, fno_param_specs
+    from repro_torch.launch.steps import build_fno_train_step, fno_batch_specs
+
+    model = fno_model(name)
+    batch = fno_batch(model.cfg, B)
+    probe = GradCapture()
+    if mesh is not None:
+        distribute(model, mesh, fno_param_specs(model, mesh))
+        batch = distribute(batch, mesh, fno_batch_specs(batch, mesh))
+    step = build_fno_train_step(fno_policy(policy), mesh, optimizer)
+    whole = (lambda t: t.full_tensor()) if mesh is not None else (lambda t: t)
+    with implicit_replication():
+        state = optimizer.init(dict(model.named_parameters()))
+        build_fno_train_step(fno_policy(policy), mesh, probe)(model, (), batch)
+        grads = {k: whole(g).detach().clone() for k, g in probe.grads.items()}
+        losses = []
+        for _ in range(steps):
+            model, state, loss = step(model, state, batch)
+            losses.append(float(loss))
+        leaves = {k: whole(p).detach().clone() for k, p in model.named_parameters()}
+    return losses, leaves, grads
+
+
+def fno_parity(mesh, name: str, policy: str = "full", B: int = 2,
+               steps: int = FNO_STEPS) -> dict:
+    """``steps`` steps of ``name``'s FNO-family smoke cell on ``mesh`` with a
+    batch of ``B`` against one device: under ``full`` each loss, each leaf
+    after the steps and each first-step gradient within ``TOL``; under a
+    mixed policy each loss and the whole trees of leaves and of gradients
+    within ``MIXED_SHARE`` of the one-device policy's own difference to
+    ``full``.  ``worst``: of each kind, the check nearest its limit."""
+    from repro_torch.launch.steps import channel_axis
+    from repro_torch.optim import AdamW
+
+    l0, p0, g0 = _fno_run(None, name, policy, B, steps, AdamW(lr=1e-3))
+    l1, p1, g1 = _fno_run(mesh, name, policy, B, steps, AdamW(lr=1e-3))
+    cfg = fno_model(name).cfg
+    split = channel_axis(mesh, tuple(fno_batch(cfg, B)["x"].shape), cfg.hidden_channels)
+    losses = {f"loss{i}": (a, b) for i, (a, b) in enumerate(zip(l1, l0, strict=True))}
+    if policy == "full":    # each loss and leaf: (error, limit)
+        pairs = {k: (abs(a - b) / abs(b), TOL) for k, (a, b) in losses.items()}
+        pairs.update({f"param:{k}": (_rel(p1[k], p0[k]), TOL) for k in p0})
+        pairs.update({f"grad:{k}": (_rel(g1[k], g0[k]), TOL) for k in g0})
+    else:
+        # each loss, and the whole tree (its leaves concatenated): a bias's
+        # gradient, summed at the half dtype by each batch share before the
+        # f32 sum over them, is off by up to half its own small gap with the
+        # channels whole too (the data-parallel split, not the channels')
+        lf, pf, gf = _fno_run(None, name, "full", B, steps, AdamW(lr=1e-3))
+
+        def tree(d):
+            return torch.cat([v.detach().double().flatten() for v in d.values()])
+
+        pairs = {k: (abs(a - b) / abs(b), MIXED_SHARE * abs(b - lf[int(k[4:])]) / abs(lf[int(k[4:])]))
+                 for k, (a, b) in losses.items()}
+        pairs["param:tree"] = (_rel(tree(p1), tree(p0)), MIXED_SHARE * _rel(tree(p0), tree(pf)))
+        pairs["grad:tree"] = (_rel(tree(g1), tree(g0)), MIXED_SHARE * _rel(tree(g0), tree(gf)))
+    # the worst of each kind, as its share of its own limit
+    worst = {}
+    for kind in ("loss", "param", "grad"):
+        key = max((k for k in pairs if k.startswith(kind)),
+                  key=lambda k: pairs[k][0] / pairs[k][1] if pairs[k][1] else math.inf)
+        worst[kind] = {"at": key, "rel": pairs[key][0], "limit": pairs[key][1]}
+    return {"check": "fno_step", "cell": name, "policy": policy, "batch": B, "steps": steps,
+            "channels_over": split, "losses": l0, "losses_mesh": l1, "worst": worst,
+            "ok": split is not None and all(e <= lim for e, lim in pairs.values())}
+
+
 def cross_entropy_parity(mesh, B: int = 4, S: int = 8, V: int = 96) -> dict:
     """``cross_entropy`` and its gradient on logits sharded (batch over
     "data", vocabulary over "model") against plain logits."""
@@ -116,7 +259,7 @@ def cross_entropy_parity(mesh, B: int = 4, S: int = 8, V: int = 96) -> dict:
             "ok": loss_rel <= 1e-6 and grad_rel <= 1e-6}
 
 
-def _rank(rank: int, port: int, archs, policy: str) -> None:
+def _rank(rank: int, port: int, archs, policy: str, fnos=()) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -126,6 +269,7 @@ def _rank(rank: int, port: int, archs, policy: str) -> None:
     try:
         mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
         recs = [cross_entropy_parity(mesh)] + [train_parity(mesh, a, policy) for a in archs]
+        recs += [fno_parity(mesh, n, p) for n in fnos for p in FNO_POLICIES]
         if rank == 0:
             for rec in recs:
                 print(json.dumps(rec), flush=True)
@@ -150,10 +294,13 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", action="append", choices=ARCH_IDS,
                     help="an arch whose train step to check (repeatable)")
+    ap.add_argument("--fno", action="append", choices=list(FNO_SMOKE),
+                    help="an FNO-family cell whose channel-split step to check (repeatable)")
     ap.add_argument("--policy", default="full")
     args = ap.parse_args(argv)
     port = int(os.environ.get("PORT") or _free_port())
-    mp.spawn(_rank, args=(port, args.arch or [], args.policy), nprocs=4, join=True)
+    mp.spawn(_rank, args=(port, args.arch or [], args.policy, args.fno or []),
+             nprocs=4, join=True)
 
 
 if __name__ == "__main__":

@@ -333,10 +333,60 @@ def batch_axes(mesh, shape) -> Tuple[str, ...]:
     return (spec[0],) if isinstance(spec[0], str) else tuple(spec[0])
 
 
+def channel_axis(mesh, shape, width: int) -> Optional[str]:
+    """The mesh axis the FNO family's hidden channels (``width`` of them)
+    split over for a (B, C, *spatial) batch of ``shape``:
+    ``constrain_spatial``'s fallback, the tp axis, where B does not cover
+    the mesh and the axis divides the width; None where the batch covers
+    the mesh, the axis is a single rank, or nothing divides."""
+    from repro_torch.dist.constrain import _resolve_spec, logical_axis_size
+
+    B = shape[0]
+    if B % logical_axis_size("all", mesh) == 0:
+        return None
+    spec = _resolve_spec((B, width), ("dp", "tp"), mesh)
+    ax = None if spec is None else spec[1]
+    if isinstance(ax, tuple):
+        if len(ax) != 1:
+            raise ValueError(f"the channels resolve to {len(ax)} mesh axes {ax}; "
+                             f"the step splits them over one")
+        ax = ax[0]
+    if ax is None or int(mesh.shape[tuple(mesh.mesh_dim_names).index(ax)]) <= 1:
+        return None
+    return ax
+
+
+def channel_blocks(model) -> Dict[str, Optional[int]]:
+    """The FNO/TFNO/SFNO parameters whose gradients differ between the
+    ranks of tp when the hidden channels split, name -> dim: a rank holds
+    only its block of the output channels of the spectral weights' O
+    (dense ``w_re``/``w_im`` (L, corners, I, O, *modes), SFNO's (L, I, O,
+    lmax), the CP and Tucker ``U_o`` rows (L, corners, O, R)) and of the
+    skip's bias (``skips.b`` (L, H)), and of the input channels of the
+    skip's weight (``skips.w`` (L, I, O): the rank's partial product over
+    its input block is summed over tp, ``models.fno.skip``); None for a
+    factor every rank holds whole but contracts against its own output
+    block only (CP ``lam``, ``U_i`` and the mode factors, the Tucker core,
+    ``U_i`` and mode factors), whose gradient is a partial sum.  Lifting
+    and projection are not listed: every rank of tp computes them whole."""
+    from repro_torch.models.sfno import SFNO
+
+    out: Dict[str, Optional[int]] = {"skips.w": 1, "skips.b": 1}
+    for name in model.spectral:
+        if isinstance(model, SFNO):
+            out[f"spectral.{name}"] = 2
+        elif name in ("w_re", "w_im"):
+            out[f"spectral.{name}"] = 3
+        else:
+            out[f"spectral.{name}"] = 2 if name.startswith("U_o_") else None
+    return out
+
+
 def fno_batch_specs(batch: Any, mesh) -> Any:
     """The full-DP input layout: each leaf's batch dim over the axes
-    :func:`batch_axes` gives, the rest whole (channels are not sharded:
-    see :func:`build_fno_train_step`)."""
+    :func:`batch_axes` gives, the rest whole.  The leaves' channels stay
+    whole; where the batch does not cover the mesh the step splits the
+    model's hidden channels over tp (:func:`build_fno_train_step`)."""
     from repro_torch.dist.sharding import tree_map_with_path
 
     def spec(_, leaf):
@@ -369,10 +419,23 @@ def build_fno_train_step(policy: PrecisionPolicy, mesh=None, optimizer: Optional
     over every axis that carries the batch (an all-reduce, or a
     reduce-scatter onto a shard), and divided by the number of batch
     shards, so it is the gradient of the batch-mean loss; the update runs
-    on the DTensors.  Where the batch does not cover the mesh, the ranks
-    of the model axis hold the same batch share and compute the whole
-    channel width: the spectral layers' channels are replicated over tp
-    (the reference shards them; DTensor has no sharding rule for FFTs).
+    on the DTensors.
+
+    Where the batch does not cover the mesh, the ranks of the model axis
+    hold the same batch share, and the hidden channels split over that
+    axis (:func:`channel_axis`; the reference's "batch over dp, channels
+    over tp").  The forward and backward then run in a
+    ``dist.channels`` scope over the axis: each rank takes its block of
+    the spectral and skip weights (:func:`channel_blocks`, sliced from the
+    whole weight; the parameters keep their placements), the lifting runs
+    whole and its output is split, the spectra are gathered over tp, the
+    skips' partial products reduce-scattered, and the projection runs
+    whole on the gathered channels.  Before the batch sums, each spectral
+    and skip gradient is summed over tp in f32: the blocks all-gathered,
+    the factors every rank holds whole (CP, Tucker) all-reduced.  The
+    lifting's and projection's gradients are the same on every rank of tp
+    (the split's backward gathers the cotangent; the projection is
+    repeated) and are not summed over it.
     ``grad_reduce``: replaces the f32 sum for replicated parameters (e.g.
     ``optim.grad_comm.make_dp_allreduce``'s bf16 all-reduce, which also
     divides)."""
@@ -392,10 +455,14 @@ def build_fno_train_step(policy: PrecisionPolicy, mesh=None, optimizer: Optional
             return model, new_opt, loss.detach()
         return plain_step
 
+    import contextlib
+
     import torch.distributed._functional_collectives as funcol
     from torch.distributed.tensor import DTensor, Shard
     from torch.distributed.tensor.experimental import implicit_replication
     from torch.func import functional_call
+
+    from repro_torch.dist import channels
 
     names = tuple(mesh.mesh_dim_names)
 
@@ -405,23 +472,36 @@ def build_fno_train_step(policy: PrecisionPolicy, mesh=None, optimizer: Optional
     def size(ax):
         return int(mesh.shape[names.index(ax)])
 
+    def wait(t):
+        return funcol.wait_tensor(t) if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
     def dp_step(model, opt_state, batch):
         x, y = batch["x"].to_local(), batch["y"].to_local()
         axes = batch_axes(mesh, tuple(batch["x"].shape))
         n_shards = 1
         for ax in axes:
             n_shards *= size(ax)
+        ch_ax = channel_axis(mesh, tuple(batch["x"].shape), model.cfg.hidden_channels)
         named = dict(model.named_parameters())
-        full = {}
-        for k, p in named.items():
-            t = p.to_local()
-            for i, pl in enumerate(p.placements):
-                if isinstance(pl, Shard):
-                    t = funcol.all_gather_tensor(t, pl.dim, group(names[i]))
-            full[k] = funcol.wait_tensor(t).detach().requires_grad_() \
-                if isinstance(t, funcol.AsyncCollectiveTensor) else t.detach().requires_grad_()
-        loss = loss_fn(functional_call(model, full, (x,), {"policy": policy}), y)
-        g_full = _grads(loss, full)
+        with channels.channel_scope(group(ch_ax), mesh.get_local_rank(ch_ax), size(ch_ax)) \
+                if ch_ax else contextlib.nullcontext() as scope:
+            blocks = channel_blocks(model) if scope else {}
+            full = {}
+            for k, p in named.items():
+                t = p.to_local()
+                for i, pl in enumerate(p.placements):
+                    if isinstance(pl, Shard):
+                        t = funcol.all_gather_tensor(t, pl.dim, group(names[i]))
+                t = wait(t)
+                if blocks.get(k) is not None:
+                    t = channels.block_of(t, blocks[k], scope).contiguous()
+                full[k] = t.detach().requires_grad_()
+            loss = loss_fn(functional_call(model, full, (x,), {"policy": policy}), y)
+            g_full = _grads(loss, full)
+        for k, dim in blocks.items():       # the sum over tp of each rank's part
+            g = g_full[k].float().contiguous()
+            g_full[k] = wait(funcol.all_reduce(g, "sum", scope.group) if dim is None
+                             else funcol.all_gather_tensor(g, dim, scope.group))
         grads = {}
         replicated = [k for k, p in named.items()
                       if not any(isinstance(pl, Shard) for pl in p.placements)]
@@ -441,15 +521,13 @@ def build_fno_train_step(policy: PrecisionPolicy, mesh=None, optimizer: Optional
                             g = g.chunk(size(ax), dim=pl.dim)[mesh.get_coordinate()[i]]
                     elif ax in axes:
                         g = funcol.all_reduce(g, "sum", group(ax))
-                g = funcol.wait_tensor(g) if isinstance(g, funcol.AsyncCollectiveTensor) else g
-                g = g / n_shards
+                g = wait(g) / n_shards
             grads[k] = DTensor.from_local(g.to(p.dtype), mesh, p.placements, run_check=False,
                                           shape=p.shape, stride=p.stride())
         total = loss.detach()
         for ax in axes:
             total = funcol.all_reduce(total, "sum", group(ax))
-        total = funcol.wait_tensor(total) if isinstance(total, funcol.AsyncCollectiveTensor) \
-            else total
+        total = wait(total)
         # the optimizer state's step count is a plain tensor beside DTensors
         with implicit_replication():
             new_params, new_opt = opt.update(grads, opt_state,

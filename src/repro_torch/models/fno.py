@@ -32,6 +32,7 @@ from repro_torch.core.spectral import (
     spectral_weight_shapes,
 )
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import channels
 from repro_torch.dist.constrain import constrain_spatial
 from repro_torch.precision import FULL, PrecisionPolicy
 
@@ -108,6 +109,27 @@ def _linear(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, dtype) -> torch.T
     return x.to(dtype) @ w.to(dtype) + b.to(dtype)
 
 
+def skip(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor, dtype,
+         linear=None) -> torch.Tensor:
+    """A block's pointwise skip, (B, C, *spatial) -> (B, O, *spatial):
+    off a ``dist.channels`` scope ``linear`` (the calling model module's
+    ``_linear``; this module's by default) on the channels-last view.
+
+    Inside a ``dist.channels`` scope the channels split over tp: h is this
+    rank's input block, w (I / tp, O) its rows of the weight and b the
+    output block of the bias, and the result the output block.  The
+    rank's partial product over its input channels, f32 products of the
+    operands rounded to ``dtype``, is summed over tp in f32 and rounded
+    once (``channels.reduce_scatter``), as one device's product sums in
+    f32 and rounds once; then the bias.  The backward all-gathers the
+    cotangent (at ``dtype``), so each rank's input rows sum over every
+    output channel."""
+    if channels.active() is None:
+        return (linear or _linear)(w, b, h.movedim(1, -1), dtype).movedim(-1, 1)
+    part = h.movedim(1, -1).to(dtype).float() @ w.to(dtype).float()
+    return (channels.reduce_scatter(part, dim=-1, dtype=dtype) + b.to(dtype)).movedim(-1, 1)
+
+
 def _affine(d_in: int, d_out: int) -> nn.ParameterDict:
     return nn.ParameterDict({"w": nn.Parameter(torch.empty(d_in, d_out)),
                              "b": nn.Parameter(torch.zeros(d_out))})
@@ -167,7 +189,8 @@ class FNO(nn.Module):
         h = x.movedim(1, -1)
         h = _gelu(_linear(self.lift1["w"], self.lift1["b"], h, cdt))
         h = _linear(self.lift2["w"], self.lift2["b"], h, cdt)
-        h = h.movedim(-1, 1).to(cdt)  # (B, hidden, *spatial)
+        # (B, hidden, *spatial); this rank's channel block where they split
+        h = channels.split(h.movedim(-1, 1).to(cdt))
 
         for layer in range(cfg.n_layers):
             h = constrain_spatial(h)
@@ -177,12 +200,11 @@ class FNO(nn.Module):
                 spect, h, cfg.modes, policy, site=f"fno/layer{layer}/spectral",
                 fuse_spectral=cfg.fuse_spectral,
             ).to(ldt)
-            s = _linear(self.skips["w"][layer], self.skips["b"][layer],
-                        h.movedim(1, -1), ldt).movedim(-1, 1)
+            s = skip(self.skips["w"][layer], self.skips["b"][layer], h, ldt)
             h = _gelu(y + s)
 
-        # projection
-        h = h.movedim(1, -1)
+        # projection, whole on every rank
+        h = channels.gather(h, repeated=True).movedim(1, -1)
         h = _gelu(_linear(self.proj1["w"], self.proj1["b"], h, cdt))
         h = _linear(self.proj2["w"], self.proj2["b"], h,
                     policy.at("fno/proj_out").compute_dtype)

@@ -31,6 +31,7 @@ from typing import Dict, Optional, Union
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.dist.constrain import constrain, logical_axis_size, pin, to_layout
 from repro_torch.dist.local import matmul, take_rows
@@ -235,13 +236,8 @@ def blocked_attention(q, k, v, q_pos, k_pos, window: Window, q_chunk: int = 0,
     qb = qb.reshape(B, H, nq * q_chunk, D)
     qpb = q_pos.reshape(nq, q_chunk)
 
-    acc = q.new_zeros((B, H, nq, q_chunk, Dv), dtype=torch.float32)
-    m = q.new_full((B, H, nq, q_chunk), NEG_INF, dtype=torch.float32)
-    l = q.new_zeros((B, H, nq, q_chunk), dtype=torch.float32)  # noqa: E741
-    for i in range(nk):
-        ki = k[:, :, i * k_chunk:(i + 1) * k_chunk]
-        vi = v[:, :, i * k_chunk:(i + 1) * k_chunk]
-        kp = k_pos[i * k_chunk:(i + 1) * k_chunk]
+
+    def kv_step(acc, m, l, ki, vi, kp):  # noqa: E741
         s = _scores(qb, ki).reshape(B, H, nq, q_chunk, k_chunk) * scale
         causal = qpb[:, :, None] >= kp[None, None, :]
         inwin = (qpb[:, :, None] - kp[None, None, :]) < window
@@ -251,8 +247,22 @@ def blocked_attention(q, k, v, q_pos, k_pos, window: Window, q_chunk: int = 0,
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)  # noqa: E741
         pv = _mix(p.reshape(B, H, nq * q_chunk, k_chunk), vi)
-        acc = acc * alpha[..., None] + pv.reshape(B, H, nq, q_chunk, Dv)
-        m = m_new
+        return acc * alpha[..., None] + pv.reshape(B, H, nq, q_chunk, Dv), m_new, l
+
+    # the flash backward: each key block's step recomputed in the backward
+    # (the reference's jax.checkpoint), so no block's scores, probabilities
+    # or masks are kept for it, only its carry and inputs
+    recompute = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    acc = q.new_zeros((B, H, nq, q_chunk, Dv), dtype=torch.float32)
+    m = q.new_full((B, H, nq, q_chunk), NEG_INF, dtype=torch.float32)
+    l = q.new_zeros((B, H, nq, q_chunk), dtype=torch.float32)  # noqa: E741
+    for i in range(nk):
+        blk = (k[:, :, i * k_chunk:(i + 1) * k_chunk], v[:, :, i * k_chunk:(i + 1) * k_chunk],
+               k_pos[i * k_chunk:(i + 1) * k_chunk])
+        if recompute:
+            acc, m, l = checkpoint(kv_step, acc, m, l, *blk, use_reentrant=False)  # noqa: E741
+        else:
+            acc, m, l = kv_step(acc, m, l, *blk)  # noqa: E741
     out = (acc / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype)
     return out.reshape(B, H, nq * q_chunk, Dv)[:, :, :S, :]
 

@@ -28,11 +28,12 @@ from torch import nn
 
 from repro_torch.autoprec.telemetry import fmt_of, tap
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import channels
 from repro_torch.dist.constrain import constrain_spatial
 from repro_torch.kernels import ops as kops
 from repro_torch.precision import FULL, PrecisionPolicy, site_scope
 
-from .fno import _affine, _gelu, _linear, fno_infer
+from .fno import _affine, _gelu, _linear, fno_infer, skip
 from .sht import sht_forward, sht_inverse
 
 
@@ -60,7 +61,10 @@ def _spherical_conv(h: torch.Tensor, w_re: torch.Tensor, w_im: torch.Tensor,
     fft_out = policy.at(f"{site}/fft_out")
     coeffs = sht_forward(fft_in.stabilize(h).float(), cfg.lmax, cfg.mmax,
                          precision=fft_in)                          # (B, C, l, m)
-    out = kops.spectral_contract_lshared(coeffs, torch.complex(w_re, w_im), policy=ctr)
+    # split channels: every input channel's (l, m) coefficients against
+    # this rank's output block of the weight
+    out = kops.spectral_contract_lshared(channels.gather(coeffs), torch.complex(w_re, w_im),
+                                         policy=ctr)
     with site_scope(f"{site}/fft_out"):
         y = sht_inverse(out, cfg.nlat, cfg.nlon)
         tap(f"{site}/fft_out", y, fmt=fmt_of(fft_out))
@@ -96,18 +100,17 @@ class SFNO(nn.Module):
         h = x.movedim(1, -1)
         h = _gelu(_linear(self.lift1["w"], self.lift1["b"], h, cdt))
         h = _linear(self.lift2["w"], self.lift2["b"], h, cdt)
-        h = h.movedim(-1, 1).to(cdt)
+        h = channels.split(h.movedim(-1, 1).to(cdt))
 
         for layer in range(cfg.n_layers):
             h = constrain_spatial(h)
             ldt = policy.at(f"sfno/layer{layer}/dense").compute_dtype
             y = _spherical_conv(h, self.spectral["w_re"][layer], self.spectral["w_im"][layer],
                                 cfg, policy, site=f"sfno/layer{layer}/spectral").to(ldt)
-            s = _linear(self.skips["w"][layer], self.skips["b"][layer],
-                        h.movedim(1, -1), ldt).movedim(-1, 1)
+            s = skip(self.skips["w"][layer], self.skips["b"][layer], h, ldt, _linear)
             h = _gelu(y + s)
 
-        h = h.movedim(1, -1)
+        h = channels.gather(h, repeated=True).movedim(1, -1)
         h = _gelu(_linear(self.proj1["w"], self.proj1["b"], h, cdt))
         h = _linear(self.proj2["w"], self.proj2["b"], h,
                     policy.at("sfno/proj_out").compute_dtype)

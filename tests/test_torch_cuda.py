@@ -21,7 +21,9 @@ a shared prefix, an exhausted pool, the null block untouched), whose path
 runs none of these kernels; and the distribution layer on a one-rank NCCL
 mesh (``FNO_DARCY_SMOKE``'s data-parallel step bit-equal to ``mesh=None``
 with the fused kernels launched, ``LMEngine(mesh=...)``'s tokens and logits
-equal to ``mesh=None``'s, the bf16 all-reduce within bf16's unit roundoff).
+equal to ``mesh=None``'s, the bf16 all-reduce within bf16's unit roundoff);
+and the forward kernels on a rank's output-channel block (the channels
+split over tp) equal to the whole launch's slice bit for bit.
 
 Imports no JAX (the GPU machine has none).  Every test carries the
 ``cuda`` marker and skips, from inside a fixture, where no card is
@@ -2373,3 +2375,39 @@ def test_moe_and_whisper_train_steps_on_the_one_rank_mesh(nccl_mesh, arch):
     n0 = dict(p0.named_parameters())
     for k, p in p1.named_parameters():
         assert torch.equal(p.full_tensor(), n0[k]), k
+
+
+# ---------------------------------------------------------------------------
+# A rank's output-channel block (the channels split over tp)
+# ---------------------------------------------------------------------------
+
+
+def _same_slice(whole, block, o):
+    return all(torch.equal(b, w[:, :o]) for b, w in zip(block, whole, strict=True))
+
+
+@pytest.mark.parametrize("dtype", CP_DTYPES)
+def test_forward_kernels_on_an_output_block_equal_the_whole_launch(cuda, dtype):
+    """Where the hidden channels split over tp, a rank launches the forward
+    kernels on its block of the output channels: ``dense_fwd`` (the mode of
+    ``dtype``), ``cp_fwd`` (U_o's rows of the block) and ``ls_fwd`` (the
+    weight's (I, O-block, L)) each equal the whole launch's slice bit for
+    bit (the kernels tile outputs, never a sum), and a zeroed block does
+    not."""
+    o = 4
+    cast_to = None if dtype == torch.float32 else dtype
+    xr, xi, wr, wi = _operands(2, 16, 16, 64, cuda)
+    whole = sc._launch_fwd(xr, xi, wr, wi, cast_to, dtype)
+    block = sc._launch_fwd(xr, xi, wr[:, :o].contiguous(), wi[:, :o].contiguous(), cast_to, dtype)
+    checks = [(whole, block)]
+    cp = _cp_operands(2, 16, 16, 8, 64, dtype, cuda)[:8]
+    checks.append((sc._launch_cp_fwd(*cp),
+                   sc._launch_cp_fwd(*cp[:4], cp[4][:o].contiguous(), cp[5][:o].contiguous(),
+                                     *cp[6:])))
+    lr, li, lwr, lwi = _ls_operands(2, 16, 16, 8, 12, dtype, cuda)[:4]
+    checks.append((sc._launch_ls_fwd(lr, li, lwr, lwi),
+                   sc._launch_ls_fwd(lr, li, lwr[:, :o].contiguous(), lwi[:, :o].contiguous())))
+    torch.cuda.synchronize()
+    for kernel, (w, b) in zip(("dense_fwd", "cp_fwd", "ls_fwd"), checks, strict=True):
+        assert b[0].shape[1] == o and _same_slice(w, b, o), kernel
+        assert not _same_slice(w, [torch.zeros_like(t) for t in b], o), kernel

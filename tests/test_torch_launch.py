@@ -192,8 +192,9 @@ def test_fno_records_and_launch_plans():
     assert two["spectral_channels"].startswith("whole")
     narrow = run_fno_cell("fno-smoke", False, mesh_shape=(2, 4), verbose=False,
                           cell=dict(cell, batch=4))
-    assert narrow["spectral_channels"] == "replicated over tp"
+    assert narrow["spectral_channels"] == "sharded over tp"
     assert narrow["batch_axes"] == ["data"]
+    _assert_split(narrow, "staged", B=2, H=FNO_DARCY_SMOKE.hidden_channels)
     tf = run_fno_cell("tfno-smoke", False, mesh_shape=(2, 4), verbose=False,
                       cell=dict(kind="fno", cfg=TFNO_NS_SMOKE, res=(16, 16), batch=8))
     assert tf["spectral_kernel"]["kind"] == "cp"
@@ -201,6 +202,29 @@ def test_fno_records_and_launch_plans():
                       cell=dict(kind="sfno", cfg=SFNO_SWE_SMOKE,
                                 res=(SFNO_SWE_SMOKE.nlat, SFNO_SWE_SMOKE.nlon), batch=8))
     assert sf["spectral_kernel"]["kind"] == "l_shared"
+    for rec in (tf, sf):
+        assert rec["spectral_channels"].startswith("whole")
+        assert set(rec["collective_bytes_by_kind"]) == {"all-reduce"}
+    # the TFNO and SFNO cells at a batch that does not cover (2, 4)
+    tf4 = run_fno_cell("tfno-smoke", False, mesh_shape=(2, 4), verbose=False,
+                       cell=dict(kind="fno", cfg=TFNO_NS_SMOKE, res=(16, 16), batch=4))
+    _assert_split(tf4, "cp", B=2, H=TFNO_NS_SMOKE.hidden_channels)
+    sf2 = run_fno_cell("sfno-smoke", False, mesh_shape=(2, 4), verbose=False,
+                       cell=dict(kind="sfno", cfg=SFNO_SWE_SMOKE,
+                                 res=(SFNO_SWE_SMOKE.nlat, SFNO_SWE_SMOKE.nlon), batch=2))
+    _assert_split(sf2, "l_shared", B=1, H=SFNO_SWE_SMOKE.hidden_channels)
+
+
+def _assert_split(rec, kind, B, H):
+    """A record of a step whose channels split over the 4 ranks of tp: the
+    rank's plan at (B, H, H / 4), the spectra's all-gathers and their
+    reduce-scatters."""
+    assert rec["status"] == "ok" and rec["spectral_channels"] == "sharded over tp"
+    assert rec["batch_axes"] == ["data"]
+    plan = rec["spectral_kernel"]
+    assert (plan["kind"], plan["B"], plan["I"], plan["O"]) == (kind, B, H, H // 4)
+    by_kind = rec["collective_bytes_by_kind"]
+    assert by_kind["all-gather"] > 0 and by_kind["reduce-scatter"] > 0
 
 
 def test_spectral_kernel_plan_at_the_darcy_cell():
