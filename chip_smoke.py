@@ -293,13 +293,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``whisper-large-v3``'s ``train_4k`` on the 16x16 mesh, and
    ``repro_torch.launch.dryrun_fno --mesh both`` (all four FNO cells): one line
    a cell with its status, seconds and roofline (derived counts, not
-   timings); a cell that is not ok fails the run, and so does an FNO cell
+   timings), a ``train_4k`` line also with the parent commit's peak; a cell
+   that is not ok fails the run, and so does a ``train_4k`` peak that does
+   not fit an H100 and an FNO cell
    whose channel layout is not ``DIST_FNO_CHANNELS``'s (``tfno-ns-hr`` and
    ``sfno-swe`` "sharded over tp", the others "whole").  (f)
    ``repro_torch.launch.parity`` on four gloo ranks on the same side cores: the
-   MoE and Whisper train steps on a 2x2 mesh against one device (loss within
-   1e-5 relative, every parameter within 1e-5 relative L2), ``cross_entropy``
-   on vocabulary-sharded logits, and the ``fno-darcy``, ``tfno-ns`` and
+   smollm-360m, MoE and Whisper train steps on a 2x2 mesh against one device
+   (loss within 1e-5 relative, every parameter and every gradient within 1e-5
+   relative L2, each gradient in its parameter's placements),
+   ``cross_entropy`` on sequence- and vocabulary-sharded logits (an uneven
+   vocabulary, labels on the shards' edges, the vision stub's offset), and the
+   ``fno-darcy``, ``tfno-ns`` and
    ``sfno-swe`` smoke steps with their channels split over "model" (3 steps,
    ``full``, ``mixed_fno_bf16`` and ``mixed_fno_bf16`` with the 2σ-clip
    stabiliser), on this machine's torch.  (g)
@@ -448,8 +453,16 @@ DIST_FNO_CHANNELS = {"tfno-ns": "whole", "fno-darcy": "whole",
 #: the dry-runs start with the script (niced, on the host's CPU cores that
 #: the timed phases leave them) and must be done this long after their start
 DIST_DRYRUN_TIMEOUT = 900
+#: 13(e): each ``train_4k`` record's peak a device (bytes) at the parent
+#: commit, where the loss's gold-logit gather, the head's product and every
+#: weight gradient were whole on every rank (torch 2.11); a record whose
+#: peak does not fit an H100 fails the run
+DIST_TRAIN_PEAK_BEFORE = {("smollm-360m", "16x16"): 232753755276,
+                          ("smollm-360m", "2x16x16"): 316233495692,
+                          ("granite-moe-3b-a800m", "16x16"): 235296645520,
+                          ("whisper-large-v3", "16x16"): 60753034656}
 #: phase 13(f): the four-rank parity checks and their time limit
-DIST_PARITY_ARCHS = ("granite-moe-3b-a800m", "whisper-large-v3")
+DIST_PARITY_ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "whisper-large-v3")
 DIST_PARITY_FNO = ("fno-darcy", "tfno-ns", "sfno-swe")
 DIST_PARITY_FNO_POLICIES = ("full", "mixed_fno_bf16", "mixed_fno_bf16+sigma_clip")
 DIST_PARITY = ("repro_torch.launch.parity", *(a for arch in DIST_PARITY_ARCHS
@@ -3880,9 +3893,16 @@ def finish_dryruns(procs):
                  roofline=r.get("roofline"),
                  collective_bytes_by_kind=r.get("collective_bytes_by_kind"),
                  spectral_kernel=r.get("spectral_kernel"),
-                 spectral_channels=r.get("spectral_channels"), error=r.get("error"))
+                 spectral_channels=r.get("spectral_channels"), error=r.get("error"),
+                 **({"peak_gb_parent": DIST_TRAIN_PEAK_BEFORE[(r["arch"], r["mesh"])] / 1e9}
+                    if (r["arch"], r["mesh"]) in DIST_TRAIN_PEAK_BEFORE
+                    and r["shape"] == "train_4k" else {}))
         if any(r["status"] != "ok" for r in recs):
             fail(f"the {name} dry-run has a cell that is not ok")
+        over = [(r["arch"], r["mesh"], r["memory_analysis"]["peak_bytes"]) for r in recs
+                if r["shape"] == "train_4k" and not r["memory_analysis"]["fits_hbm"]]
+        if over:
+            fail(f"the {name} dry-run's train_4k peak does not fit an H100: {over}")
         if name == "dryrun_fno":
             got = {(r["arch"], r["mesh"]): r.get("spectral_channels", "") for r in recs}
             want = {(a, m): c for a, c in DIST_FNO_CHANNELS.items() for m in ("16x16", "2x16x16")}

@@ -19,6 +19,12 @@ result is unfolded on the local shards the same way.  Where no mesh dim
 shards a folded dim other than the first, and off a mesh, this is
 ``torch.matmul`` itself.
 
+:func:`rows_matmul` is the LM head's product: each rank multiplies its own
+rows by the weight made whole, so the logits come out in the rows' layout
+with every column, and the weight's gradient is summed back to the
+weight's own layout in f32 (the reference's head, whose logits GSPMD
+constrains to the rows' layout).
+
 :func:`take_rows` is ``table[idx]``.  Its backward is ``index_put``, whose
 rule in torch 2.11 maps a cotangent sharded on an index dim to a negative
 dim and fails; on a mesh of more than one rank the gather runs as
@@ -173,6 +179,66 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if fa is not None and fb is not None:
             return _unfold(torch.matmul(fa, fb), a, k)
     return pin(torch.matmul(a, b))
+
+
+def rows_matmul(a: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``matmul(a, w.to(dtype).t())`` for a (..., K) activation and a (N, K)
+    weight, with the product in a's row layout: on a mesh of more than one
+    rank where no mesh dim shards a's last dim, each rank multiplies its
+    own rows by ``w`` made whole (:class:`_RowsMatmul`).  Elsewhere it is
+    that expression itself."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def rows_only(p):
+        return isinstance(p, Replicate) or (type(p) is Shard and p.dim % a.ndim < a.ndim - 1)
+
+    if (isinstance(a, DTensor) and isinstance(w, DTensor) and a.device_mesh.size() > 1
+            and all(rows_only(p) for p in a.placements)):
+        return _RowsMatmul.apply(a, w, dtype)
+    return matmul(a, w.to(dtype).t())
+
+
+class _RowsMatmul(torch.autograd.Function):
+    """The forward all-gathers ``w`` at ``dtype`` and multiplies the rank's
+    rows by it: the product is a's rows by all N columns, placed as a.  The
+    backward keeps the rows' cotangent on the rank and sums w's, in f32,
+    over the mesh dims that shard a's rows, into w's own layout (a
+    reduce-scatter where w is sharded, an all-reduce where it is
+    replicated)."""
+
+    @staticmethod
+    def forward(ctx, a, w, dtype):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = a.device_mesh
+        whole = w.to(dtype).redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+        rows = a.to_local()
+        ctx.save_for_backward(rows, whole)
+        ctx.a_meta = (tuple(a.placements), a.shape, a.stride())
+        ctx.w_meta = (tuple(w.placements), w.shape, w.dtype)
+        shape = tuple(a.shape[:-1]) + (w.shape[0],)
+        return DTensor.from_local(torch.matmul(rows, whole.t()), mesh, a.placements,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=_contiguous(shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        rows, whole = ctx.saved_tensors
+        a_place, a_shape, a_stride = ctx.a_meta
+        w_place, w_shape, w_dtype = ctx.w_meta
+        mesh = g.device_mesh
+        if tuple(g.placements) != a_place:
+            g = g.redistribute(mesh, a_place)
+        gl = g.to_local().to(whole.dtype)
+        da = DTensor.from_local(torch.matmul(gl, whole), mesh, a_place, run_check=False,
+                                shape=a_shape, stride=a_stride)
+        dw = torch.matmul(gl.reshape(-1, gl.shape[-1]).t(), rows.reshape(-1, rows.shape[-1]))
+        partial = [Replicate() if isinstance(p, Replicate) else Partial() for p in a_place]
+        dw = DTensor.from_local(dw.to(torch.float32), mesh, partial, run_check=False,
+                                shape=w_shape, stride=_contiguous(w_shape))
+        return da, dw.redistribute(mesh, w_place).to(w_dtype), None
 
 
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

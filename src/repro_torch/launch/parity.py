@@ -53,7 +53,8 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def train_batch(cfg, B: int, S: int, seed: int = 0) -> Dict[str, torch.Tensor]:
     """A train batch of the step's inputs: token ids (and labels) from the
-    token stream; Whisper's frames standard normals in bf16."""
+    token stream; Whisper's frames and the vision stub's patch embeddings
+    standard normals in bf16."""
     from repro_torch.data.tokens import lm_inputs
 
     if cfg.encoder_decoder:
@@ -62,6 +63,12 @@ def train_batch(cfg, B: int, S: int, seed: int = 0) -> Dict[str, torch.Tensor]:
         return {"frames": torch.randn(B, S, cfg.d_model, generator=g).to(torch.bfloat16),
                 "dec_tokens": dec["tokens"].to(torch.int32),
                 "dec_labels": dec["labels"].to(torch.int32)}
+    if cfg.frontend == "vision_stub":
+        g = torch.Generator().manual_seed(seed)
+        return {**{k: v.to(torch.int32) for k, v in
+                   lm_inputs(seed, 0, B, S - cfg.n_patches, cfg.vocab).items()},
+                "patch_embeds": torch.randn(B, cfg.n_patches, cfg.d_model,
+                                            generator=g).to(torch.bfloat16)}
     return {k: v.to(torch.int32) for k, v in lm_inputs(seed, 0, B, S, cfg.vocab).items()}
 
 
@@ -75,8 +82,11 @@ def init_params(cfg, seed: int = 0) -> torch.nn.Module:
 
 def train_parity(mesh, arch: str, policy: str = "full", B: int = 4, S: int = 16) -> dict:
     """One train step of ``arch``'s smoke config on ``mesh`` against one
-    device: the losses, their relative difference, and the largest
-    relative L2 of a parameter after the step (and its name)."""
+    device: the losses, their relative difference, the largest relative L2
+    of a parameter after the step and of a gradient of the step (and their
+    names), and whether each gradient on the mesh has its parameter's
+    placements.  AdamW's first step moves each element by about lr times
+    its gradient's sign, so the gradients are held apart from it."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.configs import ShapeConfig, get_config
@@ -90,23 +100,37 @@ def train_parity(mesh, arch: str, policy: str = "full", B: int = 4, S: int = 16)
     bundle = build_train_step(cfg, ShapeConfig("parity", S, B, "train"), get_policy(policy),
                               AdamW(lr=1e-3))
     batch = train_batch(cfg, B, S)
+    probe = GradCapture()
+    grad_step = build_train_step(cfg, ShapeConfig("parity", S, B, "train"), get_policy(policy),
+                                 probe).step_fn
     p0 = init_params(cfg)
     s0 = AdamW(lr=1e-3).init(dict(p0.named_parameters()))
     with use_mesh(mesh if cfg.moe_experts else None):
+        grad_step(p0, (), batch)
+        g0 = probe.grads
         p0, s0, loss0 = bundle.step_fn(p0, s0, batch)
     p1 = init_params(cfg)
     distribute(p1, mesh, lm_param_specs(p1, mesh))
     with use_mesh(mesh), implicit_replication():
-        s1 = AdamW(lr=1e-3).init(dict(p1.named_parameters()))
-        p1, s1, loss1 = bundle.step_fn(p1, s1, distribute(batch, mesh, batch_specs(batch, mesh)))
+        dbatch = distribute(batch, mesh, batch_specs(batch, mesh))
+        grad_step(p1, (), dbatch)
+        n1 = dict(p1.named_parameters())
+        placed = all(tuple(g.placements) == tuple(n1[k].placements)
+                     for k, g in probe.grads.items())
+        gerrs = {k: _rel(g.full_tensor(), g0[k]) for k, g in probe.grads.items()}
+        s1 = AdamW(lr=1e-3).init(n1)
+        p1, s1, loss1 = bundle.step_fn(p1, s1, dbatch)
         loss1 = loss1.full_tensor()
     n0 = dict(p0.named_parameters())
     errs = {k: _rel(p.full_tensor(), n0[k]) for k, p in p1.named_parameters()}
     worst = max(errs, key=errs.get)
+    gworst = max(gerrs, key=gerrs.get)
     loss_rel = abs(float(loss1) - float(loss0)) / abs(float(loss0))
     return {"check": "train_step", "arch": arch, "policy": policy, "loss": float(loss0),
             "loss_mesh": float(loss1), "loss_rel": loss_rel, "param_rel_max": errs[worst],
-            "worst": worst, "ok": loss_rel <= TOL and errs[worst] <= TOL}
+            "worst": worst, "grad_rel_max": gerrs[gworst], "grad_worst": gworst,
+            "grads_placed": placed,
+            "ok": loss_rel <= TOL and errs[worst] <= TOL and gerrs[gworst] <= TOL and placed}
 
 
 #: the FNO-family smoke cells of ``--fno``: (model kind, config name)
@@ -236,27 +260,51 @@ def fno_parity(mesh, name: str, policy: str = "full", B: int = 2,
             "ok": split is not None and all(e <= lim for e, lim in pairs.values())}
 
 
-def cross_entropy_parity(mesh, B: int = 4, S: int = 8, V: int = 96) -> dict:
-    """``cross_entropy`` and its gradient on logits sharded (batch over
-    "data", vocabulary over "model") against plain logits."""
+#: ``cross_entropy_parity``'s cases: (logits' placements by tensor dim a mesh
+#: dim shards, None for Replicate; V; first scored position; labels on the
+#: vocabulary shards' first and last columns)
+CE_CASES = {
+    "seq_sharded": ((0, 1), 96, 0, False),          # the model's layout
+    "vocab_sharded": ((0, 2), 96, 0, False),        # as the reference's V-sharded CE
+    "vocab_uneven": ((0, 2), 97, 0, False),
+    "vocab_shard_edges": ((0, 2), 97, 0, True),
+    "vision_offset": ((0, 1), 96, 5, False),        # one rank's sequence block all patches
+}
+
+
+def cross_entropy_parity(mesh, B: int = 4, S: int = 8) -> dict:
+    """``cross_entropy`` and its gradient on DTensor logits against plain
+    logits, in each of ``CE_CASES``: the loss's and the gradient's relative
+    errors (``loss_rel:<case>``, ``grad_rel:<case>`` and the largest of
+    each), each within 1e-6."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from repro_torch.train.losses import cross_entropy
 
-    g = torch.Generator().manual_seed(1)
-    logits = torch.randn(B, S, V, generator=g)
-    labels = torch.randint(0, V, (B, S), generator=g)
-    x0 = logits.clone().requires_grad_()
-    l0 = cross_entropy(x0, labels)
-    (g0,) = torch.autograd.grad(l0, x0)
-    x1 = distribute_tensor(logits, mesh, [Shard(0), Shard(2)]).requires_grad_()
-    lab = distribute_tensor(labels, mesh, [Shard(0), Replicate()])
-    l1 = cross_entropy(x1, lab)
-    (g1,) = torch.autograd.grad(l1, x1)
-    loss_rel = abs(float(l1.detach().full_tensor()) - float(l0.detach())) / abs(float(l0.detach()))
-    grad_rel = _rel(g1.full_tensor(), g0)
-    return {"check": "cross_entropy", "loss_rel": loss_rel, "grad_rel": grad_rel,
-            "ok": loss_rel <= 1e-6 and grad_rel <= 1e-6}
+    rec = {"check": "cross_entropy"}
+    for name, (dims, V, start, edges) in CE_CASES.items():
+        g = torch.Generator().manual_seed(1)
+        logits = 3 * torch.randn(B, S, V, generator=g)
+        labels = torch.randint(0, V, (B, S - start), generator=g)
+        place = [Replicate() if d is None else Shard(d) for d in dims]
+        if edges:       # every label on the first or last column of a vocabulary shard
+            n = -(-V // mesh.size(1))                    # DTensor's chunks: ceil-sized
+            cols = sorted({c for i in range(0, V, n) for c in (i, min(i + n, V) - 1)})
+            labels = torch.tensor(cols)[torch.arange(labels.numel()) % len(cols)].view_as(labels)
+        x0 = logits.clone().requires_grad_()
+        l0 = cross_entropy(x0, labels, start=start)
+        (g0,) = torch.autograd.grad(l0, x0)
+        x1 = distribute_tensor(logits, mesh, place).requires_grad_()
+        lab = distribute_tensor(labels, mesh, [Shard(0), Replicate()])
+        l1 = cross_entropy(x1, lab, start=start)
+        (g1,) = torch.autograd.grad(l1, x1)
+        rec[f"loss_rel:{name}"] = (abs(float(l1.detach().full_tensor()) - float(l0.detach()))
+                                   / abs(float(l0.detach())))
+        rec[f"grad_rel:{name}"] = _rel(g1.full_tensor(), g0)
+    rec["loss_rel"] = max(v for k, v in rec.items() if k.startswith("loss_rel:"))
+    rec["grad_rel"] = max(v for k, v in rec.items() if k.startswith("grad_rel:"))
+    rec["ok"] = rec["loss_rel"] <= 1e-6 and rec["grad_rel"] <= 1e-6
+    return rec
 
 
 def _rank(rank: int, port: int, archs, policy: str, fnos=()) -> None:

@@ -18,6 +18,7 @@ tensors placed by :func:`bundle_shardings`; a real run passes real ones.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -79,8 +80,7 @@ def _loss_fn(cfg: LMArchConfig, policy: PrecisionPolicy):
         def loss(params, batch):
             logits, aux = lm_forward(params, batch["tokens"], cfg, policy,
                                      patch_embeds=batch["patch_embeds"], remat=True)
-            logits = logits[:, cfg.n_patches:]
-            return cross_entropy(logits, batch["labels"]) + 0.01 * aux
+            return cross_entropy(logits, batch["labels"], start=cfg.n_patches) + 0.01 * aux
         return loss
 
     def loss(params, batch):
@@ -125,6 +125,30 @@ def _grads(loss: torch.Tensor, named: Dict[str, torch.Tensor]) -> Dict[str, torc
             for (k, p), g in zip(named.items(), gs, strict=True)}
 
 
+def _placed_grads(loss: torch.Tensor, named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """:func:`_grads`, each gradient of a parameter on a mesh of more than
+    one rank brought to the parameter's placements as the backward
+    produces it (a hook on the parameter): a reduce-scatter where the
+    parameter is sharded, an all-reduce where it is replicated, summed in
+    f32.  No rank then holds a whole weight's gradient, nor all of them at
+    once.  Elsewhere this is :func:`_grads`."""
+    from torch.distributed.tensor import DTensor
+
+    handles = [p.register_hook(functools.partial(_to_placements, p)) for p in named.values()
+               if isinstance(p, DTensor) and p.device_mesh.size() > 1 and p.requires_grad]
+    try:
+        return _grads(loss, named)
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _to_placements(p, g):
+    if tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.to(torch.float32).redistribute(p.device_mesh, p.placements).to(g.dtype)
+
+
 @torch.no_grad()
 def _assign(params, new: Dict[str, torch.Tensor]) -> None:
     for k, p in _named(params).items():
@@ -154,7 +178,7 @@ def build_train_step(cfg: LMArchConfig, shape: ShapeConfig,
                 loss = loss_fn(params, batch)
         else:
             loss = loss_fn(params, batch)
-        grads = _grads(loss, named)
+        grads = _placed_grads(loss, named)
         new_params, new_opt = opt.update(grads, opt_state, {k: p.detach() for k, p in named.items()})
         _assign(params, new_params)
         if telemetry:

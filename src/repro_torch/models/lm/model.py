@@ -38,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LMArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist.constrain import constrain, constrain_bhsd, constrain_bsd, pin
-from repro_torch.dist.local import matmul
+from repro_torch.dist.local import matmul, rows_matmul
 from repro_torch.dist.sharding import write_rows
 from repro_torch.precision import FULL, PrecisionPolicy
 
@@ -305,9 +305,12 @@ def _dtypes(policy: PrecisionPolicy):
             policy.at("lm/proj_out").compute_dtype)
 
 
+def _unembed(params: LM) -> torch.Tensor:
+    return params.unembed if hasattr(params, "unembed") else params.embed
+
+
 def _head(params: LM, h: torch.Tensor, head_dtype) -> torch.Tensor:
-    unembed = params.unembed if hasattr(params, "unembed") else params.embed
-    return matmul(h.to(head_dtype), unembed.to(head_dtype).t())
+    return matmul(h.to(head_dtype), _unembed(params).to(head_dtype).t())
 
 
 def _block(lp, h, positions, window, cfg, policy, dtype, router_dtype, cs=None):
@@ -364,7 +367,9 @@ def lm_forward(
         if a is not None:
             aux = aux + a
     h = constrain_bsd(rmsnorm(h, params.final_norm, cfg.norm_eps))
-    logits = constrain(_head(params, h, head_dtype), "dp", "seq", None)  # S-sharded CE
+    # the logits in h's (batch, sequence) layout, V whole: an S-sharded CE
+    logits = constrain(rows_matmul(h.to(head_dtype), _unembed(params), head_dtype),
+                       "dp", "seq", None)
     return logits, aux
 
 

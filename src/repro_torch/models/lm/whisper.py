@@ -23,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LMArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist.constrain import constrain_bhsd, constrain_bsd
-from repro_torch.dist.local import matmul
+from repro_torch.dist.local import matmul, rows_matmul
 from repro_torch.dist.sharding import write_rows
 from repro_torch.precision import FULL
 
@@ -175,7 +175,7 @@ def whisper_forward(params: Whisper, frames: torch.Tensor, dec_tokens: torch.Ten
         args = (lp, h, memory, dpos, epos, cfg, dtype, dcs, ecs)
         h = checkpoint(_dec_block, *args, use_reentrant=False) if remat else _dec_block(*args)
     h = rmsnorm(h, params.dec_norm, cfg.norm_eps)
-    return matmul(h.to(head_dt), params.embed.to(head_dt).t())
+    return rows_matmul(h.to(head_dt), params.embed, head_dt)
 
 
 @torch.no_grad()
