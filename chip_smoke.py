@@ -289,8 +289,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    half from the end of phase 2 on): smollm-360m's ``decode_32k``,
    ``prefill_32k`` and ``train_4k`` on both production meshes (the
    sequence-parallel cells the card machine's torch refused before the
-   port's local folds), ``granite-moe-3b-a800m``'s and
-   ``whisper-large-v3``'s ``train_4k`` on the 16x16 mesh, and
+   port's local folds), ``granite-moe-3b-a800m``'s, ``whisper-large-v3``'s
+   and ``granite-34b``'s ``train_4k`` on the 16x16 mesh, and
    ``repro_torch.launch.dryrun_fno --mesh both`` (all four FNO cells): one line
    a cell with its status, seconds and roofline (derived counts, not
    timings), a ``train_4k`` line also with the parent commit's peak; a cell
@@ -307,7 +307,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``fno-darcy``, ``tfno-ns`` and
    ``sfno-swe`` smoke steps with their channels split over "model" (3 steps,
    ``full``, ``mixed_fno_bf16`` and ``mixed_fno_bf16`` with the 2σ-clip
-   stabiliser), on this machine's torch.  (g)
+   stabiliser), ``blocked_attention`` in each of ``parity.ATTENTION_CASES``
+   (output and q/k/v gradients within 1e-6 relative L2 of plain tensors),
+   and granite-34b's and smollm-360m's train steps at 1024 tokens (the
+   blocked path), on this machine's torch.  (g)
    ``repro_torch.launch.rank_step`` in a subprocess (a fake world of 256
    ranks, the 16x16 mesh on ``cuda``): rank 0 of ``tfno-ns-hr`` and of
    ``sfno-swe`` at full width, 3 ``mixed_fno_bf16`` steps each with 4 of the
@@ -443,7 +446,8 @@ DIST_DRYRUNS = {
        for shape in ("prefill_32k", "train_4k") for mesh in ("single", "multi")},
     **{f"dryrun_{name}_train": ("repro_torch.launch.dryrun", "--arch", arch, "--shape", "train_4k",
                                 "--mesh", "single")
-       for name, arch in (("moe", "granite-moe-3b-a800m"), ("whisper", "whisper-large-v3"))},
+       for name, arch in (("moe", "granite-moe-3b-a800m"), ("whisper", "whisper-large-v3"),
+                          ("granite34b", "granite-34b"))},
     "dryrun_fno": ("repro_torch.launch.dryrun_fno", "--mesh", "both"),
 }
 #: 13(e): what each FNO cell's record reads on both meshes (the batch covers
@@ -454,20 +458,25 @@ DIST_FNO_CHANNELS = {"tfno-ns": "whole", "fno-darcy": "whole",
 #: the timed phases leave them) and must be done this long after their start
 DIST_DRYRUN_TIMEOUT = 900
 #: 13(e): each ``train_4k`` record's peak a device (bytes) at the parent
-#: commit, where the loss's gold-logit gather, the head's product and every
-#: weight gradient were whole on every rank (torch 2.11); a record whose
-#: peak does not fit an H100 fails the run
-DIST_TRAIN_PEAK_BEFORE = {("smollm-360m", "16x16"): 232753755276,
-                          ("smollm-360m", "2x16x16"): 316233495692,
-                          ("granite-moe-3b-a800m", "16x16"): 235296645520,
-                          ("whisper-large-v3", "16x16"): 60753034656}
+#: commit, where ``blocked_attention``'s carry was global-shape on every rank,
+#: its queries whole over tp where the KV heads do not divide it, and AdamW
+#: held a second copy of the state (torch 2.11); a record whose peak does not
+#: fit an H100 fails the run
+DIST_TRAIN_PEAK_BEFORE = {("smollm-360m", "16x16"): 12470971660,
+                          ("smollm-360m", "2x16x16"): 8993238284,
+                          ("granite-moe-3b-a800m", "16x16"): 23454770992,
+                          ("whisper-large-v3", "16x16"): 53201690016,
+                          ("granite-34b", "16x16"): 95378448396}
 #: phase 13(f): the four-rank parity checks and their time limit
 DIST_PARITY_ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "whisper-large-v3")
 DIST_PARITY_FNO = ("fno-darcy", "tfno-ns", "sfno-swe")
 DIST_PARITY_FNO_POLICIES = ("full", "mixed_fno_bf16", "mixed_fno_bf16+sigma_clip")
+#: 13(f): the train steps also held at 1024 tokens (``blocked_attention``)
+DIST_PARITY_BLOCKED = ("granite-34b", "smollm-360m")
 DIST_PARITY = ("repro_torch.launch.parity", *(a for arch in DIST_PARITY_ARCHS
                                               for a in ("--arch", arch)),
-               *(a for cell in DIST_PARITY_FNO for a in ("--fno", cell)))
+               *(a for cell in DIST_PARITY_FNO for a in ("--fno", cell)),
+               *(a for arch in DIST_PARITY_BLOCKED for a in ("--blocked", arch)), "--attention")
 DIST_PARITY_TIMEOUT = 400
 #: 13(g): rank 0 of each cell whose channels split, on the 16x16 mesh at full
 #: width (``repro_torch.launch.rank_step``, a subprocess: phase 13's NCCL world
@@ -3921,10 +3930,12 @@ def finish_parity(procs):
     for r in recs:
         emit("dist_parity", torch=torch.__version__, ranks=4, mesh="2x2", **r)
     emit("dist_parity_run", rc=rc, seconds=seconds, checks=len(recs))
-    want = {(r.get("check"), r.get("arch") or r.get("cell"), r.get("policy"))
+    want = {(r.get("check"), r.get("arch") or r.get("cell"), r.get("policy"), r.get("seq"))
             for r in recs if r.get("ok")}
-    need = ({("cross_entropy", None, None)} | {("train_step", a, "full") for a in DIST_PARITY_ARCHS}
-            | {("fno_step", c, p) for c in DIST_PARITY_FNO for p in DIST_PARITY_FNO_POLICIES})
+    need = ({("cross_entropy", None, None, None), ("attention", None, None, None)}
+            | {("train_step", a, "full", 16) for a in DIST_PARITY_ARCHS}
+            | {("train_step", a, "full", 1024) for a in DIST_PARITY_BLOCKED}
+            | {("fno_step", c, p, None) for c in DIST_PARITY_FNO for p in DIST_PARITY_FNO_POLICIES})
     if rc != 0 or not need <= want:
         fail(f"the four-rank parity checks failed (exit {rc}): {text[-2000:]}")
 

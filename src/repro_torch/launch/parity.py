@@ -7,7 +7,11 @@ parameters, optimizer state and batch placed by the rule tables, and,
 against it, the same step on plain tensors in the same process (one
 device).  An MoE arch runs the one-device step with the mesh ambient, so
 both dispatch in the mesh's dp = 2 groups.  ``cross_entropy`` is also
-held on logits whose vocabulary is sharded over "model".
+held on logits whose vocabulary is sharded over "model".  ``--blocked
+ARCH`` runs the train step at ``BLOCKED_SEQ`` = 1024 tokens, where
+attention is ``blocked_attention``'s; ``--attention`` holds
+``blocked_attention`` and its q/k/v gradients in each of
+``ATTENTION_CASES`` within 1e-6 relative L2 of plain tensors.
 
 ``--fno NAME`` (``fno-darcy``, ``tfno-ns``, ``sfno-swe``) runs 3 steps of
 ``build_fno_train_step`` at the config's smoke size with a batch of 2,
@@ -28,6 +32,7 @@ Like the dry-runs this is a check of the distribution layer, and it runs
 on the CPU whatever the machine has:
 
     PYTHONPATH=src python -m repro_torch.launch.parity --arch granite-moe-3b-a800m --arch whisper-large-v3
+    PYTHONPATH=src python -m repro_torch.launch.parity --attention --blocked granite-34b --blocked smollm-360m
     PYTHONPATH=src python -m repro_torch.launch.parity --fno fno-darcy --fno tfno-ns --fno sfno-swe
 """
 from __future__ import annotations
@@ -37,8 +42,9 @@ import json
 import math
 import os
 import socket
-from typing import Dict
+from typing import Dict, NamedTuple
 
+import numpy as np
 import torch
 
 #: loss: relative difference; parameters: relative L2 of each leaf after the step
@@ -126,7 +132,7 @@ def train_parity(mesh, arch: str, policy: str = "full", B: int = 4, S: int = 16)
     worst = max(errs, key=errs.get)
     gworst = max(gerrs, key=gerrs.get)
     loss_rel = abs(float(loss1) - float(loss0)) / abs(float(loss0))
-    return {"check": "train_step", "arch": arch, "policy": policy, "loss": float(loss0),
+    return {"check": "train_step", "arch": arch, "policy": policy, "seq": S, "loss": float(loss0),
             "loss_mesh": float(loss1), "loss_rel": loss_rel, "param_rel_max": errs[worst],
             "worst": worst, "grad_rel_max": gerrs[gworst], "grad_worst": gworst,
             "grads_placed": placed,
@@ -145,6 +151,10 @@ FNO_POLICIES = ("full", "mixed_fno_bf16", SIGMA_CLIP)
 MIXED_SHARE = 0.25
 
 
+#: ``--blocked``'s sequence length: attention runs ``blocked_attention``
+BLOCKED_SEQ = 1024
+
+
 class GradCapture:
     """An optimizer with AdamW's interface that keeps the gradients the step
     hands it and leaves the parameters as they are."""
@@ -155,6 +165,10 @@ class GradCapture:
     def update(self, grads, state, params):
         self.grads = grads
         return params, state
+
+    def update_(self, grads, state, params):
+        self.grads = grads
+        return state
 
 
 def fno_model(name: str, seed: int = 0):
@@ -307,7 +321,90 @@ def cross_entropy_parity(mesh, B: int = 4, S: int = 8) -> dict:
     return rec
 
 
-def _rank(rank: int, port: int, archs, policy: str, fnos=()) -> None:
+class AttentionCase(NamedTuple):
+    """One ``blocked_attention`` call: batch, query and KV heads, sequence,
+    q/k and v head dims, window and query chunk (0: the mesh's default)."""
+    B: int
+    H: int
+    Hk: int
+    S: int
+    D: int
+    Dv: int
+    window: int
+    q_chunk: int = 0
+
+
+#: ``attention_parity``'s cases on a (2, 2) mesh: the heads layout (H % 2 == 0)
+#: with one KV head, KV heads sharded as the queries' (Hk = H, and GQA), and
+#: one KV head a query head (Hk = 3); the chunk layout with one KV head and a
+#: window, Hk = H with Dv != D, padded queries, chunks that do not split over
+#: the mesh (the queries replicated, as the constraint leaves them) and a
+#: batch of one
+ATTENTION_CASES = {
+    "heads_mqa": AttentionCase(2, 4, 1, 1000, 16, 16, 2 ** 30),
+    "heads_kv_sharded": AttentionCase(2, 4, 4, 1000, 16, 16, 2 ** 30),
+    "heads_gqa_sharded": AttentionCase(2, 4, 2, 1000, 16, 16, 300),
+    "heads_repeat": AttentionCase(2, 6, 3, 1000, 16, 16, 2 ** 30),
+    "chunks_mqa_window": AttentionCase(2, 3, 1, 1000, 16, 16, 300),
+    "chunks_mha_dv": AttentionCase(2, 3, 3, 1000, 24, 16, 2 ** 30),
+    "chunks_padded": AttentionCase(2, 5, 1, 1000, 16, 16, 2 ** 30, 84),
+    "chunks_replicated": AttentionCase(2, 3, 1, 1000, 16, 16, 300, 120),
+    "batch_of_one": AttentionCase(1, 4, 1, 1000, 16, 16, 2 ** 30),
+}
+
+
+def attention_inputs(case: AttentionCase, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Standard normal q (B, H, S, D), k (B, Hk, S, D), v (B, Hk, S, Dv) and
+    the output's cotangent (B, H, S, Dv), f32."""
+    rng = np.random.default_rng(seed)
+    B, H, Hk, S = case.B, case.H, case.Hk, case.S
+    return {name: rng.standard_normal(shape).astype(np.float32) for name, shape in
+            (("q", (B, H, S, case.D)), ("k", (B, Hk, S, case.D)), ("v", (B, Hk, S, case.Dv)),
+             ("ct", (B, H, S, case.Dv)))}
+
+
+def attention_parity(mesh, out_dir=None) -> dict:
+    """``blocked_attention`` on the mesh's DTensors, placed as the model
+    places them (``constrain_bhsd``), against plain tensors in each of
+    ``ATTENTION_CASES``: the output's and the q/k/v gradients' relative L2
+    (``out_rel:<case>``, ``grad_rel:<case>`` and the largest of each),
+    each within 1e-6, and the output's placements.  ``out_dir``: rank 0
+    writes each case's output there (``attention_<case>.npy``)."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.dist import use_mesh
+    from repro_torch.dist.constrain import constrain_bhsd
+    from repro_torch.models.lm.common import blocked_attention
+
+    rec = {"check": "attention"}
+    for name, c in ATTENTION_CASES.items():
+        x = {k: torch.from_numpy(a) for k, a in attention_inputs(c).items()}
+        pos = torch.arange(c.S)
+        plain = [x[n].clone().requires_grad_() for n in ("q", "k", "v")]
+        out0 = blocked_attention(*plain, pos, pos, c.window, c.q_chunk)
+        grads0 = torch.autograd.grad(out0, plain, x["ct"])
+        whole = [distribute_tensor(x[n], mesh, [Replicate()] * mesh.ndim).requires_grad_()
+                 for n in ("q", "k", "v")]
+        with use_mesh(mesh):
+            out1 = blocked_attention(*(constrain_bhsd(t) for t in whole), pos, pos, c.window,
+                                     c.q_chunk)
+            grads1 = torch.autograd.grad(
+                out1, whole, distribute_tensor(x["ct"], mesh, out1.placements))
+        full = out1.detach().full_tensor()
+        rec[f"out_rel:{name}"] = _rel(full, out0)
+        rec[f"grad_rel:{name}"] = max(_rel(g1.full_tensor(), g0)
+                                      for g1, g0 in zip(grads1, grads0, strict=True))
+        rec[f"placements:{name}"] = str(tuple(out1.placements))
+        if out_dir is not None and mesh.get_rank() == 0:
+            np.save(os.path.join(out_dir, f"attention_{name}.npy"), full.numpy())
+    rec["out_rel"] = max(v for k, v in rec.items() if k.startswith("out_rel:"))
+    rec["grad_rel"] = max(v for k, v in rec.items() if k.startswith("grad_rel:"))
+    rec["ok"] = rec["out_rel"] <= 1e-6 and rec["grad_rel"] <= 1e-6
+    return rec
+
+
+def _rank(rank: int, port: int, archs, policy: str, fnos=(), blocked=(),
+          attention: bool = False) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -317,6 +414,8 @@ def _rank(rank: int, port: int, archs, policy: str, fnos=()) -> None:
     try:
         mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
         recs = [cross_entropy_parity(mesh)] + [train_parity(mesh, a, policy) for a in archs]
+        recs += [attention_parity(mesh)] if attention else []
+        recs += [train_parity(mesh, a, policy, S=BLOCKED_SEQ) for a in blocked]
         recs += [fno_parity(mesh, n, p) for n in fnos for p in FNO_POLICIES]
         if rank == 0:
             for rec in recs:
@@ -344,11 +443,15 @@ def main(argv=None) -> None:
                     help="an arch whose train step to check (repeatable)")
     ap.add_argument("--fno", action="append", choices=list(FNO_SMOKE),
                     help="an FNO-family cell whose channel-split step to check (repeatable)")
+    ap.add_argument("--blocked", action="append", choices=ARCH_IDS,
+                    help=f"an arch whose train step to check at {BLOCKED_SEQ} tokens (repeatable)")
+    ap.add_argument("--attention", action="store_true",
+                    help="check blocked_attention in each of ATTENTION_CASES")
     ap.add_argument("--policy", default="full")
     args = ap.parse_args(argv)
     port = int(os.environ.get("PORT") or _free_port())
-    mp.spawn(_rank, args=(port, args.arch or [], args.policy, args.fno or []),
-             nprocs=4, join=True)
+    mp.spawn(_rank, args=(port, args.arch or [], args.policy, args.fno or [],
+                          args.blocked or [], args.attention), nprocs=4, join=True)
 
 
 if __name__ == "__main__":

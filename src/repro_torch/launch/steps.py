@@ -161,8 +161,10 @@ def build_train_step(cfg: LMArchConfig, shape: ShapeConfig,
                      telemetry: bool = False) -> StepBundle:
     """``step_fn(params, opt_state, batch) -> (params, opt_state, loss)``:
     the loss, its gradients (each layer recomputed in the backward) and
-    the port's AdamW update, written into ``params`` in place (the model
-    itself is returned).  ``telemetry=True``: the autoprec-instrumented
+    the port's AdamW update, written into ``params`` and ``opt_state`` in
+    place a leaf at a time (``AdamW.update_``; the model and the state
+    object themselves are returned, as the reference's step donates its
+    own).  ``telemetry=True``: the autoprec-instrumented
     twin, the collector's snapshot of the loss's taps as a trailing
     output."""
     opt = optimizer or AdamW(lr=1e-4)
@@ -179,11 +181,10 @@ def build_train_step(cfg: LMArchConfig, shape: ShapeConfig,
         else:
             loss = loss_fn(params, batch)
         grads = _placed_grads(loss, named)
-        new_params, new_opt = opt.update(grads, opt_state, {k: p.detach() for k, p in named.items()})
-        _assign(params, new_params)
+        opt_state = opt.update_(grads, opt_state, {k: p.detach() for k, p in named.items()})
         if telemetry:
-            return params, new_opt, loss.detach(), col.snapshot()
-        return params, new_opt, loss.detach()
+            return params, opt_state, loss.detach(), col.snapshot()
+        return params, opt_state, loss.detach()
 
     p_shape = params_shape(cfg)
     return StepBundle(

@@ -30,11 +30,12 @@ import math
 from typing import Dict, Optional, Union
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.dist.constrain import constrain, logical_axis_size, pin, to_layout
-from repro_torch.dist.local import matmul, take_rows
+from repro_torch.dist.local import _contiguous, matmul, take_rows
+from repro_torch.dist.sharding import local_block
 
 NEG_INF = -1e30
 
@@ -210,9 +211,9 @@ def blocked_attention(q, k, v, q_pos, k_pos, window: Window, q_chunk: int = 0,
     sequence sharding; the chunked queries are constrained heads over tp
     when the heads divide, else the chunk axis (context parallelism).
     Blocks outside the causal or window band still run (masked), as in
-    the reference."""
+    the reference.  On a mesh of more than one rank each rank runs the
+    loop on its own block of the queries (:func:`_local_blocks`)."""
     B, H, S, D = q.shape
-    Dv = v.shape[-1]
     Sk = k.shape[2]
     msize = logical_axis_size("heads")
     if q_chunk <= 0:
@@ -220,25 +221,57 @@ def blocked_attention(q, k, v, q_pos, k_pos, window: Window, q_chunk: int = 0,
     pad_q = (-S) % q_chunk
     pad_k = (-Sk) % k_chunk
     if pad_q:
-        q = torch.nn.functional.pad(q, (0, 0, 0, pad_q))
+        q = _resize_seq(q, pad_q)
         q_pos = torch.cat([q_pos, q_pos.new_full((pad_q,), -1)])
     if pad_k:
-        k = torch.nn.functional.pad(k, (0, 0, 0, pad_k))
-        v = torch.nn.functional.pad(v, (0, 0, 0, pad_k))
+        k, v = _resize_seq(k, pad_k), _resize_seq(v, pad_k)
         k_pos = torch.cat([k_pos, k_pos.new_full((pad_k,), 2 ** 30)])
-    nq, nk = q.shape[2] // q_chunk, k.shape[2] // k_chunk
-    scale = 1.0 / (D ** 0.5)
+    nq = q.shape[2] // q_chunk
     qb = q.reshape(B, H, nq, q_chunk, D)
     if H % max(msize, 1) == 0:
         qb = constrain(qb, "dp", "heads", None, None, None)
     else:
         qb = constrain(qb, "dp", None, "seq", None, None)
-    qb = qb.reshape(B, H, nq * q_chunk, D)
     qpb = q_pos.reshape(nq, q_chunk)
+    if isinstance(qb, DTensor) and qb.device_mesh.size() > 1:
+        out = _local_blocks(qb, k, v, qpb, k_pos, window, k_chunk)
+    else:
+        out = _kv_loop(qb, k, v, qpb, k_pos, window, k_chunk)
+    return _resize_seq(out, -pad_q) if pad_q else out
 
+
+def _resize_seq(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x (B, H, S, D) with its sequence padded by n zero rows (n > 0) or
+    cut by -n rows (n < 0).  On a DTensor of a mesh of more than one rank
+    the sequence is made whole first and the rows are padded or cut on the
+    local block (torch 2.11's DTensor fails to pad a sharded dim)."""
+    def resize(t):
+        return torch.nn.functional.pad(t, (0, 0, 0, n)) if n > 0 else t[:, :, :t.shape[2] + n, :]
+
+    if not (isinstance(x, DTensor) and x.device_mesh.size() > 1):
+        return resize(x)
+    mesh = x.device_mesh
+    place = [Replicate() if type(p) is Shard and p.dim % x.ndim == 2 else p for p in x.placements]
+    if place != list(x.placements):
+        x = x.redistribute(mesh, place)
+    shape = (*x.shape[:2], x.shape[2] + n, x.shape[3])
+    return DTensor.from_local(resize(x.to_local()), mesh, place, run_check=False,
+                              shape=torch.Size(shape), stride=_contiguous(shape))
+
+
+def _kv_loop(qb, k, v, qpb, k_pos, window: Window, k_chunk: int) -> torch.Tensor:
+    """The key-block loop of :func:`blocked_attention` over chunked queries
+    qb (B, H, nq, q_chunk, D) at positions qpb (nq, q_chunk), the (padded)
+    keys and values (B, Hk, Sk, D / Dv) at k_pos (Sk,): (B, H, nq *
+    q_chunk, Dv) in q's dtype.  The carry is made at qb's shape."""
+    B, H, nq, q_chunk, D = qb.shape
+    Dv = v.shape[-1]
+    nk = k.shape[2] // k_chunk
+    scale = 1.0 / (D ** 0.5)
+    q = qb.reshape(B, H, nq * q_chunk, D)
 
     def kv_step(acc, m, l, ki, vi, kp):  # noqa: E741
-        s = _scores(qb, ki).reshape(B, H, nq, q_chunk, k_chunk) * scale
+        s = _scores(q, ki).reshape(B, H, nq, q_chunk, k_chunk) * scale
         causal = qpb[:, :, None] >= kp[None, None, :]
         inwin = (qpb[:, :, None] - kp[None, None, :]) < window
         s = torch.where((causal & inwin)[None, None], s, NEG_INF)
@@ -252,7 +285,7 @@ def blocked_attention(q, k, v, q_pos, k_pos, window: Window, q_chunk: int = 0,
     # the flash backward: each key block's step recomputed in the backward
     # (the reference's jax.checkpoint), so no block's scores, probabilities
     # or masks are kept for it, only its carry and inputs
-    recompute = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    recompute = torch.is_grad_enabled() and any(t.requires_grad for t in (qb, k, v))
     acc = q.new_zeros((B, H, nq, q_chunk, Dv), dtype=torch.float32)
     m = q.new_full((B, H, nq, q_chunk), NEG_INF, dtype=torch.float32)
     l = q.new_zeros((B, H, nq, q_chunk), dtype=torch.float32)  # noqa: E741
@@ -264,7 +297,74 @@ def blocked_attention(q, k, v, q_pos, k_pos, window: Window, q_chunk: int = 0,
         else:
             acc, m, l = kv_step(acc, m, l, *blk)  # noqa: E741
     out = (acc / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype)
-    return out.reshape(B, H, nq * q_chunk, Dv)[:, :, :S, :]
+    return out.reshape(B, H, nq * q_chunk, Dv)
+
+
+def _local_blocks(qb, k, v, qpb, k_pos, window: Window, k_chunk: int) -> torch.Tensor:
+    """:func:`_kv_loop` on this rank's block of the chunked queries qb, a
+    DTensor whose mesh dims shard its batch (dim 0), its heads (dim 1) or
+    its query chunks (dim 2), or replicate it; any other layout raises.
+
+    The keys and values are brought to the queries' batch layout, whole
+    over the mesh dims that shard the chunks or the heads, except where
+    they are sharded on heads that are exactly the KV heads of the rank's
+    query heads.  The loop then runs on the local tensors (its carry at
+    the rank's shape), the rank's query heads h reading KV head h // g in
+    whole GQA groups, inside one group, or else one KV head a query head
+    (``jnp.repeat`` on the rank's block).  A rank's dK and dV are its
+    queries' share of the sum (Partial over those mesh dims).  The output
+    is placed as the queries are (the chunk axis made whole where the
+    chunks do not split evenly over the ranks)."""
+    mesh = qb.device_mesh
+    B, H, nq, q_chunk, _ = qb.shape
+    Hk, Dv = k.shape[1], v.shape[-1]
+    if any(not (isinstance(p, Replicate) or (type(p) is Shard and p.dim in (0, 1, 2)))
+           for p in qb.placements):
+        raise ValueError(f"blocked_attention: queries (B, H, nq, q_chunk, D) placed "
+                         f"{tuple(qb.placements)}: only Shard(0), Shard(1), Shard(2) and "
+                         "Replicate are supported")
+    (b, hl, nql, _, _), (_, h0, c0, _, _) = local_block(qb.shape, mesh, qb.placements)
+    ranks = [math.prod(int(mesh.size(i)) for i, p in enumerate(qb.placements)
+                       if type(p) is Shard and p.dim == d) for d in range(3)]
+    g = H // Hk
+    # K and V sharded on heads where those are the rank's query heads' own
+    aligned = Hk % ranks[1] == 0
+    kv_place = [p if type(p) is Shard and (p.dim == 0 or p.dim == 1 and aligned) else Replicate()
+                for p in qb.placements]
+    # a mesh dim that shards the queries but not K and V sums their gradients
+    grad_place = [Partial() if isinstance(kp, Replicate) and not isinstance(qp, Replicate)
+                  else kp for qp, kp in zip(qb.placements, kv_place, strict=True)]
+
+    def local(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        if tuple(t.placements) != tuple(kv_place):
+            t = t.redistribute(mesh, kv_place)
+        return t.to_local(grad_placements=grad_place)
+
+    kl, vl = local(k), local(v)
+    if not aligned:
+        lo, hi = h0 // g, (h0 + hl - 1) // g + 1
+        if hi - lo == 1 or (h0 % g == 0 and hl % g == 0):
+            # the rank's heads inside one GQA group, or whole groups: the fold
+            kl, vl = kl[:, lo:hi], vl[:, lo:hi]
+        else:
+            # one KV head a query head
+            kl, vl = (torch.cat([t[:, h // g:h // g + 1] for h in range(h0, h0 + hl)], dim=1)
+                      for t in (kl, vl))
+    out = _kv_loop(qb.to_local(), kl, vl, qpb[c0:c0 + nql], k_pos, window, k_chunk)
+    shape = (B, H, nq * q_chunk, Dv)
+    if not any(qb.shape[d] % ranks[d] for d in range(3)):
+        return DTensor.from_local(out, mesh, qb.placements, run_check=False,
+                                  shape=torch.Size(shape), stride=_contiguous(shape))
+    # chunks that do not split evenly: placed on the 5-D chunk axis, which
+    # is made whole before the flatten (DTensor flattens no uneven shards)
+    shape5 = (B, H, nq, q_chunk, Dv)
+    out = DTensor.from_local(out.reshape(b, hl, nql, q_chunk, Dv), mesh, qb.placements,
+                             run_check=False, shape=torch.Size(shape5),
+                             stride=_contiguous(shape5))
+    whole = [Replicate() if type(p) is Shard and p.dim == 2 else p for p in qb.placements]
+    return out.redistribute(mesh, whole).reshape(shape)
 
 
 def gqa_attention(q, k, v, q_pos, k_pos, window: Window, *,

@@ -52,26 +52,58 @@ class AdamW:
                params: Tree) -> Tuple[Dict[str, torch.Tensor], AdamWState]:
         """Returns (new_params, new_state); the inputs are not modified."""
         keys = sorted(params)
-        g = {k: grads[k].to(torch.float32) for k in keys}
-        if self.grad_clip_norm is not None:
-            gnorm = global_norm(g)
-            scale = torch.clamp(self.grad_clip_norm / (gnorm + 1e-9), max=1.0)
-            g = {k: v * scale for k, v in g.items()}
-
+        scale = self._clip_scale(grads)
         count = state.count + 1
-        b1, b2 = self.b1, self.b2
-        mu = {k: b1 * state.mu[k] + (1 - b1) * g[k] for k in keys}
-        nu = {k: b2 * state.nu[k] + (1 - b2) * (g[k] * g[k]) for k in keys}
-        c = count.to(torch.float32)
-        mu_hat_scale = 1.0 / (1 - torch.pow(b1, c))
-        nu_hat_scale = 1.0 / (1 - torch.pow(b2, c))
-
-        def step(p, m, v):
-            upd = (m * mu_hat_scale) / (torch.sqrt(v * nu_hat_scale) + self.eps)
-            return (p - self.lr * (upd + self.weight_decay * p)).to(p.dtype)
-
-        new_params = {k: step(params[k], mu[k], nu[k]) for k in keys}
+        hats = self._hats(count)
+        new_params, mu, nu = {}, {}, {}
+        for k in keys:
+            new_params[k], mu[k], nu[k] = self._leaf(params[k], state.mu[k], state.nu[k],
+                                                     grads[k], scale, hats, inplace=False)
         return new_params, AdamWState(count=count, mu=mu, nu=nu)
+
+    @torch.no_grad()
+    def update_(self, grads: Dict[str, torch.Tensor], state: AdamWState,
+                params: Tree) -> AdamWState:
+        """:meth:`update` written into ``params`` and ``state`` in place, a
+        leaf at a time (the reference's donated step): the same ops in the
+        same order, so the same bits.  Each gradient is dropped from
+        ``grads`` once its leaf is updated.  Returns ``state``."""
+        scale = self._clip_scale(grads)
+        hats = self._hats(state.count.add_(1))
+        for k in sorted(params):
+            self._leaf(params[k], state.mu[k], state.nu[k], grads.pop(k), scale, hats,
+                       inplace=True)
+        return state
+
+    def _clip_scale(self, grads: Tree) -> Optional[torch.Tensor]:
+        """The global-norm clip's factor (None without a clip)."""
+        if self.grad_clip_norm is None:
+            return None
+        return torch.clamp(self.grad_clip_norm / (global_norm(grads) + 1e-9), max=1.0)
+
+    def _hats(self, count: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The bias corrections of the moments at step ``count``."""
+        c = count.to(torch.float32)
+        return 1.0 / (1 - torch.pow(self.b1, c)), 1.0 / (1 - torch.pow(self.b2, c))
+
+    def _leaf(self, p, mu, nu, g, scale, hats, inplace: bool):
+        """One leaf's (parameter, mu, nu) after the step: new tensors, or
+        ``p``, ``mu`` and ``nu`` written in place.  ``b1 * mu + (1 - b1) * g``
+        and ``mu.mul_(b1).add_((1 - b1) * g)`` round alike."""
+        g = g.to(torch.float32)
+        if scale is not None:
+            g = g * scale
+        b1, b2 = self.b1, self.b2
+        if inplace:
+            mu = mu.mul_(b1).add_((1 - b1) * g)
+            nu = nu.mul_(b2).add_((1 - b2) * (g * g))
+        else:
+            mu = b1 * mu + (1 - b1) * g
+            nu = b2 * nu + (1 - b2) * (g * g)
+        del g
+        upd = (mu * hats[0]) / (torch.sqrt(nu * hats[1]) + self.eps)
+        new = (p - self.lr * (upd + self.weight_decay * p)).to(p.dtype)
+        return (p.copy_(new) if inplace else new), mu, nu
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
