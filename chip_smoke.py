@@ -448,6 +448,9 @@ DIST_DRYRUNS = {
                                 "--mesh", "single")
        for name, arch in (("moe", "granite-moe-3b-a800m"), ("whisper", "whisper-large-v3"),
                           ("granite34b", "granite-34b"))},
+    # granite-34b's 2x16x16 cell in a process of its own, beside its 16x16 one
+    "dryrun_granite34b_train_multi": ("repro_torch.launch.dryrun", "--arch", "granite-34b",
+                                      "--shape", "train_4k", "--mesh", "multi"),
     "dryrun_fno": ("repro_torch.launch.dryrun_fno", "--mesh", "both"),
 }
 #: 13(e): what each FNO cell's record reads on both meshes (the batch covers
@@ -458,25 +461,35 @@ DIST_FNO_CHANNELS = {"tfno-ns": "whole", "fno-darcy": "whole",
 #: the timed phases leave them) and must be done this long after their start
 DIST_DRYRUN_TIMEOUT = 900
 #: 13(e): each ``train_4k`` record's peak a device (bytes) at the parent
-#: commit, where ``blocked_attention``'s carry was global-shape on every rank,
-#: its queries whole over tp where the KV heads do not divide it, and AdamW
-#: held a second copy of the state (torch 2.11); a record whose peak does not
-#: fit an H100 fails the run
-DIST_TRAIN_PEAK_BEFORE = {("smollm-360m", "16x16"): 12470971660,
-                          ("smollm-360m", "2x16x16"): 8993238284,
-                          ("granite-moe-3b-a800m", "16x16"): 23454770992,
-                          ("whisper-large-v3", "16x16"): 53201690016,
-                          ("granite-34b", "16x16"): 95378448396}
+#: commit, where ``embed_rows`` gathered the pod's rows, each projection's GEMM
+#: ran on the model group's rows, and ``plain_attention`` made the heads whole
+#: where tp does not divide them (torch 2.11); a record whose peak rises above
+#: it, or does not fit an H100, fails the run
+DIST_TRAIN_PEAK_BEFORE = {("smollm-360m", "16x16"): 2980639880,
+                          ("smollm-360m", "2x16x16"): 2288217348,
+                          ("granite-moe-3b-a800m", "16x16"): 16776080172,
+                          ("whisper-large-v3", "16x16"): 31701936012,
+                          ("granite-34b", "16x16"): 47546081292,
+                          ("granite-34b", "2x16x16"): 48110968836}
+#: 13(e): the archs whose ``train_4k`` cell runs on both meshes: a 2x16x16 peak
+#: above the same arch's 16x16 peak fails the run
+DIST_TRAIN_BOTH = ("smollm-360m", "granite-34b")
 #: phase 13(f): the four-rank parity checks and their time limit
 DIST_PARITY_ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "whisper-large-v3")
 DIST_PARITY_FNO = ("fno-darcy", "tfno-ns", "sfno-swe")
 DIST_PARITY_FNO_POLICIES = ("full", "mixed_fno_bf16", "mixed_fno_bf16+sigma_clip")
 #: 13(f): the train steps also held at 1024 tokens (``blocked_attention``)
 DIST_PARITY_BLOCKED = ("granite-34b", "smollm-360m")
+#: 13(f): the embedding gather, ``dense``, ``plain_attention`` and the smoke
+#: train steps of these archs on each of these ("pod", "data", "model") meshes
+#: (``parity.rows_parity``)
+DIST_PARITY_ROWS_ARCHS = ("whisper-large-v3", "smollm-360m")
+DIST_PARITY_ROWS_MESHES = ("2x2x1", "1x2x2")
 DIST_PARITY = ("repro_torch.launch.parity", *(a for arch in DIST_PARITY_ARCHS
                                               for a in ("--arch", arch)),
                *(a for cell in DIST_PARITY_FNO for a in ("--fno", cell)),
-               *(a for arch in DIST_PARITY_BLOCKED for a in ("--blocked", arch)), "--attention")
+               *(a for arch in DIST_PARITY_BLOCKED for a in ("--blocked", arch)), "--attention",
+               "--rows")
 DIST_PARITY_TIMEOUT = 400
 #: 13(g): rank 0 of each cell whose channels split, on the 16x16 mesh at full
 #: width (``repro_torch.launch.rank_step``, a subprocess: phase 13's NCCL world
@@ -3884,8 +3897,11 @@ def _wait(proc, log, t0, limit):
 
 def finish_dryruns(procs):
     """13(e): every dry-run's cells, each ok; the FNO cells' channel
-    layouts as ``DIST_FNO_CHANNELS`` says.  Returns the FNO records."""
-    records = {}
+    layouts as ``DIST_FNO_CHANNELS`` says; no ``train_4k`` peak above the
+    parent's (``DIST_TRAIN_PEAK_BEFORE``), and for each arch of
+    ``DIST_TRAIN_BOTH`` its 2x16x16 peak at or under its 16x16 one.
+    Returns the FNO records."""
+    records, train_peaks = {}, {}
     for name, (proc, out, log, t0) in procs.items():
         rc, seconds = _wait(proc, log, t0, DIST_DRYRUN_TIMEOUT)
         if rc != 0:
@@ -3912,6 +3928,8 @@ def finish_dryruns(procs):
                 if r["shape"] == "train_4k" and not r["memory_analysis"]["fits_hbm"]]
         if over:
             fail(f"the {name} dry-run's train_4k peak does not fit an H100: {over}")
+        train_peaks.update({(r["arch"], r["mesh"]): r["memory_analysis"]["peak_bytes"]
+                            for r in recs if r["shape"] == "train_4k"})
         if name == "dryrun_fno":
             got = {(r["arch"], r["mesh"]): r.get("spectral_channels", "") for r in recs}
             want = {(a, m): c for a, c in DIST_FNO_CHANNELS.items() for m in ("16x16", "2x16x16")}
@@ -3919,6 +3937,17 @@ def finish_dryruns(procs):
             if wrong:
                 fail(f"the FNO dry-run's channel layouts are not {DIST_FNO_CHANNELS}: {wrong}")
             records[name] = recs
+    rose = {k: (v, DIST_TRAIN_PEAK_BEFORE[k]) for k, v in train_peaks.items()
+            if k in DIST_TRAIN_PEAK_BEFORE and v > DIST_TRAIN_PEAK_BEFORE[k]}
+    if rose:
+        fail(f"a train_4k peak rose above the parent's (bytes, now and parent): {rose}")
+    above = {a: (train_peaks.get((a, "2x16x16")), train_peaks.get((a, "16x16")))
+             for a in DIST_TRAIN_BOTH}
+    if any(two is None or one is None or two > one for two, one in above.values()):
+        fail(f"a train_4k 2x16x16 peak is above its 16x16 peak (or missing): {above}")
+    emit("dist_train_peaks", peaks=[[a, m, v] for (a, m), v in sorted(train_peaks.items())],
+         two_pod_at_or_under_one=above, torch=torch.__version__,
+         note="derived counts, not timings")
     return records
 
 
@@ -3928,14 +3957,19 @@ def finish_parity(procs):
     text = (ROOT / "build" / "chip_smoke_parity.log").read_text()
     recs = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
     for r in recs:
-        emit("dist_parity", torch=torch.__version__, ranks=4, mesh="2x2", **r)
+        emit("dist_parity", torch=torch.__version__, ranks=4, **{"mesh": "2x2", **r})
     emit("dist_parity_run", rc=rc, seconds=seconds, checks=len(recs))
-    want = {(r.get("check"), r.get("arch") or r.get("cell"), r.get("policy"), r.get("seq"))
-            for r in recs if r.get("ok")}
-    need = ({("cross_entropy", None, None, None), ("attention", None, None, None)}
-            | {("train_step", a, "full", 16) for a in DIST_PARITY_ARCHS}
-            | {("train_step", a, "full", 1024) for a in DIST_PARITY_BLOCKED}
-            | {("fno_step", c, p, None) for c in DIST_PARITY_FNO for p in DIST_PARITY_FNO_POLICIES})
+    want = {(r.get("check"), r.get("arch") or r.get("cell"), r.get("policy"), r.get("seq"),
+             r.get("mesh")) for r in recs if r.get("ok")}
+    need = ({("cross_entropy", None, None, None, None), ("attention", None, None, None, None)}
+            | {("train_step", a, "full", 16, None) for a in DIST_PARITY_ARCHS}
+            | {("train_step", a, "full", 1024, None) for a in DIST_PARITY_BLOCKED}
+            | {("fno_step", c, p, None, None) for c in DIST_PARITY_FNO
+               for p in DIST_PARITY_FNO_POLICIES}
+            | {(c, None, None, None, m) for c in ("lookup", "dense", "plain_attention")
+               for m in DIST_PARITY_ROWS_MESHES}
+            | {("train_step", a, "full", 16, m) for a in DIST_PARITY_ROWS_ARCHS
+               for m in DIST_PARITY_ROWS_MESHES})
     if rc != 0 or not need <= want:
         fail(f"the four-rank parity checks failed (exit {rc}): {text[-2000:]}")
 

@@ -11,7 +11,13 @@ held on logits whose vocabulary is sharded over "model".  ``--blocked
 ARCH`` runs the train step at ``BLOCKED_SEQ`` = 1024 tokens, where
 attention is ``blocked_attention``'s; ``--attention`` holds
 ``blocked_attention`` and its q/k/v gradients in each of
-``ATTENTION_CASES`` within 1e-6 relative L2 of plain tensors.
+``ATTENTION_CASES`` within 1e-6 relative L2 of plain tensors.  ``--rows``
+runs, on each of ``ROWS_MESHES`` ((2, 2, 1) and (1, 2, 2) over ("pod",
+"data", "model")), ``embed_rows`` in each of ``LOOKUP_CASES`` (the rows
+bit-equal to ``table[ids]``, the table's gradient within 1e-6), ``dense``
+in each of ``DENSE_CASES`` and ``plain_attention`` in each of
+``PLAIN_CASES`` (within 1e-6 of plain tensors, forward and every
+gradient), and the smoke train steps of ``ROWS_ARCHS`` against one device.
 
 ``--fno NAME`` (``fno-darcy``, ``tfno-ns``, ``sfno-swe``) runs 3 steps of
 ``build_fno_train_step`` at the config's smoke size with a batch of 2,
@@ -34,6 +40,7 @@ on the CPU whatever the machine has:
     PYTHONPATH=src python -m repro_torch.launch.parity --arch granite-moe-3b-a800m --arch whisper-large-v3
     PYTHONPATH=src python -m repro_torch.launch.parity --attention --blocked granite-34b --blocked smollm-360m
     PYTHONPATH=src python -m repro_torch.launch.parity --fno fno-darcy --fno tfno-ns --fno sfno-swe
+    PYTHONPATH=src python -m repro_torch.launch.parity --rows
 """
 from __future__ import annotations
 
@@ -403,8 +410,232 @@ def attention_parity(mesh, out_dir=None) -> dict:
     return rec
 
 
+#: ``rows_parity``'s meshes of the four ranks, ("pod", "data", "model"): the
+#: batch over two mesh dims ("pod" and "data"), and the batch over "data"
+#: with the vocabulary, the sequence and the heads over "model"
+ROWS_MESHES = ((2, 2, 1), (1, 2, 2))
+ROWS_NAMES = ("pod", "data", "model")
+
+#: ``lookup_parity``'s cases: (V, d, B, S (None: ids of one dim, a decode
+#: step's), the table dim sharded over "model", split_seq, the ids placed
+#: over the batch's mesh dims or a plain tensor)
+LOOKUP_CASES = {
+    "vocab_split_seq": (97, 8, 4, 8, 0, True, True),       # uneven V blocks
+    "vocab_rows_whole": (96, 8, 4, 8, 0, False, True),
+    "features_sharded": (40, 16, 4, 8, 1, True, True),     # the table gathered on d
+    "ids_whole": (97, 8, 4, 8, 0, True, False),
+    "decode_ids": (97, 8, 4, None, 0, False, True),
+}
+
+#: ``dense_parity``'s cases: (B, S, K, N, the activation's features split
+#: over "model"); the weight's larger dim over "model" (the rule table's),
+#: the activation placed by ``constrain_bsd`` or, with its features split,
+#: as attention's output is where the heads split (``split_k_matmul``)
+DENSE_CASES = {
+    "columns_d_to_4d": (4, 8, 16, 64, False),    # granite-34b's d : d_ff, w sharded on N
+    "rows_4d_to_d": (4, 8, 64, 16, False),       # w sharded on K
+    "square": (4, 8, 24, 24, False),
+    "seq_not_split": (4, 5, 16, 64, False),      # S does not split: the DTensor product
+    "features_split": (4, 8, 24, 24, True),      # the attention output's projection
+    "features_split_n_uneven": (4, 8, 24, 10, True),
+}
+
+
+class PlainCase(NamedTuple):
+    """One ``plain_attention`` call: batch, query and KV heads, query and
+    key lengths, q/k and v head dims, window, whether the queries follow
+    the keys (cross-attention: every key visible) and whether the queries'
+    positions are split over "model" by hand, unevenly."""
+    B: int
+    H: int
+    Hk: int
+    Sq: int
+    Sk: int
+    D: int
+    Dv: int
+    window: int
+    cross: bool = False
+    uneven: bool = False
+
+
+#: ``plain_parity``'s cases: heads split over "model" (with their KV heads,
+#: and one KV head a query head), positions split where the heads do not
+#: divide (Whisper's 20 heads over 16), its cross-attention (K/V gathered),
+#: a window with GQA, Dv != D and positions that do not split evenly
+PLAIN_CASES = {
+    "heads_kv_split": PlainCase(2, 4, 2, 12, 12, 8, 8, 2 ** 30),
+    "heads_repeat": PlainCase(2, 6, 3, 12, 12, 8, 8, 2 ** 30),
+    "positions": PlainCase(2, 5, 5, 12, 12, 8, 8, 2 ** 30),
+    "cross": PlainCase(2, 5, 5, 12, 20, 8, 8, 2 ** 30, cross=True),
+    "window_gqa": PlainCase(2, 6, 2, 12, 12, 8, 8, 5),
+    "dv_differs": PlainCase(2, 3, 1, 12, 12, 12, 8, 2 ** 30),
+    "positions_uneven": PlainCase(2, 5, 1, 7, 7, 8, 8, 2 ** 30, uneven=True),
+}
+
+#: ``rows_parity``'s train steps, on each of ``ROWS_MESHES``
+ROWS_ARCHS = ("whisper-large-v3", "smollm-360m")
+
+
+def mesh_label(mesh) -> str:
+    return "x".join(str(int(s)) for s in mesh.shape)
+
+
+def lookup_parity(mesh) -> dict:
+    """``embed_rows`` (``dist.local.lookup_rows``) on the mesh against
+    ``table[ids]`` in each of ``LOOKUP_CASES``: whether the rows are equal
+    bit for bit (``rows_equal:<case>``) and the table's gradient's relative
+    L2 to one device's (``grad_rel:<case>``, within 1e-6), and that it has
+    the table's placements."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.dist import use_mesh
+    from repro_torch.models.lm.common import embed_rows
+
+    rec = {"check": "lookup", "mesh": mesh_label(mesh)}
+    placed = True
+    for name, (V, d, B, S, tdim, split_seq, ids_placed) in LOOKUP_CASES.items():
+        g = torch.Generator().manual_seed(2)
+        table = torch.randn(V, d, generator=g)
+        ids = torch.randint(0, V, (B,) if S is None else (B, S), generator=g)
+        ct = torch.randn(*ids.shape, d, generator=g)
+        t0 = table.clone().requires_grad_()
+        rows0 = t0[ids]
+        (g0,) = torch.autograd.grad(rows0, t0, ct)
+        t1 = distribute_tensor(table, mesh, [Replicate(), Replicate(), Shard(tdim)]).requires_grad_()
+        i1 = distribute_tensor(ids, mesh, [Shard(0), Shard(0), Replicate()]) if ids_placed else ids
+        with use_mesh(mesh):
+            rows1 = embed_rows(t1, i1, split_seq)
+            (g1,) = torch.autograd.grad(rows1, t1, distribute_tensor(ct, mesh, rows1.placements))
+        rec[f"rows_equal:{name}"] = bool(torch.equal(rows1.detach().full_tensor(), rows0.detach()))
+        rec[f"grad_rel:{name}"] = _rel(g1.full_tensor(), g0)
+        placed = placed and tuple(g1.placements) == tuple(t1.placements)
+    rec["grad_rel"] = max(v for k, v in rec.items() if k.startswith("grad_rel:"))
+    rec["grads_placed"] = placed
+    rec["ok"] = (all(v for k, v in rec.items() if k.startswith("rows_equal:"))
+                 and rec["grad_rel"] <= 1e-6 and placed)
+    return rec
+
+
+def dense_parity(mesh) -> dict:
+    """``models.lm.common.dense`` (f32) on the mesh against plain tensors in
+    each of ``DENSE_CASES``: the output's and the activation's and the
+    weight's gradients' relative L2 (``out_rel:<case>``, ``grad_rel:<case>``),
+    each within 1e-6, and, where the rank multiplies its own block, the
+    weight's gradient in the weight's placements (elsewhere the DTensor
+    product's, which the train step's gradient hooks place)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.dist import use_mesh
+    from repro_torch.dist.constrain import constrain_bsd
+    from repro_torch.dist.local import own_rows, split_k_dim
+    from repro_torch.models.lm.common import dense
+
+    rec = {"check": "dense", "mesh": mesh_label(mesh)}
+    placed = True
+    for name, (B, S, K, N, features) in DENSE_CASES.items():
+        g = torch.Generator().manual_seed(3)
+        x, w = torch.randn(B, S, K, generator=g), torch.randn(K, N, generator=g) / K ** 0.5
+        ct = torch.randn(B, S, N, generator=g)
+        plain = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+        y0 = dense(*plain, torch.float32)
+        g0 = torch.autograd.grad(y0, plain, ct)
+        whole = distribute_tensor(x, mesh, [Replicate()] * 3).requires_grad_()
+        wd = distribute_tensor(w, mesh, [Replicate(), Replicate(), Shard(0 if K > N else 1)])
+        wd.requires_grad_()
+        with use_mesh(mesh):
+            x1 = (whole.redistribute(mesh, [Shard(0), Shard(0), Shard(2)]) if features
+                  else constrain_bsd(whole))
+            own = own_rows(x1, wd) or split_k_dim(x1, wd) is not None
+            y1 = dense(x1, wd, torch.float32)
+            g1 = torch.autograd.grad(y1, (whole, wd), distribute_tensor(ct, mesh, y1.placements))
+        rec[f"out_rel:{name}"] = _rel(y1.detach().full_tensor(), y0)
+        rec[f"grad_rel:{name}"] = max(_rel(a.full_tensor(), b)
+                                      for a, b in zip(g1, g0, strict=True))
+        rec[f"w_grad_placements:{name}"] = str(tuple(g1[1].placements))
+        if own:
+            placed = placed and tuple(g1[1].placements) == tuple(wd.placements)
+    rec["out_rel"] = max(v for k, v in rec.items() if k.startswith("out_rel:"))
+    rec["grad_rel"] = max(v for k, v in rec.items() if k.startswith("grad_rel:"))
+    rec["grads_placed"] = placed
+    rec["ok"] = rec["out_rel"] <= 1e-6 and rec["grad_rel"] <= 1e-6 and placed
+    return rec
+
+
+def plain_inputs(case: PlainCase, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Standard normal q (B, H, Sq, D), k (B, Hk, Sk, D), v (B, Hk, Sk, Dv),
+    the output's cotangent (B, H, Sq, Dv), f32, and the positions: causal
+    (Sq = Sk), or every query after every key (``cross``)."""
+    rng = np.random.default_rng(seed)
+    c = case
+    out = {name: rng.standard_normal(shape).astype(np.float32) for name, shape in
+           (("q", (c.B, c.H, c.Sq, c.D)), ("k", (c.B, c.Hk, c.Sk, c.D)),
+            ("v", (c.B, c.Hk, c.Sk, c.Dv)), ("ct", (c.B, c.H, c.Sq, c.Dv)))}
+    out["q_pos"] = np.arange(c.Sq) + (c.Sk if c.cross else 0)
+    out["k_pos"] = np.arange(c.Sk)
+    return out
+
+
+def plain_parity(mesh, out_dir=None) -> dict:
+    """``plain_attention`` on the mesh's DTensors, placed as the model places
+    them (``constrain_bhsd``; the uneven case by hand), against plain
+    tensors in each of ``PLAIN_CASES``: the output's and the q/k/v
+    gradients' relative L2 (``out_rel:<case>``, ``grad_rel:<case>``), each
+    within 1e-6, and the output's placements.  ``out_dir``: rank 0 writes
+    each case's output there (``plain_<mesh>_<case>.npy``)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.dist import use_mesh
+    from repro_torch.dist.constrain import constrain_bhsd
+    from repro_torch.models.lm.common import plain_attention
+
+    rec = {"check": "plain_attention", "mesh": mesh_label(mesh)}
+    for name, c in PLAIN_CASES.items():
+        x = {k: torch.from_numpy(a) for k, a in plain_inputs(c).items()}
+        args = (x["q_pos"], x["k_pos"], c.window)
+        plain = [x[n].clone().requires_grad_() for n in ("q", "k", "v")]
+        out0 = plain_attention(*plain, *args)
+        grads0 = torch.autograd.grad(out0, plain, x["ct"])
+        whole = [distribute_tensor(x[n], mesh, [Replicate()] * mesh.ndim).requires_grad_()
+                 for n in ("q", "k", "v")]
+        with use_mesh(mesh):
+            if c.uneven:
+                q = whole[0].redistribute(mesh, [Replicate(), Shard(0), Shard(2)])
+                qkv = (q, *whole[1:])
+            else:
+                qkv = [constrain_bhsd(t) for t in whole]
+            out1 = plain_attention(*qkv, *args)
+            grads1 = torch.autograd.grad(
+                out1, whole, distribute_tensor(x["ct"], mesh, out1.placements))
+        full = out1.detach().full_tensor()
+        rec[f"out_rel:{name}"] = _rel(full, out0)
+        rec[f"grad_rel:{name}"] = max(_rel(g1.full_tensor(), g0)
+                                      for g1, g0 in zip(grads1, grads0, strict=True))
+        rec[f"placements:{name}"] = str(tuple(out1.placements))
+        if out_dir is not None and mesh.get_rank() == 0:
+            np.save(os.path.join(out_dir, f"plain_{rec['mesh']}_{name}.npy"), full.numpy())
+    rec["out_rel"] = max(v for k, v in rec.items() if k.startswith("out_rel:"))
+    rec["grad_rel"] = max(v for k, v in rec.items() if k.startswith("grad_rel:"))
+    rec["ok"] = rec["out_rel"] <= 1e-6 and rec["grad_rel"] <= 1e-6
+    return rec
+
+
+def rows_parity(out_dir=None) -> list:
+    """On each of ``ROWS_MESHES`` over the four ranks: ``lookup_parity``,
+    ``dense_parity``, ``plain_parity`` and the smoke train steps of
+    ``ROWS_ARCHS`` against one device (``train_parity``), each record with
+    its mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    recs = []
+    for shape in ROWS_MESHES:
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=ROWS_NAMES)
+        recs += [lookup_parity(mesh), dense_parity(mesh), plain_parity(mesh, out_dir)]
+        recs += [dict(train_parity(mesh, a), mesh=mesh_label(mesh)) for a in ROWS_ARCHS]
+    return recs
+
+
 def _rank(rank: int, port: int, archs, policy: str, fnos=(), blocked=(),
-          attention: bool = False) -> None:
+          attention: bool = False, rows: bool = False) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -417,6 +648,7 @@ def _rank(rank: int, port: int, archs, policy: str, fnos=(), blocked=(),
         recs += [attention_parity(mesh)] if attention else []
         recs += [train_parity(mesh, a, policy, S=BLOCKED_SEQ) for a in blocked]
         recs += [fno_parity(mesh, n, p) for n in fnos for p in FNO_POLICIES]
+        recs += rows_parity() if rows else []
         if rank == 0:
             for rec in recs:
                 print(json.dumps(rec), flush=True)
@@ -447,11 +679,14 @@ def main(argv=None) -> None:
                     help=f"an arch whose train step to check at {BLOCKED_SEQ} tokens (repeatable)")
     ap.add_argument("--attention", action="store_true",
                     help="check blocked_attention in each of ATTENTION_CASES")
+    ap.add_argument("--rows", action="store_true",
+                    help="check embed_rows, dense, plain_attention and the train steps of "
+                    "ROWS_ARCHS on each of ROWS_MESHES")
     ap.add_argument("--policy", default="full")
     args = ap.parse_args(argv)
     port = int(os.environ.get("PORT") or _free_port())
     mp.spawn(_rank, args=(port, args.arch or [], args.policy, args.fno or [],
-                          args.blocked or [], args.attention), nprocs=4, join=True)
+                          args.blocked or [], args.attention, args.rows), nprocs=4, join=True)
 
 
 if __name__ == "__main__":

@@ -34,7 +34,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.dist.constrain import constrain, logical_axis_size, pin, to_layout
-from repro_torch.dist.local import _contiguous, matmul, take_rows
+from repro_torch.dist.local import (_contiguous, lookup_rows, matmul, own_rows, rows_matmul,
+                                    split_k_dim, split_k_matmul, take_rows)
 from repro_torch.dist.sharding import local_block
 
 NEG_INF = -1e30
@@ -44,7 +45,19 @@ Window = Union[int, torch.Tensor]
 
 def dense(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``einsum("...d,de->...e", x.astype(dtype), w.astype(dtype),
-    preferred_element_type=f32).astype(dtype)``."""
+    preferred_element_type=f32).astype(dtype)``.  On a mesh of more than one
+    rank, where each rank holds its own rows of x whole
+    (:func:`~repro_torch.dist.local.own_rows`), the rank multiplies them by
+    w made whole at ``dtype`` (:func:`~repro_torch.dist.local.rows_matmul`):
+    the product comes out in x's row layout, every column.  Where a mesh dim
+    splits x's features instead (the attention output, heads over tp), the
+    rank's partial products are reduce-scattered onto S a column block at a
+    time (:func:`~repro_torch.dist.local.split_k_matmul`)."""
+    if own_rows(x, w):
+        return rows_matmul(x.to(dtype), w.t(), dtype, compute=torch.float32).to(dtype)
+    m = split_k_dim(x, w)
+    if m is not None:
+        return split_k_matmul(x.to(dtype), w, dtype, m, torch.float32).to(dtype)
     return matmul(x.to(dtype).float(), w.to(dtype).float()).to(dtype)
 
 
@@ -115,23 +128,19 @@ def apply_rope_chunk(x: torch.Tensor, pos: torch.Tensor, theta: float = 10000.0)
 # ---------------------------------------------------------------------------
 
 
-def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]`` (:func:`~repro_torch.dist.local.take_rows`).  Token
-    ids sharded on one dim over several mesh dims (the multi-pod batch over
-    ("pod", "data")) keep only the first of them: torch 2.11's DTensor
-    gathers no rows by such ids (the ids are a few ints a rank; the next
-    constraint reshards the rows)."""
-    if isinstance(tokens, DTensor):
-        from torch.distributed.tensor import Replicate, Shard
-
-        seen, pl = set(), []
-        for p in tokens.placements:
-            hybrid = isinstance(p, Shard) and p.dim in seen
-            pl.append(Replicate() if hybrid else p)
-            if isinstance(p, Shard):
-                seen.add(p.dim)
-        if pl != list(tokens.placements):
-            tokens = tokens.redistribute(tokens.device_mesh, pl)
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor, split_seq: bool = False
+               ) -> torch.Tensor:
+    """``table[tokens]``.  On a mesh of more than one rank each rank looks up
+    its own token ids in its block of the vocabulary
+    (:func:`~repro_torch.dist.local.lookup_rows`): the ids keep every mesh
+    dim that shards them (the multi-pod batch over ("pod", "data") too),
+    and the rows, summed over the ranks that split the vocabulary, come out
+    with the batch as the ids have it and, with ``split_seq``, the
+    sequence split as ``constrain_bsd`` splits it.  No rank makes a row of
+    another rank's ids.  Elsewhere
+    :func:`~repro_torch.dist.local.take_rows`."""
+    if isinstance(table, DTensor) and table.device_mesh.size() > 1:
+        return lookup_rows(table, tokens, split_seq)
     # the rows' cotangent in the gather's own layout, the ids' (the layout
     # the gather's backward takes them in)
     return pin(take_rows(table, tokens))
@@ -194,12 +203,31 @@ def _mask_scores(s, q_pos, k_pos, window):
 
 
 def plain_attention(q, k, v, q_pos, k_pos, window: Window) -> torch.Tensor:
-    """q: (B, H, S, D), k/v: (B, Hk, Sk, D).  The exact path (small S)."""
+    """q: (B, H, S, D), k/v: (B, Hk, Sk, D).  The exact path (small S).  On
+    a DTensor of a mesh of more than one rank, these ops run on the rank's
+    own block of the queries (:func:`_local_plain`)."""
+    if isinstance(q, DTensor) and q.device_mesh.size() > 1:
+        return _local_plain(q, k, v, q_pos, k_pos, window)
     scale = 1.0 / (q.shape[-1] ** 0.5)
     s = _scores(q, k) * scale
     s = _mask_scores(s, q_pos, k_pos, window)
     p = torch.softmax(s, dim=-1)
+    del s       # the softmax keeps its output, not the masked scores
     return _mix(p, v).to(q.dtype)
+
+
+def _local_plain(q, k, v, q_pos, k_pos, window: Window) -> torch.Tensor:
+    """:func:`plain_attention` on this rank's block of the queries q (B, H,
+    S, D), a DTensor whose mesh dims shard its batch, its heads or its
+    positions, or replicate it; any other layout raises.  K and V are
+    placed as :func:`_local_kv` places them, the scores, the mask, the
+    softmax and the mix run on the local tensors (the rank's query rows by
+    every key), and the output is placed as the queries are (a dim that
+    does not split evenly over its ranks made whole)."""
+    B, H, S, _ = q.shape
+    kl, vl, (_, _, sl), s0, ranks = _local_kv(q, k, v, "(B, H, S, D)")
+    out = plain_attention(q.to_local(), kl, vl, q_pos[s0:s0 + sl], k_pos, window)
+    return _place_like(out, q, (B, H, S, v.shape[-1]), ranks)
 
 
 def blocked_attention(q, k, v, q_pos, k_pos, window: Window, q_chunk: int = 0,
@@ -263,7 +291,9 @@ def _kv_loop(qb, k, v, qpb, k_pos, window: Window, k_chunk: int) -> torch.Tensor
     """The key-block loop of :func:`blocked_attention` over chunked queries
     qb (B, H, nq, q_chunk, D) at positions qpb (nq, q_chunk), the (padded)
     keys and values (B, Hk, Sk, D / Dv) at k_pos (Sk,): (B, H, nq *
-    q_chunk, Dv) in q's dtype.  The carry is made at qb's shape."""
+    q_chunk, Dv) in q's dtype.  The carry is made at qb's shape by the first
+    key block, which the empty carry (zeros, and a max of ``NEG_INF``) would
+    leave as it is: ``0 * alpha + x`` is x."""
     B, H, nq, q_chunk, D = qb.shape
     Dv = v.shape[-1]
     nk = k.shape[2] // k_chunk
@@ -275,6 +305,11 @@ def _kv_loop(qb, k, v, qpb, k_pos, window: Window, k_chunk: int) -> torch.Tensor
         causal = qpb[:, :, None] >= kp[None, None, :]
         inwin = (qpb[:, :, None] - kp[None, None, :]) < window
         s = torch.where((causal & inwin)[None, None], s, NEG_INF)
+        if acc is None:     # the first block: no carry to rescale or add to
+            m_new = s.amax(dim=-1)
+            p = torch.exp(s - m_new[..., None])
+            pv = _mix(p.reshape(B, H, nq * q_chunk, k_chunk), vi)
+            return pv.reshape(B, H, nq, q_chunk, Dv), m_new, p.sum(dim=-1)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
@@ -286,9 +321,7 @@ def _kv_loop(qb, k, v, qpb, k_pos, window: Window, k_chunk: int) -> torch.Tensor
     # (the reference's jax.checkpoint), so no block's scores, probabilities
     # or masks are kept for it, only its carry and inputs
     recompute = torch.is_grad_enabled() and any(t.requires_grad for t in (qb, k, v))
-    acc = q.new_zeros((B, H, nq, q_chunk, Dv), dtype=torch.float32)
-    m = q.new_full((B, H, nq, q_chunk), NEG_INF, dtype=torch.float32)
-    l = q.new_zeros((B, H, nq, q_chunk), dtype=torch.float32)  # noqa: E741
+    acc = m = l = None  # noqa: E741
     for i in range(nk):
         blk = (k[:, :, i * k_chunk:(i + 1) * k_chunk], v[:, :, i * k_chunk:(i + 1) * k_chunk],
                k_pos[i * k_chunk:(i + 1) * k_chunk])
@@ -300,40 +333,39 @@ def _kv_loop(qb, k, v, qpb, k_pos, window: Window, k_chunk: int) -> torch.Tensor
     return out.reshape(B, H, nq * q_chunk, Dv)
 
 
-def _local_blocks(qb, k, v, qpb, k_pos, window: Window, k_chunk: int) -> torch.Tensor:
-    """:func:`_kv_loop` on this rank's block of the chunked queries qb, a
-    DTensor whose mesh dims shard its batch (dim 0), its heads (dim 1) or
-    its query chunks (dim 2), or replicate it; any other layout raises.
+def _local_kv(q, k, v, layout: str):
+    """This rank's K and V for its block of the queries q, a DTensor whose
+    first three dims are (batch, heads, positions or position chunks) and
+    whose mesh dims shard one of those or replicate it; any other layout
+    raises.  Returns (K, V, q's local block's first three sizes, its first
+    position, the ranks over each of those three dims).
 
-    The keys and values are brought to the queries' batch layout, whole
-    over the mesh dims that shard the chunks or the heads, except where
-    they are sharded on heads that are exactly the KV heads of the rank's
-    query heads.  The loop then runs on the local tensors (its carry at
-    the rank's shape), the rank's query heads h reading KV head h // g in
-    whole GQA groups, inside one group, or else one KV head a query head
-    (``jnp.repeat`` on the rank's block).  A rank's dK and dV are its
-    queries' share of the sum (Partial over those mesh dims).  The output
-    is placed as the queries are (the chunk axis made whole where the
-    chunks do not split evenly over the ranks)."""
-    mesh = qb.device_mesh
-    B, H, nq, q_chunk, _ = qb.shape
-    Hk, Dv = k.shape[1], v.shape[-1]
+    K and V are brought to the queries' batch layout, whole over the mesh
+    dims that shard the positions or the heads, except where they are
+    sharded on heads that are exactly the KV heads of the rank's query
+    heads.  The rank's query heads h read KV head h // g in whole GQA
+    groups, inside one group, or else one KV head a query head
+    (``jnp.repeat`` on the rank's block): the local K and V are cut or
+    gathered so that the local product folds them as the whole one does.
+    A rank's dK and dV are its queries' share of the sum (Partial over
+    those mesh dims)."""
+    mesh = q.device_mesh
+    H, Hk = q.shape[1], k.shape[1]
     if any(not (isinstance(p, Replicate) or (type(p) is Shard and p.dim in (0, 1, 2)))
-           for p in qb.placements):
-        raise ValueError(f"blocked_attention: queries (B, H, nq, q_chunk, D) placed "
-                         f"{tuple(qb.placements)}: only Shard(0), Shard(1), Shard(2) and "
-                         "Replicate are supported")
-    (b, hl, nql, _, _), (_, h0, c0, _, _) = local_block(qb.shape, mesh, qb.placements)
-    ranks = [math.prod(int(mesh.size(i)) for i, p in enumerate(qb.placements)
+           for p in q.placements):
+        raise ValueError(f"attention: queries {layout} placed {tuple(q.placements)}: only "
+                         "Shard(0), Shard(1), Shard(2) and Replicate are supported")
+    lb, off = local_block(q.shape, mesh, q.placements)
+    ranks = [math.prod(int(mesh.size(i)) for i, p in enumerate(q.placements)
                        if type(p) is Shard and p.dim == d) for d in range(3)]
     g = H // Hk
     # K and V sharded on heads where those are the rank's query heads' own
     aligned = Hk % ranks[1] == 0
     kv_place = [p if type(p) is Shard and (p.dim == 0 or p.dim == 1 and aligned) else Replicate()
-                for p in qb.placements]
+                for p in q.placements]
     # a mesh dim that shards the queries but not K and V sums their gradients
     grad_place = [Partial() if isinstance(kp, Replicate) and not isinstance(qp, Replicate)
-                  else kp for qp, kp in zip(qb.placements, kv_place, strict=True)]
+                  else kp for qp, kp in zip(q.placements, kv_place, strict=True)]
 
     def local(t):
         if not isinstance(t, DTensor):
@@ -343,6 +375,7 @@ def _local_blocks(qb, k, v, qpb, k_pos, window: Window, k_chunk: int) -> torch.T
         return t.to_local(grad_placements=grad_place)
 
     kl, vl = local(k), local(v)
+    hl, h0 = lb[1], off[1]
     if not aligned:
         lo, hi = h0 // g, (h0 + hl - 1) // g + 1
         if hi - lo == 1 or (h0 % g == 0 and hl % g == 0):
@@ -352,19 +385,45 @@ def _local_blocks(qb, k, v, qpb, k_pos, window: Window, k_chunk: int) -> torch.T
             # one KV head a query head
             kl, vl = (torch.cat([t[:, h // g:h // g + 1] for h in range(h0, h0 + hl)], dim=1)
                       for t in (kl, vl))
+    return kl, vl, lb[:3], off[2], ranks
+
+
+def _place_like(out: torch.Tensor, q, shape, ranks) -> torch.Tensor:
+    """The rank's output block ``out`` as a DTensor of ``shape`` placed as
+    the queries q are, a dim of the first three that does not split evenly
+    over its ranks made whole."""
+    mesh = q.device_mesh
+    out = DTensor.from_local(out, mesh, q.placements, run_check=False,
+                             shape=torch.Size(shape), stride=_contiguous(shape))
+    if not any(q.shape[d] % ranks[d] for d in range(3)):
+        return out
+    whole = [Replicate() if type(p) is Shard and q.shape[p.dim] % ranks[p.dim] else p
+             for p in q.placements]
+    return out.redistribute(mesh, whole)
+
+
+def _local_blocks(qb, k, v, qpb, k_pos, window: Window, k_chunk: int) -> torch.Tensor:
+    """:func:`_kv_loop` on this rank's block of the chunked queries qb, a
+    DTensor whose mesh dims shard its batch (dim 0), its heads (dim 1) or
+    its query chunks (dim 2), or replicate it; any other layout raises.
+
+    K and V are placed as :func:`_local_kv` places them; the loop then runs
+    on the local tensors (its carry at the rank's shape).  The output is
+    placed as the queries are (the chunk axis made whole where the chunks
+    do not split evenly over the ranks)."""
+    B, H, nq, q_chunk, _ = qb.shape
+    Dv = v.shape[-1]
+    kl, vl, (_, _, nql), c0, ranks = _local_kv(qb, k, v, "(B, H, nq, q_chunk, D)")
     out = _kv_loop(qb.to_local(), kl, vl, qpb[c0:c0 + nql], k_pos, window, k_chunk)
     shape = (B, H, nq * q_chunk, Dv)
     if not any(qb.shape[d] % ranks[d] for d in range(3)):
-        return DTensor.from_local(out, mesh, qb.placements, run_check=False,
+        return DTensor.from_local(out, qb.device_mesh, qb.placements, run_check=False,
                                   shape=torch.Size(shape), stride=_contiguous(shape))
     # chunks that do not split evenly: placed on the 5-D chunk axis, which
     # is made whole before the flatten (DTensor flattens no uneven shards)
-    shape5 = (B, H, nq, q_chunk, Dv)
-    out = DTensor.from_local(out.reshape(b, hl, nql, q_chunk, Dv), mesh, qb.placements,
-                             run_check=False, shape=torch.Size(shape5),
-                             stride=_contiguous(shape5))
-    whole = [Replicate() if type(p) is Shard and p.dim == 2 else p for p in qb.placements]
-    return out.redistribute(mesh, whole).reshape(shape)
+    b, hl = out.shape[:2]
+    out = _place_like(out.reshape(b, hl, nql, q_chunk, Dv), qb, (B, H, nq, q_chunk, Dv), ranks)
+    return out.reshape(shape)
 
 
 def gqa_attention(q, k, v, q_pos, k_pos, window: Window, *,

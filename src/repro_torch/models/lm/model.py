@@ -353,7 +353,9 @@ def lm_forward(
     if inputs_embeds is not None:
         h = inputs_embeds.to(dtype)
     else:
-        h = embed_rows(params.embed, tokens).to(dtype)
+        # the rows split on the sequence as constrain_bsd splits them, unless
+        # the patches are put before them first
+        h = embed_rows(params.embed, tokens, split_seq=patch_embeds is None).to(dtype)
     if patch_embeds is not None:
         h = torch.cat([dense(patch_embeds, params.patch_proj, dtype), h], dim=1)
     h = constrain_bsd(h)

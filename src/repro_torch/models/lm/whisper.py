@@ -167,7 +167,7 @@ def whisper_forward(params: Whisper, frames: torch.Tensor, dec_tokens: torch.Ten
     dtype = policy.at("lm/dense").compute_dtype
     head_dt = policy.at("lm/proj_out").compute_dtype
     memory = whisper_encode(params, frames, cfg, policy, remat=remat)
-    h = embed_rows(params.embed, dec_tokens).to(dtype)
+    h = embed_rows(params.embed, dec_tokens, split_seq=True).to(dtype)
     dpos = torch.arange(h.shape[1], device=h.device)
     epos = torch.arange(memory.shape[1], device=h.device)
     dcs, ecs = rope_cs(dpos, cfg.hd, cfg.rope_theta), rope_cs(epos, cfg.hd, cfg.rope_theta)

@@ -241,11 +241,12 @@ class Trainer:
             b = {k: v.reshape(nmicro, v.shape[0] // nmicro, *v.shape[1:])[i]
                  for k, v in batch.items()}
             loss, g = micro(b)
-            acc = {k: acc[k] + g[k] for k in names}
+            for k in names:     # summed in place: one f32 buffer a leaf
+                acc[k].add_(g.pop(k))
             acc_loss = acc_loss + loss
         inv = 1.0 / nmicro
         telem = merge_stacked(stack_snapshots(snapshots)) if snapshots else {}
-        return acc_loss * inv, {k: g * inv for k, g in acc.items()}, telem
+        return acc_loss * inv, {k: g.mul_(inv) for k, g in acc.items()}, telem
 
     def _train_step(self, policy: PrecisionPolicy, batch) -> tuple:
         use_scaling = loss_scaling_required(policy)
@@ -255,11 +256,9 @@ class Trainer:
             loss = loss / self.scale_state.scale
         finite = bool(all_finite(grads))
         if finite:
-            new_params, self.opt_state = self.cfg.optimizer.update(
-                grads, self.opt_state, self.params)
-            with torch.no_grad():
-                for k, p in self.params.items():
-                    p.copy_(new_params[k])
+            # the parameters and the moments written in place a leaf at a
+            # time, as the reference's step donates its own
+            self.opt_state = self.cfg.optimizer.update_(grads, self.opt_state, self.params)
         if use_scaling:
             self.scale_state = update_loss_scale(self.scale_state, finite)
         return float(loss), finite, telem
